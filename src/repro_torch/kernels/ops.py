@@ -1,0 +1,73 @@
+"""Public wrappers around the kernels (the port of ``repro.kernels.ops``).
+
+Same signatures and return conventions as the reference, minus its tile
+and autotune knobs.  Each call dispatches on the tensor's device: a CUDA
+tensor launches the hand-written kernel (or raises), a CPU tensor takes the
+kernel's plain version.  There is no fallback from one to the other.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import floyd_warshall as _fw
+from repro_torch.kernels import graph_fused as _gf
+from repro_torch.kernels import solver as _sv
+
+# name -> Kernel (each with its ``launches`` count), in main-path order
+KERNELS = {
+    "fused_adjacency": _gf.KERNEL,
+    "floyd_warshall": _fw.KERNEL,
+    "greedy_argmax": _sv.ARGMAX_KERNEL,
+    "swap_best_fused": _sv.SWAP_KERNEL,
+}
+
+
+def reset_launches() -> None:
+    for k in KERNELS.values():
+        k.launches = 0
+
+
+def launches() -> dict[str, int]:
+    return {name: k.launches for name, k in KERNELS.items()}
+
+
+# ------------------------------------------------------------------- APSP
+def floyd_warshall(h: torch.Tensor) -> torch.Tensor:
+    """All-pairs shortest paths of an (N, N) f32 adjacency (inf = no edge,
+    0 diagonal, no negative entry)."""
+    return _fw.floyd_warshall(h)
+
+
+# ------------------------------------------------- similarity -> adjacency
+def fused_adjacency(u: torch.Tensor, *, eps: float, sigma2: float,
+                    clamp: bool = False) -> torch.Tensor:
+    """Features u (N, d) -> 3DG adjacency R (N, N) in one fused kernel: V =
+    U·Uᵀ (``clamp`` adds Eq. 11/12's max(·, 0)), min-max normalize, R = 0 on
+    the diagonal, exp(−Vn/σ²) where Vn ≥ eps, inf elsewhere.  V never
+    exists in device memory.  Row-normalize u beforehand for cosine."""
+    return _gf.fused_adjacency(u, eps=eps, sigma2=sigma2, clamp=clamp)[0]
+
+
+def build_3dg_fused(u: torch.Tensor, *, eps: float = 0.1,
+                    sigma2: float = 0.01, clamp: bool = False):
+    """The fused adjacency chained into Floyd–Warshall.  Returns
+    (R (N, N), H_raw (N, N)); H_raw is uncapped (inf = disconnected)."""
+    r = fused_adjacency(u, eps=eps, sigma2=sigma2, clamp=clamp)
+    return r, floyd_warshall(r)
+
+
+# ------------------------------------------------------------ FedGS solver
+def greedy_argmax(diag: torch.Tensor, r: torch.Tensor, mask: torch.Tensor):
+    """Masked argmax of the greedy gain ``diag + 2r`` over (N,) (mask True =
+    addable).  Returns 0-dim (best gain, index); all masked -> (−1e18, 0)."""
+    return _sv.masked_argmax(diag, r, mask)
+
+
+def swap_best_fused(h: torch.Tensor, z: torch.Tensor, scale: float,
+                    sel: torch.Tensor, valid: torch.Tensor, a: torch.Tensor,
+                    b: torch.Tensor):
+    """Q-free best swap: h (N, N), z (N,), scale = alpha/N, sel (M,) global
+    row indices already clamped into range, valid (M,) real rows, a (M,) /
+    b (N,) out/in-gain terms carrying the −1e18 sentinel.  Returns 0-dim
+    (best delta, panel rank, column j)."""
+    return _sv.swap_best(h, z, scale, sel, valid, a, b)

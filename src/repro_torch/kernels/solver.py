@@ -1,0 +1,156 @@
+"""Kernels of the FedGS Eq. 16 solver: the greedy masked argmax and the
+Q-free best-swap reduction, each beside its plain version.
+
+Replaces ``repro/kernels/solver.py`` ``_masked_argmax_kernel`` /
+``masked_argmax_pallas`` and ``_swap_fused_kernel`` (+ ``_best_swap_update``)
+/ ``swap_gain_fused_pallas`` with ``csrc/solver.cu``.  The TPU kernels carry
+a running (best, index) pair across a sequential grid; the CUDA kernels
+fold packed (value, ~index) keys by max instead, which keeps the largest
+value and its LOWEST index in any block order — the reference's first-max
+tie-break.  Both are tiny per call, so at the main path's sizes they are
+bound by launch latency, and at large N by the bytes of the H panels the
+swap reads.  Q = sym(a·H) − diag(z) is never built: ``q_diag``/``q_row``
+rebuild what the greedy pass needs, and the swap kernel rebuilds each Q
+entry from H where it is consumed, with no FMA contraction (the op order
+of ``repro/kernels/solver.py:60-80``).
+
+The wrappers launch the kernel for CUDA tensors and take the plain version
+only for CPU tensors.  They return 0-dim tensors on the input's device and
+never sync with the host.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels._build import F, I, P, Kernel, stream_of
+
+NEG = -1e18         # the solver's masked-entry sentinel
+
+ARGMAX_KERNEL = Kernel("solver", "masked_argmax_launch", [P, P, P, I, P, P, P])
+SWAP_KERNEL = Kernel("solver", "swap_best_launch",
+                     [P, P, F, P, P, P, P, I, I, P, P, P, P, P])
+
+
+# ----------------------------------------------------- factored-Q providers
+def q_diag(h: torch.Tensor, z: torch.Tensor, a: float) -> torch.Tensor:
+    """diag(Q) for Q = sym(a·H) − diag(z), without building Q:
+    ``0.5·((a·H_kk − z_k) + (a·H_kk − z_k))``, the reference's op order."""
+    t = a * torch.diagonal(h) - z
+    return 0.5 * (t + t)
+
+
+def q_row(h: torch.Tensor, z: torch.Tensor, a: float,
+          k: torch.Tensor) -> torch.Tensor:
+    """Row k of Q = sym(a·H) − diag(z), rebuilt in the reference's op order
+    (``0.5·((a·H_kj − δz_k) + (a·H_jk − δz_k))``).  ``k`` is a 0-dim index
+    tensor, so no host sync."""
+    n = h.shape[0]
+    k1 = k.reshape(1)
+    zk = torch.index_select(z, 0, k1)
+    zc = torch.where(torch.arange(n, device=h.device) == k1, zk,
+                     torch.zeros_like(zk))
+    t1 = a * torch.index_select(h, 0, k1)[0] - zc
+    t2 = a * torch.index_select(h, 1, k1)[:, 0] - zc
+    return 0.5 * (t1 + t2)
+
+
+# ----------------------------------------------------------- masked argmax
+def masked_argmax_plain(diag, r, mask):
+    gain = diag + 2.0 * r
+    gain = torch.where(mask, gain, torch.full_like(gain, NEG))
+    gain = torch.where(torch.isnan(gain), torch.full_like(gain, NEG), gain)
+    idx = torch.argmax(gain)
+    return gain[idx], idx
+
+
+def masked_argmax_cuda(diag, r, mask):
+    n = diag.shape[0]
+    if not (diag.is_cuda and r.is_cuda and mask.is_cuda):
+        raise ValueError("masked_argmax_cuda takes CUDA tensors")
+    if r.shape != (n,) or mask.shape != (n,):
+        raise ValueError(f"shapes {tuple(diag.shape)}, {tuple(r.shape)}, "
+                         f"{tuple(mask.shape)} are not all (N,)")
+    d = diag.to(torch.float32).contiguous()
+    rr = r.to(torch.float32).contiguous()
+    mk = mask.to(torch.bool).contiguous()
+    val = torch.empty((), dtype=torch.float32, device=d.device)
+    idx = torch.empty((), dtype=torch.int64, device=d.device)
+    with torch.cuda.device(d.device):
+        ARGMAX_KERNEL(d.data_ptr(), rr.data_ptr(), mk.data_ptr(), n,
+                      val.data_ptr(), idx.data_ptr(), stream_of(d))
+    return val, idx
+
+
+def masked_argmax(diag: torch.Tensor, r: torch.Tensor, mask: torch.Tensor):
+    """Greedy gain ``diag + 2r`` masked (mask False or NaN -> −1e18) and
+    arg-maxed over (N,): returns (best gain, first index reaching it).  With
+    every lane masked: (−1e18, 0), as the reference."""
+    if diag.is_cuda:
+        return masked_argmax_cuda(diag, r, mask)
+    if diag.device.type != "cpu":
+        raise ValueError(f"masked_argmax: no kernel for {diag.device}")
+    return masked_argmax_plain(diag, r, mask)
+
+
+# -------------------------------------------------------------- swap sweep
+def swap_best_plain(h, z, scale: float, sel, valid, a, b):
+    n = h.shape[0]
+    hs = torch.index_select(h, 0, sel)                    # (M, N)
+    hts = torch.index_select(h, 1, sel).T                 # (M, N)
+    zsel = torch.where(valid, torch.index_select(z, 0, sel),
+                       torch.zeros((), dtype=z.dtype, device=z.device))
+    selcol = torch.where(valid, sel, torch.full_like(sel, -1))
+    cols = torch.arange(n, device=h.device)
+    zc = torch.where(selcol[:, None] == cols[None, :], zsel[:, None],
+                     torch.zeros((), dtype=z.dtype, device=z.device))
+    t1 = scale * hs - zc
+    t2 = scale * hts - zc
+    q = 0.5 * (t1 + t2)
+    delta = (a[:, None] + b[None, :]) - 2.0 * q
+    delta = torch.where(torch.isnan(delta), torch.full_like(delta, NEG), delta)
+    flat = torch.argmax(delta.reshape(-1))
+    return delta.reshape(-1)[flat], flat // n, flat % n
+
+
+def swap_best_cuda(h, z, scale: float, sel, valid, a, b):
+    n, m = h.shape[0], sel.shape[0]
+    if not all(t.is_cuda for t in (h, z, sel, valid, a, b)):
+        raise ValueError("swap_best_cuda takes CUDA tensors")
+    if h.shape != (n, n) or z.shape != (n,) or b.shape != (n,) \
+            or valid.shape != (m,) or a.shape != (m,):
+        raise ValueError("swap_best_cuda: shapes do not match (N, N), (N,), "
+                         "(M,)")
+    if not 0 < m * n < 2 ** 31:
+        raise ValueError(f"swap_best_cuda: panel {m} x {n} out of range")
+    hh = h.to(torch.float32).contiguous()
+    zz = z.to(torch.float32).contiguous()
+    ss = sel.to(torch.int64).contiguous()
+    vv = valid.to(torch.bool).contiguous()
+    aa = a.to(torch.float32).contiguous()
+    bb = b.to(torch.float32).contiguous()
+    scratch = torch.empty(2, dtype=torch.int64, device=h.device)
+    best = torch.empty((), dtype=torch.float32, device=h.device)
+    rank = torch.empty((), dtype=torch.int64, device=h.device)
+    j = torch.empty((), dtype=torch.int64, device=h.device)
+    with torch.cuda.device(h.device):
+        SWAP_KERNEL(hh.data_ptr(), zz.data_ptr(), scale, ss.data_ptr(),
+                    vv.data_ptr(), aa.data_ptr(), bb.data_ptr(), m, n,
+                    scratch.data_ptr(), best.data_ptr(), rank.data_ptr(),
+                    j.data_ptr(), stream_of(hh))
+    return best, rank, j
+
+
+def swap_best(h: torch.Tensor, z: torch.Tensor, scale: float,
+              sel: torch.Tensor, valid: torch.Tensor, a: torch.Tensor,
+              b: torch.Tensor):
+    """Q-free best swap over the selected rows: h (N, N), z (N,), ``scale``
+    = alpha/N (a float32 value), sel (M,) row indices in range, valid (M,)
+    real rows, a (M,) / b (N,) out/in-gain terms carrying −1e18 on invalid
+    entries.  delta = (a_s + b_j) − 2·Q[sel_s, j], NaN -> −1e18; returns
+    (best delta, rank s, column j) of the lowest flat index s·N + j
+    reaching the max.  H need not be symmetric."""
+    if h.is_cuda:
+        return swap_best_cuda(h, z, scale, sel, valid, a, b)
+    if h.device.type != "cpu":
+        raise ValueError(f"swap_best: no kernel for {h.device}")
+    return swap_best_plain(h, z, scale, sel, valid, a, b)

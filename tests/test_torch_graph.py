@@ -1,0 +1,266 @@
+"""The port's data, availability, fairness and 3DG graph modules against the
+JAX package (``repro``) on the CPU.  The kernels against their plain
+versions on the card are in ``test_torch_gpu.py``.
+
+Contracts:
+* dataset arrays and availability masks: bitwise (both are numpy);
+* Floyd–Warshall: bitwise given the same R;
+* R and H from features: identical inf pattern, finite entries within
+  rtol 1e-4 (V's f32 sums run in another order than XLA's matmul, and
+  exp(-Vn/σ²) multiplies Vn's error by 1/σ² = 100).  Below the smallest
+  normal float32, TINY = 1.2e-38, the bound is absolute instead: XLA:CPU's
+  float32 exp flushes denormal results to zero where torch keeps them, so
+  an edge of R may differ by up to TINY and a path of H (at most N − 1
+  edges) by up to N·TINY.  At σ² = 0.01 cosine graphs live entirely in
+  that range (max H ≈ 1e-33); the oracle dot graphs do not.
+"""
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from repro.core import availability as javail
+from repro.core import fairness as jfair
+from repro.core import graph as jgraph
+from repro.core import graph_device as jgd
+from repro.data.synthetic import make_synthetic as jax_make_synthetic
+from repro.kernels import ops as jops
+from repro.kernels.ref import floyd_warshall_ref as jax_fw_ref
+
+from repro_torch.core import availability as tavail
+from repro_torch.core import fairness as tfair
+from repro_torch.core import graph as tgraph
+from repro_torch.core import graph_device as tgd
+from repro_torch.data.synthetic import make_synthetic
+from repro_torch.kernels import graph_fused as tgf
+from repro_torch.kernels import ops as tops
+from repro_torch.kernels.ref import floyd_warshall_ref, similarity_ref
+
+R_RTOL = 1e-4
+TINY = float(np.finfo(np.float32).tiny)
+
+
+@pytest.fixture(scope="module")
+def datasets():
+    return (jax_make_synthetic(n_clients=30, seed=0),
+            make_synthetic(n_clients=30, seed=0))
+
+
+def _t(a):
+    return torch.as_tensor(np.array(a, copy=True))
+
+
+def _assert_graph_close(got, want, *, paths=False):
+    """R (``paths=False``) or H: same inf pattern, finite entries within
+    rtol 1e-4, absolute TINY per edge below the normal range."""
+    got, want = np.asarray(got), np.asarray(want)
+    assert np.array_equal(np.isinf(got), np.isinf(want))
+    assert not np.isnan(got).any()
+    fin = np.isfinite(want)
+    atol = TINY * (len(want) if paths else 1)
+    np.testing.assert_allclose(got[fin], want[fin], rtol=R_RTOL, atol=atol)
+
+
+def _adjacency(rng, n):
+    r = (rng.random((n, n)) * 10).astype(np.float32)
+    r[rng.random((n, n)) < 0.4] = np.inf
+    r = np.minimum(r, r.T)
+    np.fill_diagonal(r, 0)
+    return r
+
+
+# ------------------------------------------------------------ data + masks
+@pytest.mark.parametrize("field", ["x", "y", "sizes", "x_val", "y_val",
+                                   "label_dist", "opt_params"])
+def test_dataset_bitwise(datasets, field):
+    want, got = datasets
+    a, b = getattr(want, field), getattr(got, field)
+    assert a.dtype == b.dtype and np.array_equal(a, b)
+
+
+@pytest.mark.parametrize("name", tavail.ALL_MODES)
+def test_availability_masks_bitwise(datasets, name):
+    ds = datasets[1]
+    kw = dict(n_clients=ds.n_clients, data_sizes=ds.sizes,
+              label_sets=ds.label_sets(), num_labels=ds.num_classes, seed=99)
+    want = javail.host_trace(javail.make_mode(name, **kw), 25, 1234)
+    got = tavail.host_trace(tavail.make_mode(name, **kw), 25, 1234)
+    assert got.dtype == want.dtype and np.array_equal(got, want)
+
+
+def test_force_one_active_bitwise():
+    """An all-zero probability row takes the force-one draw in both."""
+    p = np.zeros(17)
+    for t in range(5):
+        want = javail.sample_bernoulli_np(p, javail.host_round_rng(7, t))
+        got = tavail.sample_bernoulli_np(p, tavail.host_round_rng(7, t))
+        assert np.array_equal(got, want) and got.sum() == 1
+
+
+@pytest.mark.parametrize("counts", [np.array([0, 3, 1, 7, 7, 2]),
+                                    np.zeros(9), np.arange(30) % 4])
+def test_fairness_matches_reference(counts):
+    assert tfair.count_variance(counts) == jfair.count_variance(counts)
+    assert tfair.count_range(counts) == jfair.count_range(counts)
+    assert tfair.gini(counts) == jfair.gini(counts)
+    c = counts.astype(np.float32)
+    for tf, jf in ((tfair.count_variance_device, jfair.count_variance_device),
+                   (tfair.count_range_device, jfair.count_range_device),
+                   (tfair.gini_device, jfair.gini_device)):
+        np.testing.assert_allclose(float(tf(_t(c))), float(jf(jnp.asarray(c))),
+                                   rtol=1e-6, atol=1e-7)
+
+
+# --------------------------------------------------------- Floyd–Warshall
+@pytest.mark.parametrize("n", [4, 60, 130])
+def test_floyd_warshall_bitwise_vs_reference(rng, n):
+    r = _adjacency(rng, n)
+    want = np.asarray(jax_fw_ref(jnp.asarray(r)))
+    for got in (floyd_warshall_ref(_t(r)), tops.floyd_warshall(_t(r))):
+        assert np.array_equal(got.numpy(), want)
+
+
+def test_floyd_warshall_bitwise_vs_pallas_kernel(rng):
+    r = _adjacency(rng, 60)
+    want = np.asarray(jops.floyd_warshall(jnp.asarray(r)))
+    assert np.array_equal(tops.floyd_warshall(_t(r)).numpy(), want)
+
+
+@pytest.mark.parametrize("n", [30, 130])
+def test_floyd_warshall_bitwise_on_oracle_adjacency(n):
+    """Given JAX's R of the oracle 3DG, the port's APSP is JAX's H bit for
+    bit (denormal edge weights included)."""
+    ds = jax_make_synthetic(n_clients=n, seed=0)
+    _, r, h = jgraph.build_3dg(ds.opt_params)
+    assert np.array_equal(tops.floyd_warshall(_t(r)).numpy(), h)
+
+
+def test_floyd_warshall_disconnected_stays_inf():
+    r = np.full((8, 8), np.inf, np.float32)
+    np.fill_diagonal(r, 0)
+    r[0, 1] = r[1, 0] = 1.0
+    h = tops.floyd_warshall(_t(r)).numpy()
+    assert h[0, 1] == 1.0 and np.isinf(h[0, 7])
+
+
+# ---------------------------------------------------- similarity + adjacency
+@pytest.mark.parametrize("n,d", [(10, 3), (50, 300)])
+def test_similarity_ref_vs_reference(rng, n, d):
+    u = rng.normal(size=(n, d)).astype(np.float32)
+    np.testing.assert_allclose(similarity_ref(_t(u)).numpy(), u @ u.T,
+                               rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("n", [7, 100, 130])
+def test_fused_adjacency_plain_vs_pallas(rng, n):
+    u = rng.normal(size=(n, 16)).astype(np.float32)
+    want = np.asarray(jops.fused_adjacency(jnp.asarray(u), eps=0.1,
+                                           sigma2=0.01))
+    got, stats = tgf.fused_adjacency(_t(u), eps=0.1, sigma2=0.01)
+    _assert_graph_close(got.numpy(), want)
+    v = u.astype(np.float64) @ u.T.astype(np.float64)
+    np.testing.assert_allclose(stats.numpy(), [v.min(), v.max()], rtol=1e-5)
+    assert np.array_equal(tops.fused_adjacency(_t(u), eps=0.1,
+                                               sigma2=0.01).numpy(),
+                          got.numpy())
+
+
+@pytest.mark.parametrize("n", [7, 100, 130])
+def test_build_3dg_fused_vs_pallas(rng, n):
+    u = rng.normal(size=(n, 16)).astype(np.float32)
+    jr, jh = jops.build_3dg_fused(jnp.asarray(u), eps=0.1, sigma2=0.01)
+    r, h = tops.build_3dg_fused(_t(u), eps=0.1, sigma2=0.01)
+    _assert_graph_close(r.numpy(), jr)
+    _assert_graph_close(h.numpy(), jh, paths=True)
+
+
+@pytest.mark.parametrize("n", [30, 130])
+def test_oracle_3dg_vs_reference(n):
+    """The quickstart's oracle 3DG (features = local optima, (N, 610))."""
+    ds = jax_make_synthetic(n_clients=n, seed=0)
+    jv, jr, jh = jgraph.build_3dg(ds.opt_params)
+    tv, tr, th = tgraph.build_3dg(ds.opt_params, device="cpu")
+    np.testing.assert_allclose(tv, jv, rtol=1e-4, atol=1e-6)
+    _assert_graph_close(tr, jr)
+    _assert_graph_close(th, jh, paths=True)
+    # edge weights reach the denormal range: flush-to-zero would show here
+    fin = np.isfinite(tr) & ~np.eye(n, dtype=bool)
+    assert tr[fin].min() > 0
+
+
+@pytest.mark.parametrize("sim", ["dot", "cosine", "functional"])
+def test_build_h_vs_reference(rng, sim):
+    """The capped H first, then the [0, 1]-normalized H: normalizing by the
+    max carries the absolute bound N·TINY up to N·TINY / max H."""
+    u = jnp.asarray(rng.normal(size=(67, 8)).astype(np.float32))
+    raw = {}
+    for normalize in (False, True):
+        cfg_j = jgd.GraphConfig(similarity=sim, normalize=normalize)
+        cfg_t = tgd.GraphConfig(similarity=sim, normalize=normalize)
+        want = np.asarray(jgd.build_h(u, cfg_j, backend="ref"))
+        got = tgd.build_h(_t(u), cfg_t).numpy()
+        if not normalize:
+            raw = want
+            _assert_graph_close(got, want, paths=True)
+        else:
+            np.testing.assert_allclose(got, want, rtol=R_RTOL,
+                                       atol=len(raw) * TINY / raw.max())
+
+
+def test_build_3dg_precomputed_vs_reference(rng):
+    v = rng.normal(size=(40, 40)).astype(np.float32)
+    v = 0.5 * (v + v.T)
+    cfg_j = jgd.GraphConfig(similarity="precomputed")
+    cfg_t = tgd.GraphConfig(similarity="precomputed")
+    jvn, jr, jh = jgd.build_3dg(jnp.asarray(v), cfg_j)
+    tvn, tr, th = tgd.build_3dg(_t(v), cfg_t)
+    np.testing.assert_allclose(tvn.numpy(), jvn, rtol=1e-6, atol=1e-7)
+    _assert_graph_close(tr.numpy(), jr)
+    _assert_graph_close(th.numpy(), jh, paths=True)
+
+
+def test_to_adjacency_high_eps_no_nan(rng):
+    """eps so high most edges drop: inf no-edge entries never leak NaN onto
+    the diagonal (the inf·0 hazard of multiplying by 1 − eye)."""
+    u = rng.normal(size=(33, 16)).astype(np.float32)
+    r = tops.fused_adjacency(_t(u), eps=0.95, sigma2=0.01).numpy()
+    assert not np.isnan(r).any()
+    assert np.array_equal(np.diag(r), np.zeros(33, np.float32))
+    vn = tgd.minmax01(_t(u) @ _t(u).T)
+    vn[3, 3] = 0.0                       # self-similarity below eps
+    assert tgd.to_adjacency(vn, eps=0.5)[3, 3] == 0.0
+
+
+def test_fused_pipeline_disconnected_clusters(rng):
+    n = 20
+    u = np.zeros((2 * n, 4), np.float32)
+    u[:n, 0] = 1.0 + 0.1 * rng.random(n).astype(np.float32)
+    u[n:, 1] = 1.0 + 0.1 * rng.random(n).astype(np.float32)
+    _, h = tops.build_3dg_fused(_t(u), eps=0.1, sigma2=0.01)
+    h = h.numpy()
+    assert np.all(np.isinf(h[:n, n:])) and np.all(np.isinf(h[n:, :n]))
+    assert np.all(np.isfinite(h[:n, :n])) and np.all(np.isfinite(h[n:, n:]))
+
+
+@pytest.mark.parametrize("normalize", [True, False])
+def test_cap_and_normalize_bitwise(rng, normalize):
+    h = (rng.random((25, 25)) * 3).astype(np.float32)
+    h[rng.random((25, 25)) < 0.3] = np.inf
+    want = np.asarray(jgd.cap_and_normalize(jnp.asarray(h), scale=2.0,
+                                            normalize=normalize))
+    got = tgd.cap_and_normalize(_t(h), scale=2.0, normalize=normalize)
+    assert np.array_equal(got.numpy(), want)
+    if not normalize:
+        assert np.array_equal(tgraph.finite_cap(h, device="cpu"),
+                              jgraph.finite_cap(h))
+
+
+@pytest.mark.parametrize("fn", ["build_3dg", "finite_cap"])
+def test_graph_face_without_device_raises_when_cuda_is_absent(monkeypatch,
+                                                              fn):
+    """The numpy face runs on CUDA unless asked for the CPU: with no CUDA
+    and no device it raises, never falling back silently."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        getattr(tgraph, fn)(np.ones((4, 4), np.float32))

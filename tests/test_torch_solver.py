@@ -1,0 +1,284 @@
+"""The port's FedGS solver against the JAX package on the CPU.  The solver
+kernels against their plain versions on the card are in
+``test_torch_gpu.py``.
+
+Contracts:
+* ``q_diag`` / ``q_row`` and ``greedy_argmax``: bitwise (value and index),
+  including exact ties, NaN and the all-masked lane;
+* ``swap_best_fused``: (best, rank, j) bitwise whenever best > −1e18/2.
+  The fixtures use H with a zero diagonal, as every H from
+  ``cap_and_normalize`` has: XLA:CPU contracts a·H_kk − z_k into an FMA
+  under jit (DESIGN assumption #23), so a nonzero diagonal can differ by
+  one ulp for a reason that is not the port's;
+* FedGS selected sets: identical given the same (H, counts, A_t, α, m,
+  m_target), on the port's Q-free route and on its dense one.
+"""
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from repro.core.sampler_device import _fedgs_select, _fedgs_solve
+from repro.core.sampler_device import select_k as jax_select_k
+from repro.kernels import ops as jops
+from repro.kernels import solver as jsolver
+
+from repro_torch.core import sampler_device as tsd
+from repro_torch.core.sampler import FedGSSampler, UniformSampler
+from repro_torch.kernels import ops as tops
+from repro_torch.kernels import solver as tsolver
+
+NEG = -1e18
+
+
+def _t(a):
+    return torch.as_tensor(np.array(a, copy=True))
+
+
+def _h(rng, n, *, integer=False):
+    h = (rng.integers(0, 3, (n, n)) if integer else rng.random((n, n)))
+    h = h.astype(np.float32)
+    h = 0.5 * (h + h.T)
+    np.fill_diagonal(h, 0)
+    return h
+
+
+def _rand_q(rng, n):
+    q = rng.random((n, n)).astype(np.float32)
+    q = 0.5 * (q + q.T)
+    q -= np.diag(rng.normal(size=n).astype(np.float32))
+    return q
+
+
+def _z(rng, n):
+    return rng.normal(size=n).astype(np.float32)
+
+
+# ----------------------------------------------------- factored-Q providers
+def test_q_diag_and_rows_bitwise(rng):
+    n = 37
+    h, z, al = _h(rng, n), _z(rng, n), float(np.float32(1.3) / np.float32(n))
+    assert np.array_equal(tsolver.q_diag(_t(h), _t(z), al).numpy(),
+                          np.asarray(jsolver.q_diag(jnp.asarray(h),
+                                                    jnp.asarray(z), al)))
+    for k in (0, 5, n - 1):
+        got = tsolver.q_row(_t(h), _t(z), al, torch.tensor(k)).numpy()
+        want = np.asarray(jsolver.q_row(jnp.asarray(h), jnp.asarray(z), al, k))
+        assert np.array_equal(got, want)
+
+
+# ----------------------------------------------------------- greedy argmax
+def _greedy_cases(rng):
+    n = 300
+    diag = rng.normal(size=n).astype(np.float32)
+    r = rng.normal(size=n).astype(np.float32)
+    mask = rng.random(n) < 0.6
+    yield "random", diag, r, mask
+    yield "ties", np.ones(n, np.float32), np.zeros(n, np.float32), mask
+    nan_d = diag.copy()
+    nan_d[[3, 17, 40]] = np.nan
+    yield "nan", nan_d, r, np.ones(n, bool)
+    yield "all_masked", diag, r, np.zeros(n, bool)
+    yield "ragged", diag[:7], r[:7], mask[:7]
+
+
+@pytest.mark.parametrize("case", ["random", "ties", "nan", "all_masked",
+                                  "ragged"])
+def test_greedy_argmax_bitwise_vs_pallas(rng, case):
+    _, diag, r, mask = next(c for c in _greedy_cases(rng) if c[0] == case)
+    jv, ji = jops.greedy_argmax(jnp.asarray(diag), jnp.asarray(r),
+                                jnp.asarray(mask))
+    tv, ti = tops.greedy_argmax(_t(diag), _t(r), _t(mask))
+    assert np.asarray(tv).tobytes() == np.asarray(jv, np.float32).tobytes()
+    assert int(ti) == int(ji)
+    if case == "all_masked":
+        assert float(tv) == np.float32(NEG) and int(ti) == 0
+
+
+# -------------------------------------------------------------- swap sweep
+def _swap_inputs(rng, n, m, *, integer=False, pad=0):
+    h = _h(rng, n, integer=integer)
+    z = _z(rng, n) if not integer else rng.integers(-2, 3, n).astype(np.float32)
+    s = np.zeros(n, bool)
+    s[rng.choice(n, m, replace=False)] = True
+    avail = rng.random(n) < 0.7
+    sel = np.sort(np.flatnonzero(s))
+    sel = np.concatenate([sel, np.full(pad, n - 1)])
+    valid = np.arange(len(sel)) < m
+    rr = rng.normal(size=n).astype(np.float32)
+    a = np.where(valid, (-2.0 * rr + 0.1)[sel], NEG).astype(np.float32)
+    b = np.where(~s & avail, 2.0 * rr + 0.1, NEG).astype(np.float32)
+    return h, z, sel, valid, a, b
+
+
+@pytest.mark.parametrize("n,m,integer,pad", [(7, 2, False, 0),
+                                             (100, 10, False, 0),
+                                             (130, 13, False, 3),
+                                             (52, 9, True, 0)])
+def test_swap_best_fused_bitwise_vs_pallas(rng, n, m, integer, pad):
+    h, z, sel, valid, a, b = _swap_inputs(rng, n, m, integer=integer, pad=pad)
+    al = 1.0 if integer else float(np.float32(1.3) / np.float32(n))
+    jb, jr, jj = jops.swap_best_fused(jnp.asarray(h), jnp.asarray(z),
+                                      jnp.float32(al), jnp.asarray(sel),
+                                      jnp.asarray(valid), jnp.asarray(a),
+                                      jnp.asarray(b))
+    tb, tr, tj = tops.swap_best_fused(_t(h), _t(z), al, _t(sel), _t(valid),
+                                      _t(a), _t(b))
+    assert float(jb) > NEG / 2
+    assert np.asarray(tb).tobytes() == np.asarray(jb, np.float32).tobytes()
+    assert (int(tr), int(tj)) == (int(jr), int(jj))
+
+
+def test_swap_best_fused_nan_entries(rng):
+    n, m = 40, 5
+    h, z, sel, valid, a, b = _swap_inputs(rng, n, m)
+    h[:, 11] = np.nan
+    al = float(np.float32(1.0) / np.float32(n))
+    args_j = (jnp.asarray(h), jnp.asarray(z), jnp.float32(al),
+              jnp.asarray(sel), jnp.asarray(valid), jnp.asarray(a),
+              jnp.asarray(b))
+    jb, jr, jj = jops.swap_best_fused(*args_j)
+    tb, tr, tj = tops.swap_best_fused(_t(h), _t(z), al, _t(sel), _t(valid),
+                                      _t(a), _t(b))
+    assert int(tj) != 11
+    assert np.asarray(tb).tobytes() == np.asarray(jb, np.float32).tobytes()
+    assert (int(tr), int(tj)) == (int(jr), int(jj))
+
+
+# ------------------------------------------------------------- FedGS solver
+def _jax_select(h, counts, avail, alpha, m, m_target, backend, sweeps):
+    return np.asarray(_fedgs_select(
+        jnp.asarray(h), jnp.asarray(counts), jnp.asarray(avail),
+        jnp.float32(alpha), m=m, max_sweeps=sweeps, m_target=m_target,
+        backend=backend))
+
+
+def _port_select(h, counts, avail, alpha, m, m_target, sweeps):
+    """The port's Q-free route (the one FedGSSampler takes)."""
+    return tsd.fedgs_select(_t(h), _t(counts), _t(avail), alpha, m=m,
+                            max_sweeps=sweeps, m_target=m_target).numpy()
+
+
+def _port_dense(h, counts, avail, alpha, m, m_target, sweeps):
+    """The port's dense route: Q = sym(alpha/N · H − diag(z)), then the
+    plain solver, as the reference's ``backend="ref"`` builds it."""
+    n = h.shape[0]
+    z = tsd.balance_z(_t(counts), m_target)
+    q = tsd._f32_ratio(alpha, n) * _t(h) - torch.diag(z)
+    q = 0.5 * (q + q.T)
+    return tsd.fedgs_solve(q, _t(avail), m=m, max_sweeps=sweeps).numpy()
+
+
+def _fedgs_case(rng, case):
+    m_target, alpha, sweeps = 5, 1.3, 12
+    if case in ("7", "100", "130"):
+        n = int(case)
+        h, avail = _h(rng, n), rng.random(n) < 0.8
+        avail[0] = True
+        counts = rng.integers(0, 6, n).astype(np.float32)
+    elif case == "all_unavailable":
+        n = 33
+        h, avail = _h(rng, n), np.zeros(n, bool)
+        counts = rng.integers(0, 6, n).astype(np.float32)
+    elif case == "fewer_than_m":
+        n = 40
+        h, avail = _h(rng, n), np.zeros(n, bool)
+        avail[[3, 17, 29]] = True
+        counts = rng.integers(0, 6, n).astype(np.float32)
+    elif case == "ties":
+        # alpha = N makes Q = H − diag(z) integer-valued: exact float ties
+        n, m_target = 52, 9
+        h, avail = _h(rng, n, integer=True), np.ones(n, bool)
+        counts, alpha = np.zeros(n, np.float32), float(n)
+    else:                                   # "nan": a NaN-poisoned client
+        n, m_target = 24, 6
+        h, avail = _h(rng, n), np.ones(n, bool)
+        h[5, :] = np.nan
+        h[:, 5] = np.nan
+        counts = rng.integers(0, 6, n).astype(np.float32)
+    m = min(m_target, int(avail.sum()))
+    return h, counts, avail, alpha, m, m_target, sweeps
+
+
+@pytest.mark.parametrize("case", ["7", "100", "130", "all_unavailable",
+                                  "fewer_than_m", "ties", "nan"])
+def test_fedgs_select_identical_sets(rng, case):
+    h, counts, avail, alpha, m, mt, sweeps = _fedgs_case(rng, case)
+    want = _jax_select(h, counts, avail, alpha, m, mt, "ref", sweeps)
+    assert np.array_equal(_jax_select(h, counts, avail, alpha, m, mt,
+                                      "pallas", sweeps), want)
+    assert np.array_equal(_port_dense(h, counts, avail, alpha, m, mt,
+                                      sweeps), want)
+    got = _port_select(h, counts, avail, alpha, m, mt, sweeps)
+    assert np.array_equal(got, want)
+    assert got.sum() == m and not np.any(got & ~avail)
+    if case == "nan":
+        assert not got[5]
+    if case == "fewer_than_m":
+        assert set(np.flatnonzero(got)) == {3, 17, 29}
+
+
+@pytest.mark.parametrize("case", ["random", "ties", "nan", "all_unavailable"])
+def test_fedgs_solve_dense_q_vs_reference(rng, case):
+    n = 52 if case == "ties" else 33
+    q = (rng.integers(0, 3, (n, n)).astype(np.float32) if case == "ties"
+         else _rand_q(rng, n))
+    if case == "ties":
+        q = 0.5 * (q + q.T)
+    if case == "nan":
+        q[5, :] = np.nan
+        q[:, 5] = np.nan
+    avail = np.zeros(n, bool) if case == "all_unavailable" else np.ones(n, bool)
+    for m in (3, 6):
+        want = np.asarray(_fedgs_solve(jnp.asarray(q), jnp.asarray(avail),
+                                       m=m, max_sweeps=16, backend="ref"))
+        got = tsd.fedgs_solve(_t(q), _t(avail), m=m, max_sweeps=16).numpy()
+        assert np.array_equal(got, want)
+
+
+def test_fedgs_sampler_host_face(rng):
+    """FedGSSampler.sample == fedgs_select on the capped, normalized H."""
+    n = 30
+    h = _h(rng, n) * 5
+    h[0, 1] = h[1, 0] = np.inf
+    counts = rng.integers(0, 4, n).astype(np.float64)
+    avail = rng.random(n) < 0.7
+    sp = FedGSSampler(alpha=1.0)
+    sp.set_graph(h)
+    got = sp.sample(avail=avail, m=6, rng=np.random.default_rng(0),
+                    counts=counts)
+    from repro.core.sampler import FedGSSampler as JaxFedGSSampler
+    jsp = JaxFedGSSampler(alpha=1.0)
+    jsp.set_graph(h)
+    want = jsp.sample(avail=avail, m=6, rng=np.random.default_rng(0),
+                      counts=counts)
+    assert np.array_equal(got, want)
+
+
+def test_select_k_matches_reference(rng):
+    s = rng.random(20) < 0.4
+    for k in (1, 5, 12):
+        ws, wv = jax_select_k(jnp.asarray(s), k)
+        gs, gv = tsd.select_k(_t(s), k)
+        assert np.array_equal(gs.numpy(), ws) and np.array_equal(gv.numpy(), wv)
+
+
+def test_uniform_select_invariants_and_spread():
+    """Uniform without replacement among A_t: exact size, never outside
+    A_t, and every available client drawn near m/|A| of the time."""
+    n, m = 12, 4
+    avail = np.ones(n, bool)
+    avail[[2, 7]] = False
+    hits = np.zeros(n)
+    rounds = 600
+    for t in range(rounds):
+        sel = UniformSampler().sample(avail=avail, m=m,
+                                      rng=np.random.default_rng(t))
+        assert len(sel) == m and np.all(avail[sel])
+        hits[sel] += 1
+    freq = hits[avail] / rounds
+    assert np.all(np.abs(freq - m / avail.sum()) < 0.08)
+    few = UniformSampler().sample(avail=np.eye(n, dtype=bool)[3], m=m,
+                                  rng=np.random.default_rng(0))
+    assert few.tolist() == [3]
