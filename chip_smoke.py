@@ -13,6 +13,11 @@ Phases, each printing one JSON line (any failure exits non-zero):
               shapes phases 3 and 4 give it), under the stated tolerance; kernel, plain and (where one PyTorch
               call computes the same function) library times by CUDA
               events, beside the least time the card could take.
+     The robust server update's two kernels likewise: memagg at (N, P, m)
+              in {(30, 610, 6), (1024, 610, 102), (2000, 300, 700),
+              (4096, 2048, 410)}, krum at (m, P) in {(6, 610), (64, 512),
+              (128, 2048), (256, 4096), (512, 16384)} with the Krum
+              selection compared too.
   3. slice    the quickstart: Synthetic(0.5, 0.5), N = 30, logistic
               regression, LN(0.5) availability, 40 rounds of FedGS
               (alpha = 1, oracle 3DG built by the kernels) and of Uniform
@@ -20,11 +25,19 @@ Phases, each printing one JSON line (any failure exits non-zero):
               same init and index draws: the same clients every round,
               val_loss within 1e-4.  Launch counts are reset just before the
               card's FedGS run and read just after.
-  4. scale    5 rounds of FedGS on the card at N = 30 (M = 6) and at
-              N = 1024 clients (M = 102): graph build, per-round solve and
-              training times, and one profiled round's device busy share.
-  5. the ``{"kernels": [...]}`` line (times at the main path's N = 30,
-     M = 6).
+  4. robust   the quickstart under a 20% sign-flip attack (scale 5) against
+              fedavg, median, trimmed_mean(0.25), multikrum(f=1, k=3) and
+              memory(0.9), plus a benign memory run, 40 rounds each on the
+              card, launch counts reset before and read after each run;
+              the memory and multikrum runs again on the CPU with the
+              card's H: the same sets and Krum rows every round, val_loss
+              within 1e-4.  Prints each defense's final val_acc.
+  5. scale    5 rounds of FedGS on the card at N = 30 (M = 6) and at
+              N = 1024 clients (M = 102), and FedGS + memory at N = 1024:
+              graph build, per-round solve, training and aggregation
+              times, and one profiled round's device busy share.
+  6. the ``{"kernels": [...]}`` line (times at the main path's shapes:
+     N = 30, M = 6, P = 610).
 The last line is ``{"ok": true, "device": {...}}``.  The script needs a CUDA
 device and the repository's ``src/`` beside it; without either it exits
 non-zero and prints no result.  Full output also goes to
@@ -47,9 +60,21 @@ OUT = ROOT / "chiprun_out"
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_OPS_PER_S = 67e12
 SIZES = (30, 130, 1024, 4096)
-# (N, sample_frac) of the engine runs in phases 3 and 4; the first is the
+# (N, sample_frac) of the engine runs in phases 3 and 5; the first is the
 # main path.  The engine's M is max(1, round(frac * N)).
 ENGINE_RUNS = ((30, 0.2), (1024, 0.1))
+# memagg (N, P, m) and krum (m, P) shapes; the first of each is the main
+# path's (the quickstart's panel, P = 610 logistic params)
+MEMAGG_SHAPES = ((30, 610, 6), (1024, 610, 102), (2000, 300, 700),
+                 (4096, 2048, 410))
+KRUM_SHAPES = ((6, 610), (64, 512), (128, 2048), (256, 4096), (512, 16384))
+FEDGS_KERNELS = ("fused_adjacency", "floyd_warshall", "greedy_argmax",
+                 "swap_best_fused")
+# robust phase: the robustness bench's attack (benchmarks/robustness_bench
+# .py ATTACKS) and its f_krum / krum_multi formula at M = 6
+SIGN_FLIP = {"frac": 0.2, "scale": 5.0}
+KRUM_F = max(1, min(math.ceil(0.2 * 6) + 1, (6 - 3) // 2))
+KRUM_MULTI = max(2, 6 // 2)
 MAIN_N = ENGINE_RUNS[0][0]
 NEG = -1e18
 
@@ -62,6 +87,10 @@ KERNEL_INFO = {
                       "src/repro/kernels/solver.py:83"),
     "swap_best_fused": ("src/repro_torch/kernels/csrc/solver.cu",
                         "src/repro/kernels/solver.py:191"),
+    "memagg": ("src/repro_torch/kernels/csrc/aggregate.cu",
+               "src/repro/kernels/aggregate.py:61"),
+    "krum": ("src/repro_torch/kernels/csrc/krum.cu",
+             "src/repro/kernels/krum.py:36"),
 }
 
 _log_lines: list[str] = []
@@ -242,7 +271,93 @@ def kernel_checks(np, torch, n: int, dev) -> dict:
     return rows
 
 
-# ------------------------------------------------------------ phases 3, 4
+def robust_kernel_checks(np, torch, dev) -> dict:
+    """memagg and krum against their plain versions at every listed shape.
+    Returns name/shape -> row."""
+    from repro_torch.fed.aggregator_device import krum_select
+    from repro_torch.kernels import aggregate as ag
+    from repro_torch.kernels import krum as kr
+
+    rows = {}
+    for n, p, m in MEMAGG_SHAPES:
+        rng = np.random.default_rng(n + p + m)
+        mem = torch.as_tensor(rng.normal(size=(n, p)), dtype=torch.float32,
+                              device=dev)
+        upd = torch.as_tensor(rng.normal(size=(m, p)), dtype=torch.float32,
+                              device=dev)
+        sel = torch.as_tensor(np.sort(rng.choice(n, m, replace=False)),
+                              device=dev)
+        valid = torch.ones(m, dtype=torch.bool, device=dev)
+        w = torch.as_tensor(rng.random(n), dtype=torch.float32, device=dev)
+        w = w / w.sum()
+        pm, pr = ag.memory_scatter_reduce_ref(mem.clone(), upd, sel, valid, w)
+        km, kr1 = ag.memory_aggregate_cuda(mem.clone(), upd, sel, valid, w)
+        _, kr2 = ag.memory_aggregate_cuda(mem.clone(), upd, sel, valid, w)
+        if not torch.equal(km, pm):
+            raise AssertionError(f"memagg {n, p, m}: panel not bitwise")
+        if not torch.equal(kr1, kr2):
+            raise AssertionError(f"memagg {n, p, m}: red not repeatable")
+        err = (kr1 - pr).abs()
+        if not bool((err <= 1e-5 + 1e-5 * pr.abs()).all()):
+            raise AssertionError(f"memagg {n, p, m}: red beyond 1e-5 "
+                                 f"({float(err.max())})")
+        work = mem.clone()
+        # read upd, the N - m untouched rows and w; write the m new rows
+        # and red; read sel (int64) and valid (bool)
+        b, by = bound(4 * (m * p + n * p + n + p) + 9 * m, 2 * n * p)
+
+        def library():
+            work.index_copy_(0, sel, upd)
+            return torch.mv(work.T, w)
+        rows[f"memagg/{n}x{p}/m={m}"] = dict(
+            n=n, p=p, m=m, max_abs_err=float(err.max()),
+            tolerance="panel bitwise, red atol = rtol = 1e-5, red bitwise "
+                      "launch to launch",
+            ms=cuda_ms(torch, lambda: ag.memory_aggregate_cuda(
+                work, upd, sel, valid, w)),
+            plain_ms=cuda_ms(torch, lambda: ag.memory_scatter_reduce_ref(
+                work, upd, sel, valid, w)),
+            bound_ms=b, bound_by=by, library_ms=cuda_ms(torch, library),
+            library="two calls: index_copy_ of the rows + torch.mv")
+
+    rng = np.random.default_rng(0)            # the bench's recipe, in order
+    for m, p in KRUM_SHAPES:
+        x = torch.as_tensor(rng.normal(size=(m, p)).astype(np.float32),
+                            device=dev)
+        valid = torch.as_tensor(rng.random(m) < 0.95, device=dev)
+        dk = kr.krum_distances_cuda(x)
+        dp = kr.krum_pairwise_ref(x)
+        if not torch.equal(dk, dk.T):
+            raise AssertionError(f"krum {m, p}: panel not symmetric")
+        n2 = torch.sum(x.double() ** 2, dim=1)
+        scale = n2[:, None] + n2[None, :]
+        err = (dk.double() - dp.double()).abs()
+        # f32 round-off of two length-P sums in different orders
+        tol = 8.0 * math.sqrt(p) * 2.0 ** -24 * scale
+        if not bool((err <= tol).all()):
+            raise AssertionError(f"krum {m, p}: panel beyond its bound "
+                                 f"({float((err / tol).max())} of it)")
+        f = max(1, m // 5)
+        ck, _ = krum_select(x, valid, f, 3)
+        cp, _ = krum_select(x.cpu(), valid.cpu(), f, 3)
+        if not torch.equal(ck.cpu(), cp):
+            raise AssertionError(f"krum {m, p}: selection differs")
+        b, by = bound(4 * (m * p + m * m), m * (m + 1) * p)
+        rows[f"krum/m={m}/p={p}"] = dict(
+            m=m, p=p, max_abs_err=float(err.max()),
+            max_err_over_scale=float((err / scale).max()),
+            tolerance="|dD| <= 8 sqrt(P) 2^-24 (|x_i|^2 + |x_j|^2); "
+                      "exactly symmetric; selection bitwise",
+            selection_bitwise=True, chosen=int(ck.sum()),
+            ms=cuda_ms(torch, lambda: kr.krum_distances_cuda(x)),
+            plain_ms=cuda_ms(torch, lambda: kr.krum_pairwise_ref(x)),
+            bound_ms=b, bound_by=by,
+            library_ms=cuda_ms(torch, lambda: torch.cdist(x, x).square()),
+            library="torch.cdist(x, x).square()")
+    return rows
+
+
+# --------------------------------------------------------- phases 3, 4, 5
 def quickstart_cfg(FLConfig, rounds=40):
     return FLConfig(rounds=rounds, sample_frac=0.2, local_steps=10,
                     batch_size=10, lr=0.1, eval_every=4, seed=0)
@@ -274,7 +389,7 @@ def slice_run(np, torch, dev) -> tuple[dict, dict]:
     launches = ops.launches()
     if card.m != MAIN_M:
         raise AssertionError(f"quickstart M = {card.m}, expected {MAIN_M}")
-    if not all(v > 0 for v in launches.values()):
+    if not all(launches[k] > 0 for k in FEDGS_KERNELS):
         raise AssertionError(f"a kernel of the main path never ran: {launches}")
 
     uni = FLEngine(ds, logistic_regression(), UniformSampler(), mode(),
@@ -319,14 +434,105 @@ def slice_run(np, torch, dev) -> tuple[dict, dict]:
     return info, launches
 
 
-def scale_run(np, torch, dev, *, n_clients: int, frac: float,
-              rounds: int = 5) -> dict:
-    """FedGS on the card with the solve and the training timed per round
-    (a sync around each), then one more round (with its eval) under
-    torch.profiler for the device's busy share."""
+def robust_run(np, torch, dev) -> tuple[dict, dict]:
+    """The quickstart under sign-flip against each defense on the card, and
+    the memory and multikrum runs again on the CPU.  Returns (info, the
+    launch counts of the memory and multikrum runs)."""
     from repro_torch.core.availability import make_mode
     from repro_torch.core.sampler import FedGSSampler
     from repro_torch.data.synthetic import make_synthetic
+    from repro_torch.fed.aggregator_device import make_aggregator_process
+    from repro_torch.fed.engine import FLConfig, FLEngine
+    from repro_torch.fed.faults_device import make_fault_process
+    from repro_torch.fed.models import logistic_regression
+    from repro_torch.kernels import ops
+
+    ds = make_synthetic(n_clients=30, alpha=0.5, beta=0.5, seed=0)
+    defenses = {
+        "fedavg": lambda: make_aggregator_process("fedavg"),
+        "median": lambda: make_aggregator_process("median"),
+        "trimmed_mean": lambda: make_aggregator_process("trimmed_mean",
+                                                        beta_trim=0.25),
+        "multikrum": lambda: make_aggregator_process(
+            "multikrum", krum_f=KRUM_F, krum_multi=KRUM_MULTI),
+        "memory": lambda: make_aggregator_process("memory", gamma=0.9),
+    }
+    runs = [(d, "sign_flip") for d in defenses] + [("memory", "none")]
+
+    def engine(defense, attack, device):
+        fault = make_fault_process(attack, ds.n_clients, **(
+            SIGN_FLIP if attack == "sign_flip" else {}))
+        return FLEngine(ds, logistic_regression(), FedGSSampler(alpha=1.0),
+                        make_mode("LN", n_clients=ds.n_clients, beta=0.5,
+                                  seed=99),
+                        quickstart_cfg(FLConfig), device=device,
+                        aggregator=defenses[defense](), fault=fault)
+
+    out, hists, cards, seconds = {}, {}, {}, {}
+    for defense, attack in runs:
+        key = f"{defense}/{attack}"
+        ops.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eng = engine(defense, attack, dev)
+        eng.install_oracle_graph(ds.opt_params)
+        hist = eng.run()
+        torch.cuda.synchronize()
+        seconds[key] = time.perf_counter() - t0
+        out[key] = ops.launches()
+        if not (np.all(np.isfinite(hist.val_loss)) and len(hist.val_loss) == 11):
+            raise AssertionError(f"{key}: val_loss {hist.val_loss}")
+        if not all(out[key][k] > 0 for k in FEDGS_KERNELS):
+            raise AssertionError(f"{key}: a FedGS kernel never ran: {out[key]}")
+        want = {"memagg": 40 if defense == "memory" else 0,
+                "krum": 40 if defense == "multikrum" else 0}
+        if any(out[key][k] != v for k, v in want.items()):
+            raise AssertionError(f"{key}: launches {out[key]}, want {want}")
+        hists[key], cards[key] = hist, eng
+
+    cpu_check = {}
+    for key in ("memory/sign_flip", "multikrum/sign_flip"):
+        defense, attack = key.split("/")
+        cpu = engine(defense, attack, "cpu")
+        cpu.install_graph_from_H(cards[key].sampler._h.cpu())
+        hc, hp = hists[key], cpu.run()
+        bad = [t for t, (a, b) in enumerate(zip(hc.all_sampled,
+                                                hp.all_sampled)) if a != b]
+        if len(hp.all_sampled) != 40 or bad:
+            raise AssertionError(f"{key}: card and CPU sets differ in {bad}")
+        if hc.chosen != hp.chosen or \
+                len(hc.chosen) != (40 if defense == "multikrum" else 0):
+            raise AssertionError(f"{key}: Krum rows differ card vs CPU")
+        dloss = float(np.max(np.abs(np.subtract(hc.val_loss, hp.val_loss))))
+        if dloss > 1e-4:
+            raise AssertionError(f"{key}: val_loss card vs CPU {dloss}")
+        cpu_check[key] = {"sets_identical": True,
+                          "krum_rounds_compared": len(hc.chosen),
+                          "val_loss_max_diff": dloss}
+    acc = {k: h.val_acc[-1] for k, h in hists.items()}
+    info = {"phase": "robust", "n": 30, "m": 6, "rounds": 40,
+            "attack": {"sign_flip": SIGN_FLIP},
+            "krum": {"f": KRUM_F, "multi": KRUM_MULTI},
+            "final_val_acc": acc,
+            "best_val_loss": {k: h.best_loss for k, h in hists.items()},
+            "card_s": seconds, "launches": out, "card_vs_cpu": cpu_check,
+            "finding_multikrum_beats_fedavg":
+                acc["multikrum/sign_flip"] > acc["fedavg/sign_flip"],
+            "finding_trimmed_mean_beats_fedavg":
+                acc["trimmed_mean/sign_flip"] > acc["fedavg/sign_flip"]}
+    return info, {"memagg": out["memory/sign_flip"]["memagg"],
+                  "krum": out["multikrum/sign_flip"]["krum"]}
+
+
+def scale_run(np, torch, dev, *, n_clients: int, frac: float,
+              rounds: int = 5, aggregator: str = "fedavg") -> dict:
+    """FedGS on the card with the solve, the training and the aggregation
+    timed per round (a sync around each), then one more round (with its
+    eval) under torch.profiler for the device's busy share."""
+    from repro_torch.core.availability import make_mode
+    from repro_torch.core.sampler import FedGSSampler
+    from repro_torch.data.synthetic import make_synthetic
+    from repro_torch.fed.aggregator_device import make_aggregator_process
     from repro_torch.fed.engine import FLConfig, FLEngine
     from repro_torch.fed.models import logistic_regression
 
@@ -340,13 +546,14 @@ def scale_run(np, torch, dev, *, n_clients: int, frac: float,
                        batch_size=10, lr=0.1, eval_every=1, seed=0)
         return FLEngine(ds, logistic_regression(), sampler,
                         make_mode("LN", n_clients=ds.n_clients, beta=0.5,
-                                  seed=99), cfg, device=dev)
+                                  seed=99), cfg, device=dev,
+                        aggregator=make_aggregator_process(aggregator))
 
     eng = engine(rounds)
     if eng.m != engine_m(n_clients, frac):
         raise AssertionError(f"N={n_clients}: M = {eng.m}, expected "
                              f"{engine_m(n_clients, frac)}")
-    times = {"solve": [], "train": []}
+    times = {"solve": [], "train": [], "aggregate": []}
 
     def timed(fn, key):
         def wrapped(*a, **kw):
@@ -366,6 +573,7 @@ def scale_run(np, torch, dev, *, n_clients: int, frac: float,
     sample = sampler.sample
     sampler.sample = timed(sample, "solve")
     eng._trainer = timed(eng._trainer, "train")
+    eng._server.apply = timed(eng._server.apply, "aggregate")
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     hist = eng.run()
@@ -394,9 +602,11 @@ def scale_run(np, torch, dev, *, n_clients: int, frac: float,
     top = sorted(((e.key, e.self_device_time_total, e.count) for e in on_dev),
                  key=lambda x: -x[1])[:6]
     return {"phase": "scale", "n": n_clients, "m": eng.m, "rounds": rounds,
+            "aggregator": aggregator,
             "x_bytes": int(ds.x.nbytes), "data_gen_s": data_s,
             "graph_build_ms": graph_ms, "solve_ms_per_round": times["solve"],
-            "train_ms_per_round": times["train"], "run_s": run_s,
+            "train_ms_per_round": times["train"],
+            "aggregate_ms_per_round": times["aggregate"], "run_s": run_s,
             "peak_mem_bytes": int(torch.cuda.max_memory_allocated()),
             "val_loss": hist.val_loss,
             "profiled_round_wall_ms": wall_ms,
@@ -433,23 +643,35 @@ def main() -> int:
         rows = kernel_checks(np, torch, n, dev)
         per_n[n] = rows
         emit({"phase": "kernels", "n": n, "card": smi, "rows": rows})
+    robust_rows = robust_kernel_checks(np, torch, dev)
+    emit({"phase": "kernels", "robust": True, "card": smi,
+          "rows": robust_rows})
 
     info, launches = slice_run(np, torch, dev)
     emit(info)
+    info, robust_launches = robust_run(np, torch, dev)
+    emit(info)
+    launches = {**launches, **robust_launches}
     for n, frac in ENGINE_RUNS:
         emit(scale_run(np, torch, dev, n_clients=n, frac=frac))
+    emit(scale_run(np, torch, dev, n_clients=ENGINE_RUNS[1][0],
+                   frac=ENGINE_RUNS[1][1], aggregator="memory"))
+    main_rows = {
+        "memagg": robust_rows["memagg/{}x{}/m={}".format(*MEMAGG_SHAPES[0])],
+        "krum": robust_rows["krum/m={}/p={}".format(*KRUM_SHAPES[0])]}
 
     kernels = []
     for name, (source, replaces) in KERNEL_INFO.items():
-        row = per_n[MAIN_N][f"{name}/m={MAIN_M}" if name == "swap_best_fused"
-                            else name]
+        row = main_rows.get(name) or per_n[MAIN_N][
+            f"{name}/m={MAIN_M}" if name == "swap_best_fused" else name]
         kernels.append({"name": name, "route": "cuda", "source": source,
                         "replaces": replaces, "launches": launches[name],
                         "max_abs_err": row["max_abs_err"], "ms": row["ms"],
                         "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
                         "bound_by": row["bound_by"],
-                        "library_ms": row["library_ms"], "n": MAIN_N,
-                        **({"m": row["m"]} if "m" in row else {}),
+                        "library_ms": row["library_ms"],
+                        **{k: row[k] for k in ("n", "m", "p") if k in row},
+                        **({} if "n" in row else {"n": MAIN_N}),
                         "parity": "pass"})
     emit({"kernels": kernels})
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})

@@ -5,16 +5,18 @@ Per round t:
   1. the availability mode draws A_t            (independent numpy stream)
   2. the sampler picks S_t ⊆ A_t, |S_t| ≤ M     (FedGS solves Eq. 16)
   3. E local SGD steps on the M sampled clients, batched
-  4. Eq. 18 FedAvg
-  5. the count update
+  4. optional fault injection into the local updates (``fed/faults_device``)
+  5. the server update: any aggregator family (``fed/aggregator_device``;
+     default Eq. 18 FedAvg)
+  6. the count update
 Evaluation on the shared validation split; the history records loss,
 accuracy and count fairness.
 
 Everything runs on ``device``: CUDA unless the caller asks for the CPU.
-On CUDA the 3DG build and the FedGS solve go through the hand-written
-kernels.  A round syncs with the host where it must: reading the sampled
-set (the availability draw and the counts are host numpy, as in the
-reference) and the eval numbers.
+On CUDA the 3DG build, the FedGS solve and the memory and krum server
+updates go through the hand-written kernels.  A round syncs with the host
+where it must: reading the sampled set (the availability draw and the
+counts are host numpy, as in the reference) and the eval numbers.
 """
 from __future__ import annotations
 
@@ -31,6 +33,7 @@ from repro_torch.core.fairness import count_variance
 from repro_torch.core.sampler import FedGSSampler, Sampler
 from repro_torch.data.fed_dataset import FedDataset
 from repro_torch.fed.client import default_batch_indices, make_local_trainer
+from repro_torch.fed.faults_device import HostFaultInjector, make_fault_process
 from repro_torch.fed.server import ServerAggregator
 
 
@@ -56,6 +59,7 @@ class History:
     count_var: list = field(default_factory=list)
     sampled: list = field(default_factory=list)       # at eval rounds
     all_sampled: list = field(default_factory=list)   # every round
+    chosen: list = field(default_factory=list)        # krum's rows, every round
 
     @property
     def best_loss(self) -> float:
@@ -68,14 +72,22 @@ class History:
 
 class FLEngine:
     def __init__(self, ds: FedDataset, model, sampler: Sampler, mode,
-                 cfg: FLConfig, *, device=None,
-                 init_params: Optional[dict] = None,
-                 batch_indices: Optional[Callable] = None):
-        """``device`` None means CUDA (and raises without one).
+                 cfg: FLConfig, *, aggregator=None, fault=None,
+                 fault_frac: float = 0.0, fault_seed: Optional[int] = None,
+                 device=None, init_params: Optional[dict] = None,
+                 batch_indices: Optional[Callable] = None,
+                 fault_draws: Optional[Callable] = None):
+        """``aggregator`` is any ``fed.aggregator_device.AggregatorProcess``
+        (default FedAvg).  ``fault`` is a ``fed.faults_device.FaultProcess``
+        or a family name (built with ``fault_frac`` adversarial clients),
+        injected between local training and the server update;
+        ``fault_seed`` (default ``cfg.seed + 0xFA17``) seeds its draws.
+        ``device`` None means CUDA (and raises without one).
         ``init_params`` (a dict of tensors) replaces the model's own init,
-        and ``batch_indices(t, sel, sizes) -> (M, E, B)`` replaces the
-        default index draws: the seams that let a run replay the JAX
-        package's random draws."""
+        ``batch_indices(t, sel, sizes) -> (M, E, B)`` the default index
+        draws and ``fault_draws(kind, t, shape)`` the fault families'
+        standard-normal draws (``HostFaultInjector``): the seams that let a
+        run replay the JAX package's random draws."""
         self.ds, self.model, self.sampler, self.mode, self.cfg = \
             ds, model, sampler, mode, cfg
         self.device = resolve_device(device, who="FLEngine")
@@ -83,7 +95,16 @@ class FLEngine:
         self.m = max(1, int(round(cfg.sample_frac * self.n)))
         self.init_params = init_params
         self.batch_indices = batch_indices
-        self._server = ServerAggregator(n_clients=self.n)
+        self._server = ServerAggregator(aggregator, n_clients=self.n,
+                                        data_sizes=ds.sizes, seed=cfg.seed)
+        if isinstance(fault, str):
+            fault = make_fault_process(fault, self.n, frac=fault_frac)
+        if fault is not None and fault.family != "none":
+            self._faults = HostFaultInjector(
+                fault, fault_seed=cfg.seed + 0xFA17 if fault_seed is None
+                else fault_seed, draws=fault_draws)
+        else:
+            self._faults = None
         self._trainer = make_local_trainer(
             model, local_steps=cfg.local_steps, batch_size=cfg.batch_size,
             prox_mu=cfg.prox_mu)
@@ -139,7 +160,10 @@ class FLEngine:
             params = self.model.init(torch.Generator().manual_seed(cfg.seed),
                                      device=dev)
         self._server.init(params)
+        if self._faults is not None:
+            self._faults.init(params)
         hist = History()
+        chosen = []
         xs, ys, xv, yv = self._x, self._y, self._xv, self._yv
 
         for t in range(cfg.rounds):
@@ -152,8 +176,12 @@ class FLEngine:
             sel_t = torch.as_tensor(sel, dtype=torch.int64, device=dev)
             local = self._trainer(params, xs[sel_t], ys[sel_t], lr,
                                   self._indices(t, sel))
+            if self._faults is not None:
+                local = self._faults.inject(local, params, sel, avail, t)
             params = self._server.apply(
                 local, self.ds.sizes[sel].astype(np.float32), sel, avail, t)
+            if self._server.last_chosen is not None:
+                chosen.append(self._server.last_chosen)
             self.counts[sel] += 1
             hist.all_sampled.append(sel.tolist())
 
@@ -168,5 +196,7 @@ class FLEngine:
                 hist.sampled.append(sel.tolist())
                 if progress:
                     progress(t, vl, va)
+        # read krum's choices once, after the rounds: no sync per round
+        hist.chosen = [c.tolist() for c in chosen]
         self.params = params
         return hist

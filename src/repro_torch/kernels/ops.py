@@ -9,8 +9,10 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import aggregate as _ag
 from repro_torch.kernels import floyd_warshall as _fw
 from repro_torch.kernels import graph_fused as _gf
+from repro_torch.kernels import krum as _kr
 from repro_torch.kernels import solver as _sv
 
 # name -> Kernel (each with its ``launches`` count), in main-path order
@@ -19,6 +21,8 @@ KERNELS = {
     "floyd_warshall": _fw.KERNEL,
     "greedy_argmax": _sv.ARGMAX_KERNEL,
     "swap_best_fused": _sv.SWAP_KERNEL,
+    "memagg": _ag.KERNEL,
+    "krum": _kr.KERNEL,
 }
 
 
@@ -71,3 +75,20 @@ def swap_best_fused(h: torch.Tensor, z: torch.Tensor, scale: float,
     b (N,) out/in-gain terms carrying the −1e18 sentinel.  Returns 0-dim
     (best delta, panel rank, column j)."""
     return _sv.swap_best(h, z, scale, sel, valid, a, b)
+
+
+# --------------------------------------------------- robust server update
+def memory_aggregate(mem: torch.Tensor, upd: torch.Tensor, sel: torch.Tensor,
+                     valid: torch.Tensor, w: torch.Tensor):
+    """The memory family's panel update, IN PLACE on ``mem``: rows
+    ``sel[k]`` of the (N, P) panel take the (M, P) updates where ``valid``,
+    then red = w · panel over the (N,) normalized weights.  Returns
+    ``(mem, red (P,))``; the panel is bitwise the plain scatter's."""
+    return _ag.memory_aggregate(mem, upd, sel, valid, w)
+
+
+def krum_distances(x: torch.Tensor) -> torch.Tensor:
+    """Pairwise squared distances D[i, j] = ‖x_i‖² + ‖x_j‖² − 2 x_i·x_j over
+    the (m, P) flat update matrix.  The expansion can go slightly negative
+    for near-identical rows; the Krum selection clamps at 0."""
+    return _kr.krum_distances(x)

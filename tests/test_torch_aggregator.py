@@ -1,0 +1,343 @@
+"""The port's eight aggregator families against the JAX package on the CPU.
+
+Same seeded numpy inputs through ``repro.fed.aggregator_device`` and
+``repro_torch.fed.aggregator_device``.  Contracts:
+* the flat layout is JAX's ``ravel_pytree`` order (keys sorted): bitwise;
+* median params, the Krum selection, the memory panel and ``tau``: bitwise;
+* every other output (the moment slots, means, the memory reduction):
+  f32 round-off, rtol 1e-5 / atol 1e-6 (XLA and torch sum and contract
+  in other orders);
+* ``memory_scatter_reduce_ref``: panel bitwise, reduction atol = rtol =
+  1e-5 (the reference's own bound, tests/test_aggregator_device.py);
+* ``ServerAggregator.apply`` reorders an unsorted ``sel`` with its updates
+  and weights, as the reference does.
+"""
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+from jax import flatten_util
+
+from repro.fed import aggregator_device as jad
+from repro.fed.server import ServerAggregator as JaxServerAggregator
+
+from repro_torch.fed import aggregator_device as tad
+from repro_torch.fed.server import ServerAggregator
+
+N, M, DIM, CLS = 9, 4, 4, 3          # P = 4·3 + 3 = 15
+RTOL, ATOL = 1e-5, 1e-6
+
+# (factory name, knobs): all eight families, Krum also as multi-Krum
+PROCESSES = [("fedavg", {}), ("fedavgm", {"server_lr": 0.7, "beta": 0.8}),
+             ("fedadam", {"server_lr": 0.05}), ("fedprox_w", {"mu": 0.3}),
+             ("memory", {"gamma": 0.9}), ("median", {}),
+             ("trimmed_mean", {"beta_trim": 0.25}),
+             ("krum", {"krum_f": 1}),
+             ("multikrum", {"krum_f": 1, "krum_multi": 2})]
+
+
+def _params(rng, lead=()):
+    return {"w": rng.normal(size=(*lead, DIM, CLS)).astype(np.float32),
+            "b": rng.normal(size=(*lead, CLS)).astype(np.float32)}
+
+
+def _t(tree):
+    return {k: torch.as_tensor(np.array(v, copy=True)) for k, v in tree.items()}
+
+
+def _close(got, want, *, exact=False, what=""):
+    got, want = np.asarray(got), np.asarray(want)
+    if exact:
+        np.testing.assert_array_equal(got, want, err_msg=what)
+    else:
+        np.testing.assert_allclose(got, want, rtol=RTOL, atol=ATOL,
+                                   err_msg=what)
+
+
+# ------------------------------------------------------------- flat layout
+def test_flat_layout_is_ravel_pytree_order(rng):
+    p = _params(rng)
+    ravel, unravel, size = tad._flat_template(_t(p))
+    want = np.asarray(flatten_util.ravel_pytree(p)[0])
+    got = ravel(_t(p)).numpy()
+    assert size == want.shape[0] == DIM * CLS + CLS
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(got[:CLS], p["b"])          # b before w
+    back = unravel(torch.as_tensor(got))
+    assert list(back) == ["w", "b"]                           # caller's order
+    assert all(np.array_equal(back[k].numpy(), p[k]) for k in p)
+    st = _params(rng, (M,))
+    flat = ravel(_t(st))                                      # stacked
+    jflat = jax.vmap(lambda q: flatten_util.ravel_pytree(q)[0])(st)
+    np.testing.assert_array_equal(flat.numpy(), np.asarray(jflat))
+    again = unravel(flat)
+    assert all(np.array_equal(again[k].numpy(), st[k]) for k in st)
+
+
+# --------------------------------------------------- eight families, 3 rounds
+@pytest.mark.parametrize("name,kw", PROCESSES, ids=[p[0] for p in PROCESSES])
+def test_family_matches_reference_over_three_rounds(rng, name, kw):
+    jproc = jad.make_aggregator_process(name, **kw)
+    tproc = tad.make_aggregator_process(name, **kw)
+    assert tproc.family == jproc.family and tproc.name == jproc.name
+    np.testing.assert_array_equal(tproc.params()["theta"],
+                                  np.asarray(jproc.params()["theta"]))
+    sizes = rng.integers(5, 60, N).astype(np.float32)
+    p0 = _params(rng)
+    jstate = jad.init_agg_state(p0, N)
+    tstate = tad.init_agg_state(_t(p0), N)
+    jstep = jax.jit(jad.make_aggregator_step(N, M, p0, data_sizes=sizes,
+                                             family=jproc.family))
+    tstep = tad.make_aggregator_step(N, M, _t(p0), family=tproc.family,
+                                     data_sizes=sizes)
+    for t in range(3):
+        upd = _params(rng, (M,))
+        w = rng.integers(1, 50, M).astype(np.float32)
+        sel = np.sort(rng.choice(N, M, replace=False))
+        s = np.zeros(N, bool)
+        s[sel] = True
+        avail = s | (rng.random(N) < 0.5)
+        jp, jstate = jstep(jproc.params(), jstate, jax.random.PRNGKey(t), upd,
+                           jnp.asarray(w), jnp.asarray(s), jnp.asarray(avail),
+                           t, jnp.asarray(sel, jnp.int32), jnp.ones(M, bool))
+        tp, tstate = tstep(tproc.params(), tstate, None, _t(upd),
+                           torch.as_tensor(w), torch.as_tensor(s),
+                           torch.as_tensor(avail), t,
+                           torch.as_tensor(sel, dtype=torch.int64),
+                           torch.ones(M, dtype=torch.bool))
+        exact = name == "median"
+        for k in p0:
+            _close(tp[k], jp[k], exact=exact, what=f"round {t} params {k}")
+            _close(tstate["prev"][k], jstate["prev"][k], exact=exact)
+            _close(tstate["m1"][k], jstate["m1"][k], what=f"round {t} m1 {k}")
+            _close(tstate["m2"][k], jstate["m2"][k], what=f"round {t} m2 {k}")
+        _close(tstate["mem"], jstate["mem"], exact=True, what=f"round {t} mem")
+        _close(tstate["tau"], jstate["tau"], exact=True, what=f"round {t} tau")
+        if jproc.family == "krum":
+            jflat = jax.vmap(lambda q: flatten_util.ravel_pytree(q)[0])(upd)
+            want, _ = jad.krum_select(jflat, jnp.ones(M, bool), kw["krum_f"],
+                                      jproc.multi)
+            np.testing.assert_array_equal(tstate["chosen"].numpy(),
+                                          np.asarray(want))
+
+
+def test_zero_weight_round_keeps_prev(rng):
+    p0 = _params(rng)
+    step = tad.make_aggregator_step(N, M, _t(p0), family="fedavg")
+    state = tad.init_agg_state(_t(p0), N, memory_rows=0)
+    sel = torch.arange(M)
+    s = torch.zeros(N, dtype=torch.bool)
+    s[:M] = True
+    params, _ = step(tad.FedAvgProcess().params(), state, None,
+                     _t(_params(rng, (M,))), torch.zeros(M), s, s, 0, sel,
+                     torch.ones(M, dtype=torch.bool))
+    assert all(np.array_equal(params[k].numpy(), p0[k]) for k in p0)
+    assert state["mem"].shape == (0, DIM * CLS + CLS)
+
+
+# ------------------------------------------------------ the reorder repair
+def test_server_apply_reorders_unsorted_sel(rng):
+    """Update k must land in client sel[k]'s memory row: the port's server
+    against the reference's on an unsorted sel, and against its own run on
+    the sorted permutation."""
+    p0 = _params(rng)
+    sizes = rng.integers(5, 60, N)
+    upd = _params(rng, (M,))
+    w = rng.integers(1, 50, M).astype(np.float32)
+    sel = np.array([7, 2, 5, 0])
+    avail = np.ones(N, bool)
+    proc = tad.MemoryProcess(gamma=0.8)
+    jsrv = JaxServerAggregator(jad.MemoryProcess(gamma=0.8), n_clients=N,
+                               data_sizes=sizes)
+    jsrv.init(p0)
+    jp = jsrv.apply(upd, w, sel, avail, 1)
+    tsrv = ServerAggregator(proc, n_clients=N, data_sizes=sizes)
+    tsrv.init(_t(p0))
+    tp = tsrv.apply(_t(upd), w, sel, avail, 1)
+    np.testing.assert_array_equal(tsrv.state["mem"].numpy(),
+                                  np.asarray(jsrv.state["mem"]))
+    ravel, _, _ = tad._flat_template(_t(p0))
+    for k, row in enumerate(sel):
+        np.testing.assert_array_equal(
+            tsrv.state["mem"][row].numpy(),
+            ravel({q: torch.as_tensor(upd[q][k]) for q in upd}).numpy())
+    for k in p0:
+        _close(tp[k], jp[k])
+    order = np.argsort(sel)
+    ssrv = ServerAggregator(tad.MemoryProcess(gamma=0.8), n_clients=N,
+                            data_sizes=sizes)
+    ssrv.init(_t(p0))
+    sp = ssrv.apply(_t({q: upd[q][order] for q in upd}), w[order], sel[order],
+                    avail, 1)
+    assert torch.equal(ssrv.state["mem"], tsrv.state["mem"])
+    assert all(torch.equal(sp[k], tp[k]) for k in p0)
+
+
+def test_server_apply_reorder_decides_krum_ties():
+    """Where the order is observable: two rows tie on their Krum score and
+    the tie breaks by row index, so only the reorder by client index makes
+    the port choose what the reference chooses (client 2's row, not the
+    first row given, client 7's)."""
+    p0 = {"w": np.zeros((DIM, CLS), np.float32),
+          "b": np.zeros(CLS, np.float32)}
+    sel = np.array([7, 2, 5, 0])
+    vals = np.array([-1.0, 1.0, -3.0, 3.0], np.float32)   # clients 7, 2, 5, 0
+    upd = {k: np.broadcast_to(vals.reshape(-1, *[1] * v.ndim),
+                              (M, *v.shape)).copy() for k, v in p0.items()}
+    w = np.ones(M, np.float32)
+    jsrv = JaxServerAggregator(jad.KrumProcess(f=0, multi=1), n_clients=N)
+    jsrv.init(p0)
+    jp = jsrv.apply(upd, w, sel, np.ones(N, bool), 0)
+    tsrv = ServerAggregator(tad.KrumProcess(f=0, multi=1), n_clients=N)
+    tsrv.init(_t(p0))
+    tp = tsrv.apply(_t(upd), w, sel, np.ones(N, bool), 0)
+    for k in p0:
+        np.testing.assert_array_equal(tp[k].numpy(), np.asarray(jp[k]))
+        assert (tp[k].numpy() == 1.0).all()
+    assert tsrv.last_chosen.tolist() == [False, True, False, False]
+
+
+def test_server_init_allocates_panel_only_for_memory(rng):
+    p0 = _t(_params(rng))
+    for proc, rows in ((tad.MedianProcess(), 0), (tad.MemoryProcess(), N)):
+        srv = ServerAggregator(proc, n_clients=N)
+        assert srv.init(p0)["mem"].shape == (rows, DIM * CLS + CLS)
+        assert srv.last_chosen is None
+
+
+# ----------------------------------------------- memory scatter + reduce
+@pytest.mark.parametrize("n,p,m", [(7, 5, 3), (30, 610, 6), (100, 130, 11),
+                                   (300, 2100, 30), (2000, 300, 700)])
+def test_memory_scatter_reduce_ref_vs_reference(rng, n, p, m):
+    mem = rng.normal(size=(n, p)).astype(np.float32)
+    upd = rng.normal(size=(m, p)).astype(np.float32)
+    sel = np.sort(rng.choice(n, size=m, replace=False))
+    valid = rng.random(m) < 0.8
+    w = rng.random(n).astype(np.float32)
+    w = w / w.sum()
+    jm, jr = jad.memory_scatter_reduce_ref(
+        jnp.asarray(mem), jnp.asarray(upd), jnp.asarray(sel, jnp.int32),
+        jnp.asarray(valid), jnp.asarray(w))
+    tmem = torch.as_tensor(mem.copy())
+    tm, tr = tad.memory_scatter_reduce_ref(
+        tmem, torch.as_tensor(upd), torch.as_tensor(sel),
+        torch.as_tensor(valid), torch.as_tensor(w))
+    assert tm is tmem                                     # in place
+    np.testing.assert_array_equal(tm.numpy(), np.asarray(jm))
+    np.testing.assert_allclose(tr.numpy(), np.asarray(jr), atol=1e-5,
+                               rtol=1e-5)
+
+
+def test_memory_nan_containment_and_empty_selection(rng):
+    """A NaN or inf update entry lands in its own row and nowhere else; an
+    empty or all-invalid selection leaves the panel as it was and reduces
+    the plain weighted row sum."""
+    from repro_torch.kernels import ops
+    n, p = 20, 33
+    mem = torch.as_tensor(rng.normal(size=(n, p)).astype(np.float32))
+    upd = torch.as_tensor(rng.normal(size=(5, p)).astype(np.float32))
+    upd[0, 2] = float("nan")
+    upd[3, 7] = float("inf")
+    sel = torch.tensor([3, 5, 9, 11, 17])
+    w = torch.full((n,), 1.0 / n)
+    nm, red = ops.memory_aggregate(mem.clone(), upd, sel,
+                                   torch.ones(5, dtype=torch.bool), w)
+    assert torch.isnan(nm[3, 2]) and torch.isinf(nm[11, 7])
+    bad = torch.zeros(n, p, dtype=torch.bool)
+    bad[3, 2] = bad[11, 7] = True
+    assert bool(torch.isfinite(nm[~bad]).all())
+    assert torch.equal(nm[5], upd[1])
+    assert bool(torch.isfinite(red[[c for c in range(p) if c not in (2, 7)]]).all())
+    for m in (0, 3):
+        upd = torch.as_tensor(rng.normal(size=(m, p)).astype(np.float32))
+        nm, red = ops.memory_aggregate(mem.clone(), upd, torch.arange(m),
+                                       torch.zeros(m, dtype=torch.bool), w)
+        assert torch.equal(nm, mem)
+        np.testing.assert_allclose(red.numpy(), (w @ mem).numpy(), atol=1e-6)
+
+
+# ----------------------------------------------------- robust combine rules
+@pytest.mark.parametrize("mask", ["all", "some"])
+def test_median_and_trimmed_mean_vs_reference(rng, mask):
+    x = rng.normal(size=(7, 24)).astype(np.float32)
+    x[2, 5] = np.nan
+    valid = np.ones(7, bool) if mask == "all" else rng.random(7) < 0.7
+    valid[0] = True
+    jmed, jv = jad.coordinate_median(jnp.asarray(x), jnp.asarray(valid))
+    tmed, tv = tad.coordinate_median(torch.as_tensor(x), torch.as_tensor(valid))
+    np.testing.assert_array_equal(tmed.numpy(), np.asarray(jmed))
+    assert int(tv) == int(jv)
+    emed, ev = tad.coordinate_median(torch.zeros(0, 24),
+                                     torch.zeros(0, dtype=torch.bool))
+    assert int(ev) == 0 and torch.equal(emed, torch.zeros(24))
+    for beta in (0.0, 0.2, 0.34):
+        jtm, _ = jad.trimmed_mean_combine(jnp.asarray(x), jnp.asarray(valid),
+                                          jnp.float32(beta))
+        ttm, _ = tad.trimmed_mean_combine(torch.as_tensor(x),
+                                          torch.as_tensor(valid),
+                                          float(np.float32(beta)))
+        _close(ttm, jtm, what=f"beta {beta}")
+
+
+@pytest.mark.parametrize("m,p", [(5, 7), (16, 64), (33, 130), (64, 256)])
+def test_krum_selection_vs_reference(rng, m, p):
+    """The shapes of tests/test_robust_aggregators.py's ref-vs-pallas
+    test: the port's plain panel within f32 round-off of the reference's
+    (atol 1e-2, rtol 1e-4, that test's bound), the selection bitwise."""
+    x = (rng.normal(size=(m, p)) * 3).astype(np.float32)
+    valid = rng.random(m) < 0.9
+    valid[0] = True
+    np.testing.assert_allclose(
+        np.maximum(tad.krum_pairwise_ref(torch.as_tensor(x)).numpy(), 0),
+        np.maximum(np.asarray(jad.krum_pairwise_ref(jnp.asarray(x))), 0),
+        atol=1e-2, rtol=1e-4)
+    f = max(1, m // 5)
+    want, wscores = jax.jit(jad.krum_select, static_argnums=(2, 3))(
+        jnp.asarray(x), jnp.asarray(valid), f, 3)
+    got, scores = tad.krum_select(torch.as_tensor(x), torch.as_tensor(valid),
+                                  f, 3)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    fin = np.isfinite(np.asarray(wscores))
+    np.testing.assert_array_equal(np.isfinite(scores.numpy()), fin)
+    np.testing.assert_allclose(scores.numpy()[fin], np.asarray(wscores)[fin],
+                               rtol=1e-4)
+
+
+def test_krum_ties_break_by_row_index_and_poison_is_contained(rng):
+    row = rng.normal(size=24).astype(np.float32)
+    x = torch.as_tensor(np.stack([row] * 5 + [row + 100]))
+    chosen, _ = tad.krum_select(x, torch.ones(6, dtype=torch.bool), 1, 2)
+    assert chosen.tolist() == [True, True, False, False, False, False]
+    chosen, scores = tad.krum_select(torch.full((5, 24), float("nan")),
+                                     torch.ones(5, dtype=torch.bool), 1, 2)
+    assert bool(torch.isinf(scores).all())
+    assert chosen.tolist() == [True, True, False, False, False]
+    x = rng.normal(size=(7, 24)).astype(np.float32)
+    x[1] = x[4] = np.nan
+    xt, valid = torch.as_tensor(x), torch.ones(7, dtype=torch.bool)
+    honest = np.delete(x, [1, 4], axis=0)
+    out, chosen, _ = tad.krum_combine(xt, valid, 2, 3)
+    for got in (tad.coordinate_median(xt, valid)[0],
+                tad.trimmed_mean_combine(xt, valid, 0.3)[0], out):
+        got = got.numpy()
+        assert np.isfinite(got).all()
+        assert (got >= honest.min(0) - 1e-5).all()
+        assert (got <= honest.max(0) + 1e-5).all()
+    assert not bool(chosen[1]) and not bool(chosen[4])
+
+
+def test_process_protocol_and_factory():
+    assert tad.FAMILIES == jad.FAMILIES
+    for name in jad.FAMILIES + ("multikrum", "fedproxw", "trimmedmean"):
+        tp, jp = tad.make_aggregator_process(name), \
+            jad.make_aggregator_process(name)
+        assert (tp.name, tp.family) == (jp.name, jp.family)
+        assert tp.params()["family"] == int(jp.params()["family"])
+        np.testing.assert_array_equal(tp.params()["theta"],
+                                      np.asarray(jp.params()["theta"]))
+    with pytest.raises(ValueError):
+        tad.make_aggregator_process("nope")
+    with pytest.raises(ValueError):
+        tad.make_aggregator_step(4, 2, {"w": torch.zeros(3)}, family="nope")

@@ -9,7 +9,10 @@ indices recomputed from the reference's key chain selects the identical
 set in every round, and val_loss agrees within 1e-4 (the bound
 ``tests/test_scan_engine.py`` holds FLEngine and ScanEngine to).
 """
+import os
 import re
+import subprocess
+import sys
 from pathlib import Path
 
 import numpy as np
@@ -76,6 +79,28 @@ def test_port_imports_no_jax_and_no_repro(target):
             for i, line in enumerate(f.read_text().splitlines(), 1)
             if _FORBIDDEN.match(line)]
     assert not hits, "\n".join(hits)
+
+
+def test_guard_covers_every_port_module():
+    """The scan above reaches every module of the port, the robust
+    server-update modules included, and importing all of them in a fresh
+    interpreter loads neither jax nor repro."""
+    pkg = ROOT / "src" / "repro_torch"
+    mods = sorted(".".join(f.relative_to(pkg.parent).with_suffix("").parts)
+                  for f in pkg.rglob("*.py"))
+    for need in ("repro_torch.fed.aggregator_device",
+                 "repro_torch.fed.faults_device", "repro_torch.fed.server",
+                 "repro_torch.kernels.aggregate", "repro_torch.kernels.krum"):
+        assert need in mods, need
+    code = ("import importlib, sys\n"
+            f"for m in {mods!r}: importlib.import_module(m)\n"
+            "bad = [m for m in sys.modules if m == 'jax' or m == 'repro'\n"
+            "       or m.startswith(('jax.', 'repro.'))]\n"
+            "assert not bad, bad\n")
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    out = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-2000:]
 
 
 def test_import_guard_pattern():
