@@ -4,15 +4,22 @@
     python3 chip_smoke.py
 
 Phases, each printing one JSON line (any failure exits non-zero):
-  1. build    every CUDA kernel of the main path from ``src/repro_torch/
+  1. build    every CUDA kernel of the port from ``src/repro_torch/
               kernels/csrc`` (one nvcc per source, all at once); prints the
               card's name and power limit.
   2. kernels  each kernel against its plain PyTorch version on the card at
               N in {30, 130, 1024, 4096} (swap panel m = ceil(0.1 N), and
               the engine's own M = 6 at N = 30 and M = 102 at N = 1024, the
-              shapes phases 3 and 4 give it), under the stated tolerance; kernel, plain and (where one PyTorch
-              call computes the same function) library times by CUDA
-              events, beside the least time the card could take.
+              shapes phases 3 and 5 give it), under the stated tolerance;
+              kernel, plain and (where one PyTorch call computes the same
+              function) library times by CUDA events, beside the least time
+              the card could take.
+     The staged 3DG kernels (similarity, adjacency) at (N, d) in
+              {30, 130, 1024, 4096} x 610 and the vision shapes (100, 10)
+              (label distributions) and (100, 13946) (CNN updates); the
+              dense-Q swap at (m, N) = (ceil(0.1 N), N) and (10, 100); the
+              graph routes: fused R == staged R and build_h's H ==
+              cap(staged H), bitwise, at (30, 610) and (100, 10).
      The robust server update's two kernels likewise: memagg at (N, P, m)
               in {(30, 610, 6), (1024, 610, 102), (2000, 300, 700),
               (4096, 2048, 410)}, krum at (m, P) in {(6, 610), (64, 512),
@@ -20,11 +27,11 @@ Phases, each printing one JSON line (any failure exits non-zero):
               selection compared too.
   3. slice    the quickstart: Synthetic(0.5, 0.5), N = 30, logistic
               regression, LN(0.5) availability, 40 rounds of FedGS
-              (alpha = 1, oracle 3DG built by the kernels) and of Uniform
-              on the card; then FedGS again on the CPU with the card's H, the
-              same init and index draws: the same clients every round,
-              val_loss within 1e-4.  Launch counts are reset just before the
-              card's FedGS run and read just after.
+              (alpha = 1, oracle 3DG built by the staged kernels) and of
+              Uniform on the card; then FedGS again on the CPU with the
+              card's H, the same init and index draws: the same clients
+              every round, val_loss within 1e-4.  Launch counts are reset
+              just before the card's FedGS run and read just after.
   4. robust   the quickstart under a 20% sign-flip attack (scale 5) against
               fedavg, median, trimmed_mean(0.25), multikrum(f=1, k=3) and
               memory(0.9), plus a benign memory run, 40 rounds each on the
@@ -32,12 +39,33 @@ Phases, each printing one JSON line (any failure exits non-zero):
               the memory and multikrum runs again on the CPU with the
               card's H: the same sets and Krum rows every round, val_loss
               within 1e-4.  Prints each defense's final val_acc.
-  5. scale    5 rounds of FedGS on the card at N = 30 (M = 6) and at
+  5. vision   the CIFAR10 surrogate at full width: make_cifar_like(100,
+              20000), small_cnn(8x8x3, width 16; P = 13946), LN(0.5), 30
+              rounds of M = 10, E = 10, B = 32, lr 0.03 (examples/
+              federated_vision.py).  (a) FedGS on the oracle 3DG on the
+              card, twice (bitwise the same); (b) the same on the CPU with
+              the card's H: the same set every round, val_loss within
+              VISION_LOSS_BOUND, the CNN's forward and one local round
+              within 1e-5, and the card run with cuDNN off beside it
+              (printed); (c) fedgs_solve on each
+              round's dense Q (greedy + dense-swap kernels): the engine's
+              set every round; (d) FedGS on the dynamic 3DG (refresh every
+              10 rounds: 4 staged builds), H rebuilt on the CPU from the
+              card's embeddings under the graph contract; (e) Power-of-
+              Choice and Uniform (best val_loss, count variance: findings);
+              (f) Table 3 in miniature: best edge F1 of functional and
+              update-cosine similarity against the oracle (printed);
+              (g) SSPP's V through similarity="precomputed", card vs CPU.
+              Launch counts are reset before each run and read after it.
+  6. scale    5 rounds of FedGS on the card at N = 30 (M = 6) and at
               N = 1024 clients (M = 102), and FedGS + memory at N = 1024:
-              graph build, per-round solve, training and aggregation
-              times, and one profiled round's device busy share.
-  6. the ``{"kernels": [...]}`` line (times at the main path's shapes:
-     N = 30, M = 6, P = 610).
+              graph build (staged, through the engine; and fused, through
+              build_h, with its H bitwise the engine's), per-round solve,
+              training and aggregation times, and one profiled round's
+              device busy share.
+  7. the ``{"kernels": [...]}`` line (times at the main path's shapes:
+     N = 30, M = 6, P = 610; the dense swap at the vision solve's
+     (m, N) = (10, 100)).
 The last line is ``{"ok": true, "device": {...}}``.  The script needs a CUDA
 device and the repository's ``src/`` beside it; without either it exits
 non-zero and prints no result.  Full output also goes to
@@ -68,8 +96,25 @@ ENGINE_RUNS = ((30, 0.2), (1024, 0.1))
 MEMAGG_SHAPES = ((30, 610, 6), (1024, 610, 102), (2000, 300, 700),
                  (4096, 2048, 410))
 KRUM_SHAPES = ((6, 610), (64, 512), (128, 2048), (256, 4096), (512, 16384))
-FEDGS_KERNELS = ("fused_adjacency", "floyd_warshall", "greedy_argmax",
-                 "swap_best_fused")
+# the staged 3DG kernels' (N, d): the quickstart's local optima at every N,
+# then the vision oracle's label distributions and the CNN's flat updates
+STAGED_SHAPES = tuple((n, 610) for n in SIZES) + ((100, 10), (100, 13946))
+# the dense-Q swap's (m, N); the last is the vision solve's (phase 5 (c))
+SWAP_GAIN_SHAPES = tuple((math.ceil(0.1 * n), n) for n in SIZES) + ((10, 100),)
+FEDGS_KERNELS = ("pairwise_similarity", "adjacency", "floyd_warshall",
+                 "greedy_argmax", "swap_best_fused")
+# phase 5: benchmarks/common.py's non-quick CIFAR surrogate and
+# examples/federated_vision.py's run
+VISION = {"n_clients": 100, "n_total": 20000, "width": 16, "rounds": 30,
+          "params": 13946}
+EPS_SWEEP = (0.0, 0.01, 0.05, 0.1, 0.5)     # benchmarks/table3_graph.py
+# the vision run's val_loss bound card vs CPU.  Not the quickstart's 1e-4:
+# the CNN's forward agrees to f32 round-off (1e-6) and one local round to
+# 1e-7, but a max-pool or ReLU decision that flips on a one-ulp difference
+# sends a step's gradient elsewhere, and from such a flip on (round 9 of
+# this run) two float32 summation orders — card vs CPU, or cuDNN vs no
+# cuDNN on the card — differ by up to a few 1e-3 per round
+VISION_LOSS_BOUND = 1e-3
 # robust phase: the robustness bench's attack (benchmarks/robustness_bench
 # .py ATTACKS) and its f_krum / krum_multi formula at M = 6
 SIGN_FLIP = {"frac": 0.2, "scale": 5.0}
@@ -79,6 +124,11 @@ MAIN_N = ENGINE_RUNS[0][0]
 NEG = -1e18
 
 KERNEL_INFO = {
+    "pairwise_similarity": (
+        "src/repro_torch/kernels/csrc/pairwise_similarity.cu",
+        "src/repro/kernels/pairwise_similarity.py:22"),
+    "adjacency": ("src/repro_torch/kernels/csrc/pairwise_similarity.cu",
+                  "src/repro/kernels/pairwise_similarity.py:51"),
     "fused_adjacency": ("src/repro_torch/kernels/csrc/graph_fused.cu",
                         "src/repro/kernels/graph_fused.py:42"),
     "floyd_warshall": ("src/repro_torch/kernels/csrc/floyd_warshall.cu",
@@ -87,6 +137,8 @@ KERNEL_INFO = {
                       "src/repro/kernels/solver.py:83"),
     "swap_best_fused": ("src/repro_torch/kernels/csrc/solver.cu",
                         "src/repro/kernels/solver.py:191"),
+    "swap_best": ("src/repro_torch/kernels/csrc/solver.cu",
+                  "src/repro/kernels/solver.py:153"),
     "memagg": ("src/repro_torch/kernels/csrc/aggregate.cu",
                "src/repro/kernels/aggregate.py:61"),
     "krum": ("src/repro_torch/kernels/csrc/krum.cu",
@@ -255,8 +307,8 @@ def kernel_checks(np, torch, n: int, dev) -> dict:
         a = (-2.0 * r + diag)[sel]
         bb = torch.where(~s & avail, 2.0 * r + diag, torch.full_like(r, NEG))
         kargs = (h, z, al, sel, valid, a, bb)
-        k3 = sv.swap_best_cuda(*kargs)
-        p3 = sv.swap_best_plain(*kargs)
+        k3 = sv.swap_best_fused_cuda(*kargs)
+        p3 = sv.swap_best_fused_plain(*kargs)
         if not all(torch.equal(x, y) for x, y in zip(k3, p3)) \
                 or float(k3[0]) <= NEG / 2:
             raise AssertionError(f"swap_best_fused N={n} m={m}: {k3} != {p3}")
@@ -264,11 +316,151 @@ def kernel_checks(np, torch, n: int, dev) -> dict:
                       10 * m * n)
         rows[f"swap_best_fused/m={m}"] = dict(
             max_abs_err=0.0, tolerance="bitwise (best, rank, j)", m=m,
-            ms=cuda_ms(torch, lambda: sv.swap_best_cuda(*kargs)),
-            plain_ms=cuda_ms(torch, lambda: sv.swap_best_plain(*kargs)),
+            ms=cuda_ms(torch, lambda: sv.swap_best_fused_cuda(*kargs)),
+            plain_ms=cuda_ms(torch, lambda: sv.swap_best_fused_plain(*kargs)),
             bound_ms=b, bound_by=by, library_ms=None,
             library="none: no single PyTorch call rebuilds Q and arg-maxes it")
     return rows
+
+
+def r_close(torch, got, want, *, atol: float) -> float:
+    """R or H against its reference: the same inf pattern, finite entries
+    within rtol 1e-4 (``atol`` below the normal float32 range).  Returns the
+    largest absolute error; raises beyond the bound."""
+    if not torch.equal(torch.isinf(got), torch.isinf(want)):
+        raise AssertionError("inf pattern differs")
+    fin = torch.isfinite(want)
+    err = (got[fin] - want[fin]).abs()
+    if not bool((err <= 1e-4 * want[fin].abs() + atol).all()):
+        raise AssertionError(f"beyond rtol 1e-4 (max abs err {err.max()})")
+    return float(err.max()) if err.numel() else 0.0
+
+
+def staged_kernel_checks(np, torch, dev) -> dict:
+    """The staged similarity and adjacency kernels against their plain
+    versions at every STAGED_SHAPES entry.  Returns name/shape -> row."""
+    from repro_torch.kernels import pairwise_similarity as ps
+
+    rows = {}
+    tiny = float(np.finfo(np.float32).tiny)
+    for n, d in STAGED_SHAPES:
+        u = features(np, torch, n, seed=n + d, d=d).to(dev)
+        v = ps.similarity_cuda(u)
+        if not torch.equal(v, ps.similarity_plain(u)):
+            raise AssertionError(f"similarity {n, d}: V not bitwise")
+        prev = torch.backends.cuda.matmul.allow_tf32
+        torch.backends.cuda.matmul.allow_tf32 = False
+        lib_ms = cuda_ms(torch, lambda: torch.matmul(u, u.T))
+        torch.backends.cuda.matmul.allow_tf32 = prev
+        # V is symmetric: N(N+1)/2 dot products of 2d operations each
+        b, by = bound(4 * n * d + 4 * n * n, n * (n + 1) * d)
+        rows[f"pairwise_similarity/{n}x{d}"] = dict(
+            n=n, d=d, max_abs_err=0.0, tolerance="V bitwise",
+            ms=cuda_ms(torch, lambda: ps.similarity_cuda(u)),
+            plain_ms=cuda_ms(torch, lambda: ps.similarity_plain(u),
+                             max_reps=20),
+            bound_ms=b, bound_by=by, library_ms=lib_ms,
+            library="torch.matmul(u, u.T), TF32 off")
+
+        stats = torch.stack([torch.min(v), torch.max(v)])
+        r_k = ps.adjacency_cuda(v, stats, eps=0.1, sigma2=0.01)
+        r_p = ps.adjacency_plain(v, stats, eps=0.1, sigma2=0.01)
+        err = r_close(torch, r_k, r_p, atol=tiny)
+        if not torch.equal(torch.diagonal(r_k), torch.zeros_like(r_k[0])):
+            raise AssertionError(f"adjacency {n, d}: diagonal not 0")
+        # read V and lo/hi, write R; subtract, divide, compare, divide, exp
+        b, by = bound(8 * n * n + 8, 5 * n * n)
+        rows[f"adjacency/{n}x{d}"] = dict(
+            n=n, d=d, max_abs_err=err,
+            tolerance="inf pattern identical, finite R rtol 1e-4",
+            ms=cuda_ms(torch, lambda: ps.adjacency_cuda(v, stats, eps=0.1,
+                                                        sigma2=0.01)),
+            plain_ms=cuda_ms(torch, lambda: ps.adjacency_plain(
+                v, stats, eps=0.1, sigma2=0.01)),
+            bound_ms=b, bound_by=by, library_ms=None,
+            library="none: no single PyTorch call computes the thresholded "
+                    "min-max adjacency")
+    return rows
+
+
+def swap_gain_checks(np, torch, dev) -> dict:
+    """The dense-Q best swap against its plain version at every
+    SWAP_GAIN_SHAPES entry, on Q = sym(alpha/N H - diag(z)) with one
+    NaN-poisoned column.  Returns name/shape -> row."""
+    from repro_torch.kernels import solver as sv
+
+    rows = {}
+    for m, n in SWAP_GAIN_SHAPES:
+        rng = np.random.default_rng(m * n)
+        h = rng.random((n, n)).astype(np.float32)
+        h = 0.5 * (h + h.T)
+        np.fill_diagonal(h, 0.0)
+        z = 2.0 * (rng.integers(0, 5, n) - 2.0 - m / n) + 1.0
+        al = np.float32(1.0) / np.float32(n)
+        q = al * h - np.diag(z).astype(np.float32)
+        q = torch.as_tensor(0.5 * (q + q.T), device=dev)
+        q[:, 3] = float("nan")
+        s_np = np.zeros(n, bool)
+        s_np[rng.choice(n, m, replace=False)] = True
+        s = torch.as_tensor(s_np, device=dev)
+        sel = torch.nonzero(s).flatten()
+        r = q[sel].sum(0)
+        diag = torch.diagonal(q)
+        avail = torch.as_tensor(rng.random(n) < 0.7, device=dev)
+        a = (-2.0 * r + diag)[sel]
+        bb = torch.where(~s & avail, 2.0 * r + diag, torch.full_like(r, NEG))
+        args = (q, sel, a, bb)
+        k3, p3 = sv.swap_gain_cuda(*args), sv.swap_gain_plain(*args)
+        if not all(torch.equal(x, y) for x, y in zip(k3, p3)) \
+                or float(k3[0]) <= NEG / 2 or int(k3[2]) == 3:
+            raise AssertionError(f"swap_best {m, n}: {k3} != {p3}")
+        # read the m selected rows of Q, a, b and sel; write three scalars;
+        # add, multiply, subtract and a NaN test per panel entry
+        b, by = bound(4 * m * n + 4 * m + 4 * n + 8 * m + 20, 4 * m * n)
+        rows[f"swap_best/m={m}/n={n}"] = dict(
+            n=n, m=m, max_abs_err=0.0, tolerance="bitwise (best, rank, j)",
+            ms=cuda_ms(torch, lambda: sv.swap_gain_cuda(*args)),
+            plain_ms=cuda_ms(torch, lambda: sv.swap_gain_plain(*args)),
+            bound_ms=b, bound_by=by, library_ms=None,
+            library="none: no single PyTorch call arg-maxes the swap gain "
+                    "over Q's selected rows")
+    return rows
+
+
+def graph_route_checks(np, torch, dev) -> dict:
+    """On the card: the fused route's R is bitwise the staged route's, and
+    build_h's H is bitwise cap(staged H), for every feature similarity at
+    the quickstart's (30, 610) and the vision oracle's (100, 10)."""
+    from repro_torch.core import graph_device as gd
+    from repro_torch.data.synthetic import make_synthetic
+    from repro_torch.data.vision import make_cifar_like
+    from repro_torch.kernels import ops
+
+    feats = {
+        "quickstart": make_synthetic(n_clients=30, alpha=0.5, beta=0.5,
+                                     seed=0).opt_params,
+        "vision": make_cifar_like(n_clients=VISION["n_clients"],
+                                  n_total=VISION["n_total"],
+                                  seed=0).label_dist}
+    out = {}
+    for name, f in feats.items():
+        u = torch.as_tensor(f, dtype=torch.float32, device=dev)
+        for sim in ("dot", "cosine", "functional"):
+            cfg = gd.GraphConfig(similarity=sim)
+            vn, r_staged, h_staged = gd.build_3dg(u, cfg)
+            r_fused, _ = ops.build_3dg_fused(
+                gd._features(u, cfg), eps=cfg.eps, sigma2=cfg.sigma2,
+                clamp=sim == "functional")
+            if vn is None or not torch.equal(r_staged, r_fused):
+                raise AssertionError(f"{name}/{sim}: fused R != staged R")
+            if not torch.equal(gd.build_h(u, cfg),
+                               gd.cap_and_normalize(h_staged)):
+                raise AssertionError(f"{name}/{sim}: build_h H != staged H")
+            out[f"{name}/{sim}"] = {
+                "shape": list(u.shape), "r_bitwise": True,
+                "h_bitwise": True,
+                "edges": int(torch.isfinite(r_staged).sum()) - len(u)}
+    return out
 
 
 def robust_kernel_checks(np, torch, dev) -> dict:
@@ -524,17 +716,275 @@ def robust_run(np, torch, dev) -> tuple[dict, dict]:
                   "krum": out["multikrum/sign_flip"]["krum"]}
 
 
+def vision_cfg(FLConfig):
+    return FLConfig(rounds=VISION["rounds"], sample_frac=0.1, local_steps=10,
+                    batch_size=32, lr=0.03, eval_every=5, seed=0)
+
+
+def table3_probe(np, ds, n_probe: int = 128, seed: int = 0):
+    """benchmarks/table3_graph.py's probe: Gaussian noise with the
+    validation set's mean and covariance (paper §3.2)."""
+    rng = np.random.default_rng(seed)
+    xv = ds.x_val.reshape(len(ds.x_val), -1)
+    cov = np.cov(xv.T) + 1e-4 * np.eye(xv.shape[1])
+    z = rng.multivariate_normal(xv.mean(0), cov, n_probe).astype(np.float32)
+    return z.reshape(n_probe, *ds.x_val.shape[1:])
+
+
+def vision_run(np, torch, dev) -> tuple[dict, dict]:
+    """Phase 5 (see the module docstring).  Returns (info, the launch
+    counts of run (c))."""
+    from repro_torch.core import graph as G
+    from repro_torch.core import graph_device as gd
+    from repro_torch.core.availability import host_draw, make_mode
+    from repro_torch.core.fairness import count_variance
+    from repro_torch.core.sampler import (FedGSSampler, PowerOfChoiceSampler,
+                                          UniformSampler)
+    from repro_torch.core.sampler_device import balance_z, fedgs_solve
+    from repro_torch.core.sspp import secure_similarity_matrix
+    from repro_torch.data.vision import make_cifar_like
+    from repro_torch.fed.client import (default_batch_indices,
+                                        make_local_trainer)
+    from repro_torch.fed.engine import FLConfig, FLEngine
+    from repro_torch.fed.models import small_cnn
+    from repro_torch.kernels import ops
+
+    tiny = float(np.finfo(np.float32).tiny)
+    n, rounds = VISION["n_clients"], VISION["rounds"]
+    ds = make_cifar_like(n_clients=n, n_total=VISION["n_total"], seed=0)
+    model = small_cnn(shape=(8, 8, 3), width=VISION["width"])
+    n_params = sum(v.numel() for v in model.init(torch.Generator()).values())
+    if n_params != VISION["params"]:
+        raise AssertionError(f"small_cnn has {n_params} params")
+
+    def mode():
+        return make_mode("LN", n_clients=n, beta=0.5, seed=99)
+
+    def engine(sampler, device):
+        return FLEngine(ds, model, sampler, mode(), vision_cfg(FLConfig),
+                        device=device)
+
+    def checked(hist, name):
+        if not (np.all(np.isfinite(hist.val_loss)) and len(hist.val_loss) == 7
+                and len(hist.all_sampled) == rounds):
+            raise AssertionError(f"vision {name}: {hist.val_loss}")
+        return hist
+
+    info, launches, seconds = {"phase": "vision", "n": n, "p": n_params,
+                               "rounds": rounds}, {}, {}
+
+    # (a) FedGS on the oracle 3DG, on the card
+    ops.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    card = engine(FedGSSampler(alpha=1.0), dev)
+    r_true = card.install_oracle_graph()
+    h_a = checked(card.run(), "a")
+    torch.cuda.synchronize()
+    seconds["a_fedgs_card"] = time.perf_counter() - t0
+    launches["a"] = ops.launches()
+    if not all(launches["a"][k] > 0 for k in FEDGS_KERNELS) or \
+            launches["a"]["fused_adjacency"]:
+        raise AssertionError(f"vision (a): launches {launches['a']}")
+    if card.m != 10 or torch.backends.cudnn.allow_tf32 or \
+            not torch.backends.cudnn.deterministic:
+        raise AssertionError(f"vision (a): M = {card.m}, cuDNN TF32 "
+                             f"{torch.backends.cudnn.allow_tf32}, "
+                             f"deterministic "
+                             f"{torch.backends.cudnn.deterministic}")
+    again = engine(FedGSSampler(alpha=1.0), dev)
+    again.install_oracle_graph()
+    h_again = again.run()
+    if h_again.val_loss != h_a.val_loss or \
+            h_again.all_sampled != h_a.all_sampled:
+        raise AssertionError("vision (a): a second card run differs")
+
+    # (b) the same on the CPU with the card's H, the same init and draws
+    t0 = time.perf_counter()
+    cpu = engine(FedGSSampler(alpha=1.0), "cpu")
+    cpu.install_graph_from_H(card.sampler._h.cpu())
+    h_b = checked(cpu.run(), "b")
+    seconds["b_fedgs_cpu"] = time.perf_counter() - t0
+    bad = [t for t in range(rounds)
+           if h_a.all_sampled[t] != h_b.all_sampled[t]]
+    if bad:
+        raise AssertionError(f"vision (b): card and CPU sets differ in {bad}")
+    gaps = np.abs(np.subtract(h_a.val_loss, h_b.val_loss))
+    if float(gaps.max()) > VISION_LOSS_BOUND:
+        raise AssertionError(f"vision (b): val_loss card vs CPU {gaps}")
+    # the CNN itself, card vs CPU, from the run's init: the forward on the
+    # validation split and round 0's local training (TF32 would show as
+    # ~1e-3 here); then the card run once more with cuDNN off (PyTorch's
+    # native convolution), whose gap to (a) is a third float32 order's
+    trainer = make_local_trainer(model, local_steps=10, batch_size=32)
+    params0 = model.init(torch.Generator().manual_seed(0))
+    sel0 = np.asarray(h_a.all_sampled[0])
+    idx0 = default_batch_indices(0, 0, ds.sizes[sel0], 10, 32)
+
+    def on(device):
+        p = {k: v.to(device) for k, v in params0.items()}
+        with torch.no_grad():
+            logits = model.logits(p, torch.as_tensor(ds.x_val, device=device))
+        local = trainer(p, torch.as_tensor(ds.x[sel0], device=device),
+                        torch.as_tensor(ds.y[sel0], dtype=torch.int64,
+                                        device=device), 0.03, idx0.to(device))
+        return logits.cpu(), {k: v.detach().cpu() for k, v in local.items()}
+    (lc, pc), (lp, pp) = on(dev), on("cpu")
+    cnn_err = {"forward": float((lc - lp).abs().max()),
+               "one_local_round": max(float((pc[k] - pp[k]).abs().max())
+                                      for k in pc)}
+    if max(cnn_err.values()) > 1e-5:
+        raise AssertionError(f"vision (b): the CNN card vs CPU {cnn_err}")
+    torch.backends.cudnn.enabled = False
+    try:
+        native = engine(FedGSSampler(alpha=1.0), dev)
+        native.install_graph_from_H(card.sampler._h)
+        h_native = checked(native.run(), "b, cuDNN off")
+    finally:
+        torch.backends.cudnn.enabled = True
+    gaps_native = np.abs(np.subtract(h_native.val_loss, h_a.val_loss))
+
+    # (c) fedgs_solve on each round's dense Q = sym(alpha/N H - diag(z))
+    h = card.sampler._h
+    al = float(np.float32(1.0) / np.float32(n))
+    counts = np.zeros(n)
+    ops.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for t in range(rounds):
+        avail = host_draw(card.mode, t, card.cfg.avail_seed)
+        z = balance_z(torch.as_tensor(counts, dtype=torch.float32,
+                                      device=dev), card.m)
+        q = al * h - torch.diag(z)
+        q = 0.5 * (q + q.T)
+        s = fedgs_solve(q, torch.as_tensor(avail, device=dev),
+                        m=min(card.m, int(avail.sum())), max_sweeps=64)
+        sel = np.flatnonzero(s.cpu().numpy())
+        if sel.tolist() != h_a.all_sampled[t]:
+            raise AssertionError(f"vision (c): round {t} {sel} != "
+                                 f"{h_a.all_sampled[t]}")
+        counts[sel] += 1
+    torch.cuda.synchronize()
+    seconds["c_dense_solves"] = time.perf_counter() - t0
+    launches["c"] = ops.launches()
+    if launches["c"]["swap_best"] == 0 or launches["c"]["greedy_argmax"] == 0:
+        raise AssertionError(f"vision (c): launches {launches['c']}")
+
+    # (d) FedGS on the dynamic 3DG
+    ops.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    dyn = engine(FedGSSampler(alpha=1.0), dev)
+    dyn.install_dynamic_graph(refresh_every=10)
+    h_d = checked(dyn.run(), "d")
+    torch.cuda.synchronize()
+    seconds["d_dynamic_card"] = time.perf_counter() - t0
+    launches["d"] = ops.launches()
+    builds = 1 + rounds // 10
+    if any(launches["d"][k] != builds for k in
+           ("pairwise_similarity", "adjacency", "floyd_warshall")):
+        raise AssertionError(f"vision (d): launches {launches['d']}")
+    cfg = gd.GraphConfig(similarity="functional")
+    _, r_c, hd_c = gd.build_3dg(dyn._emb, cfg)
+    _, r_p, hd_p = gd.build_3dg(dyn._emb.cpu(), cfg)
+    if not torch.equal(dyn.sampler._h, gd.cap_and_normalize(hd_c)):
+        raise AssertionError("vision (d): the sampler's H is not the last "
+                             "rebuild's")
+    dyn_err = {"r": r_close(torch, r_c.cpu(), r_p, atol=tiny),
+               "h": r_close(torch, hd_c.cpu(), hd_p, atol=n * tiny),
+               "edges": int(torch.isfinite(r_c).sum()) - n}
+
+    # (e) Power-of-Choice and Uniform
+    findings = {"fedgs": {"best_val_loss": h_a.best_loss,
+                          "count_var": count_variance(card.counts)},
+                "fedgs_dynamic": {"best_val_loss": h_d.best_loss,
+                                  "count_var": count_variance(dyn.counts)}}
+    for name, sampler in (("poc", PowerOfChoiceSampler()),
+                          ("uniform", UniformSampler())):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eng = engine(sampler, dev)
+        hist = checked(eng.run(), name)
+        torch.cuda.synchronize()
+        seconds[f"e_{name}_card"] = time.perf_counter() - t0
+        findings[name] = {"best_val_loss": hist.best_loss,
+                          "count_var": count_variance(eng.counts)}
+
+    # (f) Table 3 in miniature: one local round of every client from a
+    # fresh model, then the 3DG from its outputs and from its updates
+    ops.reset_launches()
+    params0 = {k: v.to(dev) for k, v in params0.items()}
+    stacked = trainer(params0, card._x, card._y, 0.03, default_batch_indices(
+        0, 0, ds.sizes, 10, 32).to(dev))
+    emb = G.probe_embeddings(model.embed, stacked, torch.as_tensor(
+        table3_probe(np, ds), device=dev))
+    keys = sorted(params0)
+    upd = torch.cat([(stacked[k] - params0[k]).reshape(n, -1) for k in keys],
+                    dim=1)
+    table3 = {}
+    for name, v_pred in (
+            ("functional", G.functional_similarity(emb.cpu().numpy(),
+                                                   device=dev)),
+            ("update_cosine", G.update_cosine_similarity(upd.cpu().numpy(),
+                                                         device=dev))):
+        best = {"f1": -1.0}
+        for eps in EPS_SWEEP:
+            r_pred = G.similarity_to_adjacency(G.normalize_01(v_pred,
+                                                              device=dev),
+                                               eps=eps, device=dev)
+            p, rc, f1 = G.edge_f1(r_pred, r_true)
+            if f1 > best["f1"]:
+                best = {"eps": eps, "precision": p, "recall": rc, "f1": f1}
+        table3[name] = best
+    table3["launches"] = ops.launches()
+    if upd.shape != (n, n_params) or \
+            table3["launches"]["pairwise_similarity"] != 2:
+        raise AssertionError(f"vision (f): {tuple(upd.shape)}, "
+                             f"{table3['launches']}")
+
+    # (g) SSPP's V through similarity="precomputed", card vs CPU
+    v = secure_similarity_matrix(ds.label_dist, seed=0)
+    ops.reset_launches()
+    got = G.build_3dg(v, sim_kind="precomputed", device=dev)
+    launches["g"] = ops.launches()
+    want = G.build_3dg(v, sim_kind="precomputed", device="cpu")
+    t = [torch.as_tensor(x) for x in got + want]
+    sspp = {"vn_max_abs_err": float((t[0] - t[3]).abs().max()),
+            "r": r_close(torch, t[1], t[4], atol=tiny),
+            "h": r_close(torch, t[2], t[5], atol=n * tiny),
+            "launches": launches["g"]}
+    if launches["g"]["adjacency"] != 1 or launches["g"]["pairwise_similarity"]:
+        raise AssertionError(f"vision (g): launches {launches['g']}")
+
+    info.update({
+        "sets_identical_card_vs_cpu": True,
+        "card_run_repeats_bitwise": True,
+        "val_loss_max_diff_card_vs_cpu": float(gaps.max()),
+        "val_loss_diff_card_vs_cpu_per_eval": gaps.tolist(),
+        "cnn_max_abs_err_card_vs_cpu": cnn_err,
+        "val_loss_diff_cudnn_off_vs_on_per_eval": gaps_native.tolist(),
+        "dense_solve_sets_identical": True,
+        "dynamic_cpu_rebuild_max_abs_err": dyn_err,
+        "samplers": findings, "table3": table3, "sspp": sspp,
+        "seconds": seconds, "launches": launches,
+        "finding_fedgs_count_var_below_uniform":
+            findings["fedgs"]["count_var"] < findings["uniform"]["count_var"]})
+    return info, launches["c"]
+
+
 def scale_run(np, torch, dev, *, n_clients: int, frac: float,
               rounds: int = 5, aggregator: str = "fedavg") -> dict:
     """FedGS on the card with the solve, the training and the aggregation
     timed per round (a sync around each), then one more round (with its
     eval) under torch.profiler for the device's busy share."""
     from repro_torch.core.availability import make_mode
+    from repro_torch.core.graph_device import GraphConfig, build_h
     from repro_torch.core.sampler import FedGSSampler
     from repro_torch.data.synthetic import make_synthetic
     from repro_torch.fed.aggregator_device import make_aggregator_process
     from repro_torch.fed.engine import FLConfig, FLEngine
     from repro_torch.fed.models import logistic_regression
+    from repro_torch.kernels import ops
 
     t0 = time.perf_counter()
     ds = make_synthetic(n_clients=n_clients, alpha=0.5, beta=0.5, seed=0)
@@ -570,6 +1020,20 @@ def scale_run(np, torch, dev, *, n_clients: int, frac: float,
     eng.install_oracle_graph(ds.opt_params)
     torch.cuda.synchronize()
     graph_ms = (time.perf_counter() - t0) * 1e3
+    # the fused route (build_h) on the same features: its H must be the
+    # engine's bit for bit; the fused kernel's launches are read here
+    ops.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    h_fused = build_h(torch.as_tensor(ds.opt_params, dtype=torch.float32,
+                                      device=dev), GraphConfig())
+    torch.cuda.synchronize()
+    fused_ms = (time.perf_counter() - t0) * 1e3
+    fused_launches = ops.launches()
+    if not torch.equal(h_fused, sampler._h) or \
+            fused_launches["fused_adjacency"] != 1:
+        raise AssertionError(f"N={n_clients}: build_h H differs from the "
+                             f"engine's, or launches {fused_launches}")
     sample = sampler.sample
     sampler.sample = timed(sample, "solve")
     eng._trainer = timed(eng._trainer, "train")
@@ -604,7 +1068,9 @@ def scale_run(np, torch, dev, *, n_clients: int, frac: float,
     return {"phase": "scale", "n": n_clients, "m": eng.m, "rounds": rounds,
             "aggregator": aggregator,
             "x_bytes": int(ds.x.nbytes), "data_gen_s": data_s,
-            "graph_build_ms": graph_ms, "solve_ms_per_round": times["solve"],
+            "graph_build_ms": graph_ms, "fused_graph_build_ms": fused_ms,
+            "fused_launches": fused_launches["fused_adjacency"],
+            "solve_ms_per_round": times["solve"],
             "train_ms_per_round": times["train"],
             "aggregate_ms_per_round": times["aggregate"], "run_s": run_s,
             "peak_mem_bytes": int(torch.cuda.max_memory_allocated()),
@@ -643,6 +1109,12 @@ def main() -> int:
         rows = kernel_checks(np, torch, n, dev)
         per_n[n] = rows
         emit({"phase": "kernels", "n": n, "card": smi, "rows": rows})
+    staged_rows = {**staged_kernel_checks(np, torch, dev),
+                   **swap_gain_checks(np, torch, dev)}
+    emit({"phase": "kernels", "staged": True, "card": smi,
+          "rows": staged_rows})
+    emit({"phase": "graph_routes", "card": smi,
+          "checks": graph_route_checks(np, torch, dev)})
     robust_rows = robust_kernel_checks(np, torch, dev)
     emit({"phase": "kernels", "robust": True, "card": smi,
           "rows": robust_rows})
@@ -651,16 +1123,28 @@ def main() -> int:
     emit(info)
     info, robust_launches = robust_run(np, torch, dev)
     emit(info)
-    launches = {**launches, **robust_launches}
+    info, vision_launches = vision_run(np, torch, dev)
+    emit(info)
     for n, frac in ENGINE_RUNS:
-        emit(scale_run(np, torch, dev, n_clients=n, frac=frac))
+        info = scale_run(np, torch, dev, n_clients=n, frac=frac)
+        emit(info)
+    launches = {**launches, **robust_launches,
+                "fused_adjacency": info["fused_launches"],
+                "swap_best": vision_launches["swap_best"]}
     emit(scale_run(np, torch, dev, n_clients=ENGINE_RUNS[1][0],
                    frac=ENGINE_RUNS[1][1], aggregator="memory"))
     main_rows = {
+        "pairwise_similarity": staged_rows[
+            "pairwise_similarity/{}x{}".format(*STAGED_SHAPES[0])],
+        "adjacency": staged_rows["adjacency/{}x{}".format(*STAGED_SHAPES[0])],
+        "swap_best": staged_rows[
+            "swap_best/m={}/n={}".format(*SWAP_GAIN_SHAPES[-1])],
         "memagg": robust_rows["memagg/{}x{}/m={}".format(*MEMAGG_SHAPES[0])],
         "krum": robust_rows["krum/m={}/p={}".format(*KRUM_SHAPES[0])]}
 
     kernels = []
+    if any(launches[name] <= 0 for name in KERNEL_INFO):
+        raise AssertionError(f"a ported kernel never ran: {launches}")
     for name, (source, replaces) in KERNEL_INFO.items():
         row = main_rows.get(name) or per_n[MAIN_N][
             f"{name}/m={MAIN_M}" if name == "swap_best_fused" else name]

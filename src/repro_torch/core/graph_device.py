@@ -17,13 +17,17 @@
        ▼
     normalized H — what FedGS's QUBO consumes
 
-Every stage is plain torch on the input's device and float32 throughout.
-On CUDA a feature-based build goes through the fused kernels instead
-(``kernels/ops.build_3dg_fused``: similarity, stats and adjacency in one
-kernel, then the Floyd–Warshall kernel), and ``apsp`` launches the
-Floyd–Warshall kernel.  On the CPU the staged plain stages run; their V is
-summed in the kernel's op order (``kernels/ref.similarity_ref``), so both
-routes give the same V.
+Every stage is float32 on the input's device.  The similarity and the
+adjacency are the staged kernels (``kernels/ops.pairwise_similarity`` and
+``similarity_to_adjacency``) and APSP is the Floyd–Warshall kernel: on CUDA
+they launch the hand-written kernels, on the CPU their plain versions run.
+:func:`build_3dg` is staged on every device and returns Vn, as the
+reference's ``backend="pallas"`` does.  :func:`build_h` takes the fused
+kernel for a feature similarity (``kernels/ops.build_3dg_fused``:
+similarity, stats and adjacency in one kernel, V never in device memory)
+and the staged route for ``similarity="precomputed"``.  Both sum V in the
+same op order (``kernels/ref.similarity_ref``), so the fused R is bitwise
+the staged R.
 """
 from __future__ import annotations
 
@@ -31,7 +35,7 @@ from dataclasses import dataclass
 
 import torch
 
-from repro_torch.kernels.ref import similarity_ref
+from repro_torch.kernels import ops
 
 # similarity sources: "dot" = U Uᵀ (oracle features), "cosine" = row-normalized
 # dot (oracle kind="cosine"), "functional" = max(cos, 0) (Eq. 11/12),
@@ -63,8 +67,9 @@ def _scalar(x: float, like: torch.Tensor) -> torch.Tensor:
 
 # ------------------------------------------------------------------- stages
 def dot_sim(u: torch.Tensor) -> torch.Tensor:
-    """V = U Uᵀ, in the fused kernel's op order."""
-    return similarity_ref(u)
+    """V = U Uᵀ: the similarity kernel on CUDA, its plain version (the same
+    op order) on the CPU."""
+    return ops.pairwise_similarity(u)
 
 
 def _row_normalize(u: torch.Tensor) -> torch.Tensor:
@@ -101,8 +106,7 @@ def to_adjacency(vn: torch.Tensor, *, eps: float = 0.1,
 def apsp(r: torch.Tensor) -> torch.Tensor:
     """All-pairs shortest paths of the (N, N) adjacency: the Floyd–Warshall
     kernel on CUDA, its plain version on the CPU."""
-    from repro_torch.kernels.ops import floyd_warshall
-    return floyd_warshall(r.to(torch.float32))
+    return ops.floyd_warshall(r.to(torch.float32))
 
 
 def cap_and_normalize(h: torch.Tensor, *, scale: float = 2.0,
@@ -130,39 +134,34 @@ def _features(u: torch.Tensor, cfg: GraphConfig) -> torch.Tensor:
                                                     "functional") else u
 
 
+def _similarity(u_or_v: torch.Tensor, cfg: GraphConfig) -> torch.Tensor:
+    if cfg.similarity == "precomputed":
+        return u_or_v.to(torch.float32)
+    v = dot_sim(_features(u_or_v, cfg))
+    return torch.clamp_min(v, 0.0) if cfg.similarity == "functional" else v
+
+
 def build_3dg(u_or_v: torch.Tensor, cfg: GraphConfig = GraphConfig()):
     """Features (N, d) — or raw similarity (N, N) with
     ``similarity="precomputed"`` — to ``(Vn, R, H_raw)``: the normalized
     similarity, the adjacency and the *uncapped* shortest-path matrix
-    (inf = disconnected).
-
-    On CUDA a feature-based build runs the fused kernel, which never
-    materializes V: ``Vn`` is then None.  The staged CUDA route for
-    ``similarity="precomputed"`` is not ported yet and raises."""
-    if u_or_v.is_cuda:
-        if cfg.similarity == "precomputed":
-            raise NotImplementedError(
-                "similarity='precomputed' on CUDA needs the staged "
-                "adjacency kernel, which is not ported yet")
-        from repro_torch.kernels.ops import build_3dg_fused
-        r, h = build_3dg_fused(_features(u_or_v, cfg), eps=cfg.eps,
-                               sigma2=cfg.sigma2,
-                               clamp=cfg.similarity == "functional")
-        return None, r, h
-    if cfg.similarity == "precomputed":
-        v = u_or_v.to(torch.float32)
-    else:
-        v = dot_sim(_features(u_or_v, cfg))
-        if cfg.similarity == "functional":
-            v = torch.clamp_min(v, 0.0)
-    vn = minmax01(v)
-    r = to_adjacency(vn, eps=cfg.eps, sigma2=cfg.sigma2)
-    return vn, r, apsp(r)
+    (inf = disconnected), on the input's device through the staged
+    kernels."""
+    v = _similarity(u_or_v, cfg)
+    r = ops.similarity_to_adjacency(v, eps=cfg.eps, sigma2=cfg.sigma2)
+    return minmax01(v), r, apsp(r)
 
 
 def build_h(u_or_v: torch.Tensor, cfg: GraphConfig = GraphConfig()):
     """The one-call 3DG constructor: features (or similarity) -> finite,
-    [0, 1]-normalized H, ready for ``fedgs_select``."""
-    _, _, h = build_3dg(u_or_v, cfg)
+    [0, 1]-normalized H, ready for ``fedgs_select``.  A feature similarity
+    goes through the fused kernel; ``"precomputed"`` (V given, no
+    features) through the staged route."""
+    if cfg.similarity == "precomputed":
+        _, _, h = build_3dg(u_or_v, cfg)
+    else:
+        _, h = ops.build_3dg_fused(_features(u_or_v, cfg), eps=cfg.eps,
+                                   sigma2=cfg.sigma2,
+                                   clamp=cfg.similarity == "functional")
     return cap_and_normalize(h, scale=cfg.finite_cap_scale,
                              normalize=cfg.normalize)

@@ -9,8 +9,11 @@ on the factored (H, z, alpha/N) through ``kernels/solver.q_diag``/``q_row``,
 the greedy masked argmax and the fused swap reduction
 (``kernels/ops.greedy_argmax`` / ``swap_best_fused``), which launch the CUDA
 kernels for CUDA tensors and take their plain versions on the CPU.
-:func:`fedgs_solve` is the plain solver over a dense (N, N) Q
-(:func:`_solve_ref`); given that Q it selects the same set bit for bit.
+:func:`fedgs_solve` solves over a dense (N, N) Q that the caller hands
+over: on CUDA through the greedy kernel and the dense best-swap kernel
+(:func:`_solve_dense`, ``kernels/ops.swap_best``), on the CPU with the plain
+solver (:func:`_solve_ref`).  Given the same Q every route selects the same
+set bit for bit.
 
 The loops are Python loops whose branches are ``torch.where`` selects (the
 reference's ``lax.cond``): the solve never syncs with the host, so a round
@@ -50,6 +53,15 @@ def _f32_ratio(alpha: float, n: int) -> float:
     return float(np.float32(alpha) / np.float32(n))
 
 
+def log_size_weights(data_sizes) -> torch.Tensor:
+    """The MD/PoC Gumbel log-weights with the reference's degenerate-size
+    guard: the 1e-12 floor turns all-zero data sizes into EQUAL finite
+    weights (uniform sampling) instead of NaNs, and zero-size clients keep
+    a finite score so they can still fill the mask."""
+    sizes = torch.as_tensor(np.asarray(data_sizes), dtype=torch.float32)
+    return torch.log(torch.clamp_min(sizes, 1e-12))
+
+
 # --------------------------------------------------- baseline sampling draws
 def gumbel_topk_select(generator: torch.Generator, log_weights: torch.Tensor,
                        avail: torch.Tensor, m: int) -> torch.Tensor:
@@ -74,6 +86,14 @@ def uniform_select(generator: torch.Generator, avail: torch.Tensor,
     return gumbel_topk_select(
         generator, torch.zeros(avail.shape, dtype=torch.float32,
                                device=avail.device), avail, m)
+
+
+def md_select(generator: torch.Generator, data_sizes, avail: torch.Tensor,
+              m: int) -> torch.Tensor:
+    """Without replacement, P(k) ∝ n_k, among A_t (degenerate sizes handled
+    by the :func:`log_size_weights` floor)."""
+    return gumbel_topk_select(
+        generator, log_size_weights(data_sizes).to(avail.device), avail, m)
 
 
 # ------------------------------------------------------------- FedGS solver
@@ -165,12 +185,35 @@ def _solve_kernel(diag: torch.Tensor, row_fn: Callable, swap_fn: Callable,
     return s
 
 
+def _solve_dense(q: torch.Tensor, avail: torch.Tensor, *, m: int,
+                 max_sweeps: int) -> torch.Tensor:
+    """The kernel-backed solve over a materialized Q: the greedy masked
+    argmax, then the dense best-swap reduction reading Q's selected rows in
+    place (``kernels/ops.swap_best``), as the reference's
+    ``fedgs_solve(backend="pallas")``."""
+    from repro_torch.kernels.ops import swap_best
+
+    def swap_fn(selc, valid, a, b):
+        return swap_best(q, selc, a, b)
+
+    return _solve_kernel(torch.diagonal(q).contiguous(),
+                         lambda k: _at(q, k), swap_fn, avail, m=m,
+                         max_sweeps=max_sweeps)
+
+
 def fedgs_solve(q: torch.Tensor, avail: torch.Tensor, *, m: int,
                 max_sweeps: int) -> torch.Tensor:
     """Greedy + best-swap local search on  max sᵀQs,  |s| = m,  s ⊆ avail,
-    over a dense Q (the plain solver).  If fewer than ``m`` clients are
-    available pass m = |A|.  Returns s (N,) bool."""
-    return _solve_ref(q.to(torch.float32), avail, m=m, max_sweeps=max_sweeps)
+    over a dense (N, N) Q (symmetric, diagonal −z).  On CUDA it runs the
+    greedy and dense-swap kernels (:func:`_solve_dense`), on the CPU the
+    plain solver; both select the same set.  If fewer than ``m`` clients
+    are available pass m = |A|.  Returns s (N,) bool."""
+    q = q.to(torch.float32)
+    if q.is_cuda:
+        return _solve_dense(q, avail, m=m, max_sweeps=max_sweeps)
+    if q.device.type != "cpu":
+        raise ValueError(f"fedgs_solve: no kernel for {q.device}")
+    return _solve_ref(q, avail, m=m, max_sweeps=max_sweeps)
 
 
 def balance_z(counts: torch.Tensor, m_target: int) -> torch.Tensor:

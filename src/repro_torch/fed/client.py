@@ -1,11 +1,11 @@
-"""Client-side local training: E SGD steps on M sampled clients at once
-(the port of ``repro.fed.client.make_local_trainer``).
+"""Client-side local training: E SGD steps on M sampled clients at once,
+and the Power-of-Choice loss probe (the port of ``repro.fed.client``).
 
 The M clients are a batch axis written out: every parameter carries a
 leading (M,) axis, and autograd on the SUM of the M per-client losses gives
 each client exactly its own gradient (client k's loss depends only on its
-own slice).  Batch indices come in as an (M, E, B) int64 tensor, so a test
-can feed the reference's draws.
+own slice).  Batch indices come in as an (M, E, B) int64 tensor, and
+probe indices as (N, probe_size), so a test can feed the reference's draws.
 """
 from __future__ import annotations
 
@@ -13,21 +13,35 @@ import numpy as np
 import torch
 
 _BATCH_STREAM = 1          # SeedSequence([seed, t, 1]): the batch-index draws
+_PROBE_STREAM = 2          # SeedSequence([seed, t, 2]): the loss-probe draws
+PROBE_SIZE = 64            # the reference prober's batch per client
+
+
+def _uniform_indices(seed: int, t: int, stream: int, sizes,
+                     shape: tuple) -> torch.Tensor:
+    """(len(sizes), *shape) int64 indices, uniform in [0, max(n_k, 1)) per
+    client, from a CPU generator seeded by SeedSequence([seed, t, stream]):
+    a CPU run and a card run draw the same indices."""
+    state = np.random.SeedSequence([seed, t, stream]).generate_state(1)
+    gen = torch.Generator().manual_seed(int(state[0]))
+    n = torch.clamp_min(torch.as_tensor(np.asarray(sizes), dtype=torch.float64),
+                        1.0).reshape(-1, *([1] * len(shape)))
+    u = torch.rand((len(n), *shape), generator=gen, dtype=torch.float64)
+    idx = torch.floor(u * n).to(torch.int64)
+    return torch.minimum(idx, n.to(torch.int64) - 1)
 
 
 def default_batch_indices(seed: int, t: int, sizes, local_steps: int,
                           batch_size: int) -> torch.Tensor:
-    """(M, E, B) int64 indices, uniform in [0, max(n_k, 1)) per client,
-    drawn from a CPU generator seeded from (seed, t): a CPU run and a card
-    run draw the same indices."""
-    state = np.random.SeedSequence([seed, t, _BATCH_STREAM]).generate_state(1)
-    gen = torch.Generator().manual_seed(int(state[0]))
-    n = torch.clamp_min(torch.as_tensor(np.asarray(sizes), dtype=torch.float64),
-                        1.0)
-    u = torch.rand((len(n), local_steps, batch_size), generator=gen,
-                   dtype=torch.float64)
-    idx = torch.floor(u * n[:, None, None]).to(torch.int64)
-    return torch.minimum(idx, n.to(torch.int64)[:, None, None] - 1)
+    """(M, E, B) int64 batch indices of round t (stream 1)."""
+    return _uniform_indices(seed, t, _BATCH_STREAM, sizes,
+                            (local_steps, batch_size))
+
+
+def default_probe_indices(seed: int, t: int, sizes,
+                          probe_size: int = PROBE_SIZE) -> torch.Tensor:
+    """(N, probe_size) int64 loss-probe indices of round t (stream 2)."""
+    return _uniform_indices(seed, t, _PROBE_STREAM, sizes, (probe_size,))
 
 
 def make_local_trainer(model, *, local_steps: int, batch_size: int,
@@ -59,3 +73,23 @@ def make_local_trainer(model, *, local_steps: int, batch_size: int,
         return params
 
     return train
+
+
+def make_loss_prober(model):
+    """Returns fn(params, x (N, n_max, ...), y (N, n_max), idx (N, probe))
+    -> (N,) loss of the *global* model on each client's probe batch
+    (Power-of-Choice).  The indices come in, as the trainer's do."""
+
+    def probe(params: dict, x: torch.Tensor, y: torch.Tensor,
+              idx: torch.Tensor) -> torch.Tensor:
+        n = x.shape[0]
+        if idx.dim() != 2 or idx.shape[0] != n:
+            raise ValueError(f"probe indices {tuple(idx.shape)} are not "
+                             f"(N, probe_size) with N = {n}")
+        rows = torch.arange(n, device=x.device)[:, None]
+        stacked = {k: v.unsqueeze(0).expand(n, *v.shape)
+                   for k, v in params.items()}
+        with torch.no_grad():
+            return model.loss(stacked, x[rows, idx], y[rows, idx])
+
+    return probe

@@ -3,20 +3,23 @@
 
 Per round t:
   1. the availability mode draws A_t            (independent numpy stream)
-  2. the sampler picks S_t ⊆ A_t, |S_t| ≤ M     (FedGS solves Eq. 16)
+  2. the sampler picks S_t ⊆ A_t, |S_t| ≤ M     (FedGS solves Eq. 16;
+     Power-of-Choice reads every client's probed loss first)
   3. E local SGD steps on the M sampled clients, batched
   4. optional fault injection into the local updates (``fed/faults_device``)
   5. the server update: any aggregator family (``fed/aggregator_device``;
      default Eq. 18 FedAvg)
-  6. the count update
+  6. the count update, and with a dynamic 3DG the participants'
+     re-embedding and, every ``graph_refresh_every`` rounds, the rebuild
 Evaluation on the shared validation split; the history records loss,
 accuracy and count fairness.
 
 Everything runs on ``device``: CUDA unless the caller asks for the CPU.
-On CUDA the 3DG build, the FedGS solve and the memory and krum server
-updates go through the hand-written kernels.  A round syncs with the host
-where it must: reading the sampled set (the availability draw and the
-counts are host numpy, as in the reference) and the eval numbers.
+On CUDA the 3DG builds (static and dynamic, through the staged kernels),
+the FedGS solve and the memory and krum server updates go through the
+hand-written kernels.  A round syncs with the host where it must: reading
+the sampled set (the availability draw and the counts are host numpy, as
+in the reference), Power-of-Choice's losses and the eval numbers.
 """
 from __future__ import annotations
 
@@ -30,9 +33,12 @@ from repro_torch import resolve_device
 from repro_torch.core import graph as graph_mod
 from repro_torch.core.availability import host_draw
 from repro_torch.core.fairness import count_variance
+from repro_torch.core.graph_device import GraphConfig, build_3dg
 from repro_torch.core.sampler import FedGSSampler, Sampler
 from repro_torch.data.fed_dataset import FedDataset
-from repro_torch.fed.client import default_batch_indices, make_local_trainer
+from repro_torch.fed.client import (default_batch_indices,
+                                    default_probe_indices, make_local_trainer,
+                                    make_loss_prober)
 from repro_torch.fed.faults_device import HostFaultInjector, make_fault_process
 from repro_torch.fed.server import ServerAggregator
 
@@ -49,6 +55,9 @@ class FLConfig:
     eval_every: int = 5
     seed: int = 0
     avail_seed: int = 1234            # independent availability stream
+    # dynamic 3DG: rebuild the graph from participants' uploaded models every
+    # K rounds (0 = static graph; paper §3.2)
+    graph_refresh_every: int = 0
 
 
 @dataclass
@@ -76,7 +85,8 @@ class FLEngine:
                  fault_frac: float = 0.0, fault_seed: Optional[int] = None,
                  device=None, init_params: Optional[dict] = None,
                  batch_indices: Optional[Callable] = None,
-                 fault_draws: Optional[Callable] = None):
+                 fault_draws: Optional[Callable] = None,
+                 probe_indices: Optional[Callable] = None):
         """``aggregator`` is any ``fed.aggregator_device.AggregatorProcess``
         (default FedAvg).  ``fault`` is a ``fed.faults_device.FaultProcess``
         or a family name (built with ``fault_frac`` adversarial clients),
@@ -85,9 +95,11 @@ class FLEngine:
         ``device`` None means CUDA (and raises without one).
         ``init_params`` (a dict of tensors) replaces the model's own init,
         ``batch_indices(t, sel, sizes) -> (M, E, B)`` the default index
-        draws and ``fault_draws(kind, t, shape)`` the fault families'
-        standard-normal draws (``HostFaultInjector``): the seams that let a
-        run replay the JAX package's random draws."""
+        draws, ``probe_indices(t, sizes) -> (N, probe_size)`` the
+        Power-of-Choice loss probe's and ``fault_draws(kind, t, shape)``
+        the fault families' standard-normal draws (``HostFaultInjector``):
+        the seams that let a run replay the JAX package's random draws.
+        A FedGS sampler is handed the engine's device."""
         self.ds, self.model, self.sampler, self.mode, self.cfg = \
             ds, model, sampler, mode, cfg
         self.device = resolve_device(device, who="FLEngine")
@@ -95,6 +107,9 @@ class FLEngine:
         self.m = max(1, int(round(cfg.sample_frac * self.n)))
         self.init_params = init_params
         self.batch_indices = batch_indices
+        self.probe_indices = probe_indices
+        if isinstance(sampler, FedGSSampler):
+            sampler.to(self.device)
         self._server = ServerAggregator(aggregator, n_clients=self.n,
                                         data_sizes=ds.sizes, seed=cfg.seed)
         if isinstance(fault, str):
@@ -108,6 +123,9 @@ class FLEngine:
         self._trainer = make_local_trainer(
             model, local_steps=cfg.local_steps, batch_size=cfg.batch_size,
             prox_mu=cfg.prox_mu)
+        self._prober = make_loss_prober(model) if sampler.needs_losses \
+            else None
+        self._emb = None                  # dynamic 3DG embeddings (N, dim)
         self.counts = np.zeros(self.n)
         # the padded client data and the validation split live on the
         # device from construction on: uploading them is set-up, not a round
@@ -140,6 +158,62 @@ class FLEngine:
                 h = torch.from_numpy(np.array(h, dtype=np.float32))
             self.sampler.set_graph(h.to(self.device, torch.float32))
 
+    # ------------------------------------------------------- dynamic 3DG
+    def install_dynamic_graph(self, refresh_every: int = 10,
+                              eps: float = 0.1, sigma2: float = 0.01,
+                              probe_size: int = 64, *,
+                              init_params: Optional[dict] = None,
+                              batch_indices=None):
+        """Functional-similarity 3DG maintained online (paper §3.2): the
+        initial graph comes from one local-training probe round over ALL
+        clients from a fresh global model; afterwards the participants
+        are re-embedded each round and V -> R -> H is rebuilt every
+        ``refresh_every`` rounds, through the staged kernels on CUDA.
+
+        The probe batch is the reference's (numpy, seed + 777).  The probe
+        round's init and its (N, E, B) batch indices (by default both
+        drawn from seed + 778) are injectable, like the run's."""
+        if not isinstance(self.sampler, FedGSSampler):
+            return
+        cfg, dev = self.cfg, self.device
+        cfg.graph_refresh_every = refresh_every
+        self._graph_eps, self._graph_sigma2 = eps, sigma2
+        rng = np.random.default_rng(cfg.seed + 777)
+        xv = np.asarray(self.ds.x_val, np.float64).reshape(
+            len(self.ds.x_val), -1)
+        mu, cov = xv.mean(0), np.cov(xv.T) + 1e-4 * np.eye(xv.shape[1])
+        probe = rng.multivariate_normal(mu, cov, probe_size).astype(np.float32)
+        self._probe = torch.as_tensor(
+            probe.reshape(probe_size, *self.ds.x_val.shape[1:]), device=dev)
+
+        if init_params is None:
+            params = self.model.init(
+                torch.Generator().manual_seed(cfg.seed + 778), device=dev)
+        else:
+            params = {k: torch.as_tensor(v, dtype=torch.float32, device=dev)
+                      for k, v in init_params.items()}
+        if batch_indices is None:
+            batch_indices = default_batch_indices(
+                cfg.seed + 778, 0, self.ds.sizes, cfg.local_steps,
+                cfg.batch_size)
+        stacked = self._trainer(params, self._x, self._y, cfg.lr,
+                                torch.as_tensor(batch_indices,
+                                                dtype=torch.int64,
+                                                device=dev))
+        self._emb = graph_mod.probe_embeddings(self.model.embed, stacked,
+                                               self._probe)
+        self._rebuild_dynamic_graph()
+
+    def _rebuild_dynamic_graph(self):
+        cfg = GraphConfig(eps=self._graph_eps, sigma2=self._graph_sigma2,
+                          similarity="functional")
+        _, _, h = build_3dg(self._emb, cfg)
+        self.sampler.set_graph(h)
+
+    def _update_dynamic_embeddings(self, sel_t: torch.Tensor, local: dict):
+        self._emb[sel_t] = graph_mod.probe_embeddings(self.model.embed, local,
+                                                      self._probe)
+
     # ---------------------------------------------------------------- round
     def _indices(self, t: int, sel: np.ndarray) -> torch.Tensor:
         sizes = self.ds.sizes[sel]
@@ -150,6 +224,15 @@ class FLEngine:
                                         self.cfg.local_steps,
                                         self.cfg.batch_size)
         return torch.as_tensor(idx, dtype=torch.int64, device=self.device)
+
+    def _losses(self, t: int, params: dict):
+        """Every client's loss under the global model (Power-of-Choice)."""
+        if self.probe_indices is not None:
+            idx = self.probe_indices(t, self.ds.sizes)
+        else:
+            idx = default_probe_indices(self.cfg.seed, t, self.ds.sizes)
+        idx = torch.as_tensor(idx, dtype=torch.int64, device=self.device)
+        return self._prober(params, self._x, self._y, idx).cpu().numpy()
 
     def run(self, progress: Callable | None = None) -> History:
         cfg, dev = self.cfg, self.device
@@ -169,9 +252,11 @@ class FLEngine:
         for t in range(cfg.rounds):
             rng = np.random.default_rng(np.random.SeedSequence([cfg.seed, t]))
             avail = host_draw(self.mode, t, cfg.avail_seed)
+            losses = self._losses(t, params) if self._prober is not None \
+                else None
             sel = np.asarray(self.sampler.sample(
                 avail=avail, m=self.m, rng=rng, counts=self.counts,
-                data_sizes=self.ds.sizes, t=t), dtype=int)
+                data_sizes=self.ds.sizes, losses=losses, t=t), dtype=int)
             lr = cfg.lr * (cfg.lr_decay ** t)
             sel_t = torch.as_tensor(sel, dtype=torch.int64, device=dev)
             local = self._trainer(params, xs[sel_t], ys[sel_t], lr,
@@ -184,6 +269,10 @@ class FLEngine:
                 chosen.append(self._server.last_chosen)
             self.counts[sel] += 1
             hist.all_sampled.append(sel.tolist())
+            if cfg.graph_refresh_every > 0 and self._emb is not None:
+                self._update_dynamic_embeddings(sel_t, local)
+                if (t + 1) % cfg.graph_refresh_every == 0:
+                    self._rebuild_dynamic_graph()
 
             if t % cfg.eval_every == 0 or t == cfg.rounds - 1:
                 with torch.no_grad():

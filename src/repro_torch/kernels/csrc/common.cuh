@@ -64,4 +64,60 @@ __device__ __forceinline__ uint64_t block_max_u64(uint64_t v) {
     return v;
 }
 
+// ----------------------------------------------- the 3DG tile product
+// One 64 x 64 tile of V = U·Uᵀ per 16 x 16 block, each thread a 4 x 4
+// register tile, U read through shared memory 16 columns at a time.  The
+// sum runs in ascending k as acc = acc + u_ik·u_jk with two IEEE roundings
+// (__fmul_rn, __fadd_rn: no FMA contraction): the op order of
+// `kernels/ref.similarity_ref`.  Both the fused adjacency kernel and the
+// staged similarity kernel use it, so their V are bitwise equal.
+constexpr int TILE = 64;     // output tile edge
+constexpr int TD = 16;       // threads per tile edge (16x16 = 256 threads)
+constexpr int KC = 16;       // columns of U per shared-memory chunk
+constexpr int RT = TILE / TD;
+
+// acc[a][b] = V[i0 + ty + TD*a][j0 + tx + TD*b]
+__device__ __forceinline__ void tile_dot(const float* __restrict__ u, int n,
+                                         int d, int i0, int j0,
+                                         float acc[RT][RT]) {
+    __shared__ float as[KC][TILE + 1];
+    __shared__ float bs[KC][TILE + 1];
+    const int tx = threadIdx.x, ty = threadIdx.y;
+    const int tid = ty * TD + tx;
+    for (int a = 0; a < RT; ++a)
+        for (int b = 0; b < RT; ++b) acc[a][b] = 0.0f;
+    for (int k0 = 0; k0 < d; k0 += KC) {
+        for (int e = tid; e < TILE * KC; e += TD * TD) {
+            const int r = e / KC, k = e % KC;
+            const bool kin = k0 + k < d;
+            as[k][r] = (i0 + r < n && kin) ? u[(size_t)(i0 + r) * d + k0 + k] : 0.0f;
+            bs[k][r] = (j0 + r < n && kin) ? u[(size_t)(j0 + r) * d + k0 + k] : 0.0f;
+        }
+        __syncthreads();
+        const int kmax = min(KC, d - k0);   // no pad terms: keeps -0.0 sums
+        for (int k = 0; k < kmax; ++k) {
+            float av[RT], bv[RT];
+            for (int a = 0; a < RT; ++a) av[a] = as[k][ty + TD * a];
+            for (int b = 0; b < RT; ++b) bv[b] = bs[k][tx + TD * b];
+            for (int a = 0; a < RT; ++a)
+                for (int b = 0; b < RT; ++b)
+                    acc[a][b] = __fadd_rn(acc[a][b], __fmul_rn(av[a], bv[b]));
+        }
+        __syncthreads();
+    }
+}
+
+// One entry of the 3DG adjacency from a raw similarity v: Vn = (v − lo) /
+// range with range = max(hi − lo, 1e-12), then exp(−Vn/σ²) where Vn ≥ eps,
+// inf (no edge) elsewhere, and 0 on the diagonal, chosen by a select (never
+// a multiply by 1 − eye, which turns inf into NaN).  IEEE division and
+// expf: no fast math, the σ² = 0.01 weights reach the denormal range.
+__device__ __forceinline__ float adjacency_entry(float v, float lo,
+                                                 float range, float eps,
+                                                 float sigma2, bool diag) {
+    const float vn = __fdiv_rn(__fsub_rn(v, lo), range);
+    const float e = (vn >= eps) ? expf(__fdiv_rn(-vn, sigma2)) : INFINITY;
+    return diag ? 0.0f : e;
+}
+
 }  // namespace fedgs

@@ -16,7 +16,9 @@
 // V accumulates in ascending k as acc = acc + u_ik·u_jk with two IEEE
 // roundings (__fmul_rn, __fadd_rn: no FMA contraction).  That is the op
 // order of the plain version (`kernels/ref.similarity_ref`), so V, lo and hi
-// are bitwise equal to it, and so is R's inf pattern at any N.
+// are bitwise equal to it, and so is R's inf pattern at any N.  The tile
+// product and the epilogue live in common.cuh, shared with the staged
+// kernels (pairwise_similarity.cu), so the fused R is bitwise the staged R.
 //
 // What bounds it on the card: the 2·N²·d multiply-adds of the product (the
 // bytes are only U in and R out).  Each thread keeps a 4x4 register tile and
@@ -25,41 +27,10 @@
 
 namespace {
 
-constexpr int TILE = 64;     // output tile edge
-constexpr int TD = 16;       // threads per tile edge (16x16 = 256 threads)
-constexpr int KC = 16;       // columns of U per shared-memory chunk
-constexpr int RT = TILE / TD;
-
-// acc[a][b] = V[i0 + ty + TD*a][j0 + tx + TD*b]
-__device__ __forceinline__ void tile_dot(const float* __restrict__ u, int n,
-                                         int d, int i0, int j0,
-                                         float acc[RT][RT]) {
-    __shared__ float as[KC][TILE + 1];
-    __shared__ float bs[KC][TILE + 1];
-    const int tx = threadIdx.x, ty = threadIdx.y;
-    const int tid = ty * TD + tx;
-    for (int a = 0; a < RT; ++a)
-        for (int b = 0; b < RT; ++b) acc[a][b] = 0.0f;
-    for (int k0 = 0; k0 < d; k0 += KC) {
-        for (int e = tid; e < TILE * KC; e += TD * TD) {
-            const int r = e / KC, k = e % KC;
-            const bool kin = k0 + k < d;
-            as[k][r] = (i0 + r < n && kin) ? u[(size_t)(i0 + r) * d + k0 + k] : 0.0f;
-            bs[k][r] = (j0 + r < n && kin) ? u[(size_t)(j0 + r) * d + k0 + k] : 0.0f;
-        }
-        __syncthreads();
-        const int kmax = min(KC, d - k0);   // no pad terms: keeps -0.0 sums
-        for (int k = 0; k < kmax; ++k) {
-            float av[RT], bv[RT];
-            for (int a = 0; a < RT; ++a) av[a] = as[k][ty + TD * a];
-            for (int b = 0; b < RT; ++b) bv[b] = bs[k][tx + TD * b];
-            for (int a = 0; a < RT; ++a)
-                for (int b = 0; b < RT; ++b)
-                    acc[a][b] = __fadd_rn(acc[a][b], __fmul_rn(av[a], bv[b]));
-        }
-        __syncthreads();
-    }
-}
+using fedgs::RT;
+using fedgs::TD;
+using fedgs::TILE;
+using fedgs::tile_dot;
 
 __global__ void stats_kernel(const float* __restrict__ u, int n, int d,
                              int clamp, uint32_t* __restrict__ keys) {
@@ -113,9 +84,8 @@ __global__ void adjacency_kernel(const float* __restrict__ u, int n, int d,
             if (i >= n || j >= n) continue;
             float v = acc[a][b];
             if (clamp) v = fmaxf(v, 0.0f);
-            const float vn = __fdiv_rn(__fsub_rn(v, lo), range);
-            const float e = (vn >= eps) ? expf(__fdiv_rn(-vn, sigma2)) : INFINITY;
-            r[(size_t)i * n + j] = (i == j) ? 0.0f : e;
+            r[(size_t)i * n + j] = fedgs::adjacency_entry(v, lo, range, eps,
+                                                          sigma2, i == j);
         }
 }
 

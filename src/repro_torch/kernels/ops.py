@@ -13,14 +13,18 @@ from repro_torch.kernels import aggregate as _ag
 from repro_torch.kernels import floyd_warshall as _fw
 from repro_torch.kernels import graph_fused as _gf
 from repro_torch.kernels import krum as _kr
+from repro_torch.kernels import pairwise_similarity as _ps
 from repro_torch.kernels import solver as _sv
 
 # name -> Kernel (each with its ``launches`` count), in main-path order
 KERNELS = {
+    "pairwise_similarity": _ps.SIM_KERNEL,
+    "adjacency": _ps.ADJ_KERNEL,
     "fused_adjacency": _gf.KERNEL,
     "floyd_warshall": _fw.KERNEL,
     "greedy_argmax": _sv.ARGMAX_KERNEL,
-    "swap_best_fused": _sv.SWAP_KERNEL,
+    "swap_best_fused": _sv.SWAP_FUSED_KERNEL,
+    "swap_best": _sv.SWAP_GAIN_KERNEL,
     "memagg": _ag.KERNEL,
     "krum": _kr.KERNEL,
 }
@@ -43,6 +47,31 @@ def floyd_warshall(h: torch.Tensor) -> torch.Tensor:
 
 
 # ------------------------------------------------- similarity -> adjacency
+def pairwise_similarity(u: torch.Tensor) -> torch.Tensor:
+    """V = U Uᵀ for (N, d) features.  Returns (N, N) float32."""
+    return _ps.similarity(u)
+
+
+def similarity_to_adjacency(v: torch.Tensor, *, eps: float,
+                            sigma2: float) -> torch.Tensor:
+    """Raw similarity v (N, N) -> 3DG adjacency R: min-max normalize with
+    lo/hi reduced from v on its device, 0 on the diagonal, exp(−Vn/σ²)
+    where Vn ≥ eps, inf elsewhere."""
+    v = v.to(torch.float32)
+    stats = torch.stack([torch.min(v), torch.max(v)])
+    return _ps.adjacency(v, stats, eps=eps, sigma2=sigma2)
+
+
+def build_3dg_kernel(u: torch.Tensor, *, eps: float = 0.1,
+                     sigma2: float = 0.01):
+    """The STAGED kernel route: features -> V -> R -> H, one kernel per
+    stage (V and R go through device memory).  Returns (V, R, H_raw);
+    R is bitwise :func:`build_3dg_fused`'s."""
+    v = pairwise_similarity(u)
+    r = similarity_to_adjacency(v, eps=eps, sigma2=sigma2)
+    return v, r, floyd_warshall(r)
+
+
 def fused_adjacency(u: torch.Tensor, *, eps: float, sigma2: float,
                     clamp: bool = False) -> torch.Tensor:
     """Features u (N, d) -> 3DG adjacency R (N, N) in one fused kernel: V =
@@ -74,7 +103,17 @@ def swap_best_fused(h: torch.Tensor, z: torch.Tensor, scale: float,
     row indices already clamped into range, valid (M,) real rows, a (M,) /
     b (N,) out/in-gain terms carrying the −1e18 sentinel.  Returns 0-dim
     (best delta, panel rank, column j)."""
-    return _sv.swap_best(h, z, scale, sel, valid, a, b)
+    return _sv.swap_best_fused(h, z, scale, sel, valid, a, b)
+
+
+def swap_best(q: torch.Tensor, sel: torch.Tensor, a: torch.Tensor,
+              b: torch.Tensor):
+    """Best swap over the selected rows of a MATERIALIZED Q: q (N, N), sel
+    (M,) row indices already clamped into range, a (M,) / b (N,) out/in-gain
+    terms carrying the −1e18 sentinel.  The kernel reads Q[sel] in place
+    (the reference takes the gathered (M, N) panel; the winner is the
+    same).  Returns 0-dim (best delta, panel rank, column j)."""
+    return _sv.swap_gain(q, sel, a, b)
 
 
 # --------------------------------------------------- robust server update

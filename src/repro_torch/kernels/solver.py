@@ -1,9 +1,11 @@
-"""Kernels of the FedGS Eq. 16 solver: the greedy masked argmax and the
-Q-free best-swap reduction, each beside its plain version.
+"""Kernels of the FedGS Eq. 16 solver: the greedy masked argmax, the
+Q-free best-swap reduction and the best swap over a dense Q, each beside
+its plain version.
 
 Replaces ``repro/kernels/solver.py`` ``_masked_argmax_kernel`` /
-``masked_argmax_pallas`` and ``_swap_fused_kernel`` (+ ``_best_swap_update``)
-/ ``swap_gain_fused_pallas`` with ``csrc/solver.cu``.  The TPU kernels carry
+``masked_argmax_pallas``, ``_swap_fused_kernel`` (+ ``_best_swap_update``)
+/ ``swap_gain_fused_pallas`` and ``_swap_gain_kernel`` /
+``swap_gain_pallas`` with ``csrc/solver.cu``.  The TPU kernels carry
 a running (best, index) pair across a sequential grid; the CUDA kernels
 fold packed (value, ~index) keys by max instead, which keeps the largest
 value and its LOWEST index in any block order — the reference's first-max
@@ -12,7 +14,9 @@ bound by launch latency, and at large N by the bytes of the H panels the
 swap reads.  Q = sym(a·H) − diag(z) is never built: ``q_diag``/``q_row``
 rebuild what the greedy pass needs, and the swap kernel rebuilds each Q
 entry from H where it is consumed, with no FMA contraction (the op order
-of ``repro/kernels/solver.py:60-80``).
+of ``repro/kernels/solver.py:60-80``).  The dense swap serves
+``fedgs_solve``, whose caller hands over Q itself: it reads the selected
+rows of Q in place.
 
 The wrappers launch the kernel for CUDA tensors and take the plain version
 only for CPU tensors.  They return 0-dim tensors on the input's device and
@@ -27,8 +31,10 @@ from repro_torch.kernels._build import F, I, P, Kernel, stream_of
 NEG = -1e18         # the solver's masked-entry sentinel
 
 ARGMAX_KERNEL = Kernel("solver", "masked_argmax_launch", [P, P, P, I, P, P, P])
-SWAP_KERNEL = Kernel("solver", "swap_best_launch",
-                     [P, P, F, P, P, P, P, I, I, P, P, P, P, P])
+SWAP_FUSED_KERNEL = Kernel("solver", "swap_best_launch",
+                           [P, P, F, P, P, P, P, I, I, P, P, P, P, P])
+SWAP_GAIN_KERNEL = Kernel("solver", "swap_gain_launch",
+                          [P, P, P, P, I, I, P, P, P, P, P])
 
 
 # ----------------------------------------------------- factored-Q providers
@@ -92,8 +98,8 @@ def masked_argmax(diag: torch.Tensor, r: torch.Tensor, mask: torch.Tensor):
     return masked_argmax_plain(diag, r, mask)
 
 
-# -------------------------------------------------------------- swap sweep
-def swap_best_plain(h, z, scale: float, sel, valid, a, b):
+# -------------------------------------------------------- Q-free swap sweep
+def swap_best_fused_plain(h, z, scale: float, sel, valid, a, b):
     n = h.shape[0]
     hs = torch.index_select(h, 0, sel)                    # (M, N)
     hts = torch.index_select(h, 1, sel).T                 # (M, N)
@@ -112,16 +118,17 @@ def swap_best_plain(h, z, scale: float, sel, valid, a, b):
     return delta.reshape(-1)[flat], flat // n, flat % n
 
 
-def swap_best_cuda(h, z, scale: float, sel, valid, a, b):
+def swap_best_fused_cuda(h, z, scale: float, sel, valid, a, b):
     n, m = h.shape[0], sel.shape[0]
     if not all(t.is_cuda for t in (h, z, sel, valid, a, b)):
-        raise ValueError("swap_best_cuda takes CUDA tensors")
+        raise ValueError("swap_best_fused_cuda takes CUDA tensors")
     if h.shape != (n, n) or z.shape != (n,) or b.shape != (n,) \
             or valid.shape != (m,) or a.shape != (m,):
-        raise ValueError("swap_best_cuda: shapes do not match (N, N), (N,), "
-                         "(M,)")
+        raise ValueError("swap_best_fused_cuda: shapes do not match (N, N), "
+                         "(N,), (M,)")
     if not 0 < m * n < 2 ** 31:
-        raise ValueError(f"swap_best_cuda: panel {m} x {n} out of range")
+        raise ValueError(f"swap_best_fused_cuda: panel {m} x {n} out of "
+                         "range")
     hh = h.to(torch.float32).contiguous()
     zz = z.to(torch.float32).contiguous()
     ss = sel.to(torch.int64).contiguous()
@@ -133,16 +140,16 @@ def swap_best_cuda(h, z, scale: float, sel, valid, a, b):
     rank = torch.empty((), dtype=torch.int64, device=h.device)
     j = torch.empty((), dtype=torch.int64, device=h.device)
     with torch.cuda.device(h.device):
-        SWAP_KERNEL(hh.data_ptr(), zz.data_ptr(), scale, ss.data_ptr(),
+        SWAP_FUSED_KERNEL(hh.data_ptr(), zz.data_ptr(), scale, ss.data_ptr(),
                     vv.data_ptr(), aa.data_ptr(), bb.data_ptr(), m, n,
                     scratch.data_ptr(), best.data_ptr(), rank.data_ptr(),
                     j.data_ptr(), stream_of(hh))
     return best, rank, j
 
 
-def swap_best(h: torch.Tensor, z: torch.Tensor, scale: float,
-              sel: torch.Tensor, valid: torch.Tensor, a: torch.Tensor,
-              b: torch.Tensor):
+def swap_best_fused(h: torch.Tensor, z: torch.Tensor, scale: float,
+                    sel: torch.Tensor, valid: torch.Tensor, a: torch.Tensor,
+                    b: torch.Tensor):
     """Q-free best swap over the selected rows: h (N, N), z (N,), ``scale``
     = alpha/N (a float32 value), sel (M,) row indices in range, valid (M,)
     real rows, a (M,) / b (N,) out/in-gain terms carrying −1e18 on invalid
@@ -150,7 +157,56 @@ def swap_best(h: torch.Tensor, z: torch.Tensor, scale: float,
     (best delta, rank s, column j) of the lowest flat index s·N + j
     reaching the max.  H need not be symmetric."""
     if h.is_cuda:
-        return swap_best_cuda(h, z, scale, sel, valid, a, b)
+        return swap_best_fused_cuda(h, z, scale, sel, valid, a, b)
     if h.device.type != "cpu":
-        raise ValueError(f"swap_best: no kernel for {h.device}")
-    return swap_best_plain(h, z, scale, sel, valid, a, b)
+        raise ValueError(f"swap_best_fused: no kernel for {h.device}")
+    return swap_best_fused_plain(h, z, scale, sel, valid, a, b)
+
+
+# --------------------------------------------------------- dense swap sweep
+def swap_gain_plain(q, sel, a, b):
+    n = q.shape[1]
+    qs = torch.index_select(q, 0, sel)                    # (M, N)
+    delta = (a[:, None] + b[None, :]) - 2.0 * qs
+    delta = torch.where(torch.isnan(delta), torch.full_like(delta, NEG), delta)
+    flat = torch.argmax(delta.reshape(-1))
+    return delta.reshape(-1)[flat], flat // n, flat % n
+
+
+def swap_gain_cuda(q, sel, a, b):
+    n, m = q.shape[0], sel.shape[0]
+    if not all(t.is_cuda for t in (q, sel, a, b)):
+        raise ValueError("swap_gain_cuda takes CUDA tensors")
+    if q.shape != (n, n) or a.shape != (m,) or b.shape != (n,):
+        raise ValueError("swap_gain_cuda: shapes do not match (N, N), (M,), "
+                         "(M,), (N,)")
+    if not 0 < m * n < 2 ** 31:
+        raise ValueError(f"swap_gain_cuda: panel {m} x {n} out of range")
+    qq = q.to(torch.float32).contiguous()
+    ss = sel.to(torch.int64).contiguous()
+    aa = a.to(torch.float32).contiguous()
+    bb = b.to(torch.float32).contiguous()
+    scratch = torch.empty(2, dtype=torch.int64, device=q.device)
+    best = torch.empty((), dtype=torch.float32, device=q.device)
+    rank = torch.empty((), dtype=torch.int64, device=q.device)
+    j = torch.empty((), dtype=torch.int64, device=q.device)
+    with torch.cuda.device(q.device):
+        SWAP_GAIN_KERNEL(qq.data_ptr(), ss.data_ptr(), aa.data_ptr(),
+                         bb.data_ptr(), m, n, scratch.data_ptr(),
+                         best.data_ptr(), rank.data_ptr(), j.data_ptr(),
+                         stream_of(qq))
+    return best, rank, j
+
+
+def swap_gain(q: torch.Tensor, sel: torch.Tensor, a: torch.Tensor,
+              b: torch.Tensor):
+    """Best swap over the selected rows of a dense Q: q (N, N), sel (M,)
+    row indices in range, a (M,) / b (N,) out/in-gain terms carrying −1e18
+    on invalid entries.  delta = (a_s + b_j) − 2·Q[sel_s, j], NaN -> −1e18;
+    returns (best delta, rank s, column j) of the lowest flat index
+    s·N + j reaching the max."""
+    if q.is_cuda:
+        return swap_gain_cuda(q, sel, a, b)
+    if q.device.type != "cpu":
+        raise ValueError(f"swap_gain: no kernel for {q.device}")
+    return swap_gain_plain(q, sel, a, b)

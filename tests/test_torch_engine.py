@@ -83,14 +83,18 @@ def test_port_imports_no_jax_and_no_repro(target):
 
 def test_guard_covers_every_port_module():
     """The scan above reaches every module of the port, the robust
-    server-update modules included, and importing all of them in a fresh
-    interpreter loads neither jax nor repro."""
+    server-update modules and the staged-3DG, vision and SSPP modules
+    included, and importing all of them in a fresh interpreter loads
+    neither jax nor repro."""
     pkg = ROOT / "src" / "repro_torch"
     mods = sorted(".".join(f.relative_to(pkg.parent).with_suffix("").parts)
                   for f in pkg.rglob("*.py"))
     for need in ("repro_torch.fed.aggregator_device",
                  "repro_torch.fed.faults_device", "repro_torch.fed.server",
-                 "repro_torch.kernels.aggregate", "repro_torch.kernels.krum"):
+                 "repro_torch.kernels.aggregate", "repro_torch.kernels.krum",
+                 "repro_torch.kernels.pairwise_similarity",
+                 "repro_torch.core.sspp", "repro_torch.data.vision",
+                 "repro_torch.data.partition"):
         assert need in mods, need
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
@@ -222,7 +226,8 @@ def test_slice_quickstart_matches_reference(synthetic_ds):
     jeng.install_graph_from_H(h)
     jh = jeng.run()
 
-    teng = FLEngine(ds, logistic_regression(), FedGSSampler(alpha=1.0),
+    teng = FLEngine(ds, logistic_regression(),
+                    FedGSSampler(alpha=1.0, device="cpu"),
                     make_mode("LN", n_clients=ds.n_clients, beta=0.5, seed=99),
                     _quickstart_cfg(FLConfig, rounds), device="cpu",
                     init_params=params_from_jax(_jax_params(SEED)),
@@ -244,7 +249,8 @@ def test_slice_oracle_graph_and_uniform_run(synthetic_ds):
     ds, rounds = synthetic_ds, 12
     mode = make_mode("LN", n_clients=ds.n_clients, beta=0.5, seed=99)
     out = {}
-    for name, sampler in (("fedgs", FedGSSampler(alpha=1.0)),
+    for name, sampler in (("fedgs", FedGSSampler(alpha=1.0,
+                                                  device="cpu")),
                           ("uniform", UniformSampler())):
         eng = FLEngine(ds, logistic_regression(), sampler, mode,
                        _quickstart_cfg(FLConfig, rounds), device="cpu")

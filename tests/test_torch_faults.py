@@ -218,7 +218,8 @@ def test_slice_robust_quickstart_matches_reference(synthetic_ds, fault, agg,
                                                     frac=0.2, **fkw))
     jeng.install_graph_from_H(h)
     jh = jeng.run()
-    teng = FLEngine(ds, logistic_regression(), FedGSSampler(alpha=1.0),
+    teng = FLEngine(ds, logistic_regression(),
+                    FedGSSampler(alpha=1.0, device="cpu"),
                     make_mode("LN", n_clients=ds.n_clients, beta=0.5, seed=99),
                     _cfg(FLConfig), device="cpu",
                     aggregator=make_aggregator_process(agg, **agg_kw),

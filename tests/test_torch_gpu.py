@@ -11,32 +11,41 @@ Contracts, kernel against plain version on the same device:
 * fused adjacency: lo/hi bitwise (V is summed in the same order), the same
   inf pattern, finite R within rtol 1e-4 (``expf`` in the kernel and
   ``torch.exp`` may differ in the last bits);
+* the staged similarity: V bitwise; the staged adjacency: as the fused;
+  on the card the staged R is bitwise the fused R, and ``build_h``'s H
+  bitwise cap(staged H) (both share the tile product and the epilogue);
+* the dense swap: (best, rank, j) bitwise; ``fedgs_solve`` on the card
+  (greedy + dense swap kernels) selects the CPU's set;
 * memagg: the panel bitwise (a row copy), the reduction within atol = rtol
   = 1e-5 (the reference's own bound; the kernel sums in a fixed order of
   its own) and bitwise from one launch to the next;
 * krum: the distance panel within ``krum_panel_bound`` (f32 round-off of
   a length-P dot product, scaled by ‖xᵢ‖² + ‖xⱼ‖²), exactly symmetric, and
   the Krum selection bitwise;
-* FedGS selected sets and the quickstart slice: the card run (kernels) and
-  a CPU run given the card's H select the same clients every round, and
+* FedGS selected sets, the quickstart slice and the vision slice
+  (``small_cnn``, cuDNN with TF32 off): the card run (kernels) and a CPU
+  run given the card's H select the same clients every round, and
   val_loss agrees within 1e-4.
 """
 import numpy as np
 import pytest
 import torch
 
+from repro_torch.core import graph_device as tgd
 from repro_torch.core import sampler_device as tsd
 from repro_torch.core.availability import make_mode
 from repro_torch.core.sampler import FedGSSampler
 from repro_torch.data.synthetic import make_synthetic
+from repro_torch.data.vision import make_cifar_like
 from repro_torch.fed import aggregator_device as tad
 from repro_torch.fed.engine import FLConfig, FLEngine
-from repro_torch.fed.models import logistic_regression
+from repro_torch.fed.models import logistic_regression, small_cnn
 from repro_torch.kernels import floyd_warshall as tfw
 from repro_torch.kernels import aggregate as tag
 from repro_torch.kernels import graph_fused as tgf
 from repro_torch.kernels import krum as tkr
 from repro_torch.kernels import ops as tops
+from repro_torch.kernels import pairwise_similarity as tps
 from repro_torch.kernels import solver as tsolver
 
 pytestmark = pytest.mark.gpu
@@ -44,8 +53,8 @@ pytestmark = pytest.mark.gpu
 NEG = -1e18
 TINY = float(np.finfo(np.float32).tiny)
 SIZES = [30, 130, 1024, 4096]
-FEDGS_KERNELS = ("fused_adjacency", "floyd_warshall", "greedy_argmax",
-                 "swap_best_fused")
+FEDGS_KERNELS = ("pairwise_similarity", "adjacency", "floyd_warshall",
+                 "greedy_argmax", "swap_best_fused")
 
 
 @pytest.fixture
@@ -124,8 +133,8 @@ def test_swap_best_kernel_vs_plain(cuda, n, m):
                     torch.tensor(NEG))
     al = float(np.float32(1.0) / np.float32(n))
     args = [h.to(cuda), z.to(cuda), al] + [x.to(cuda) for x in (sel, valid, a, b)]
-    k = tsolver.swap_best_cuda(*args)
-    p = tsolver.swap_best_plain(*args)
+    k = tsolver.swap_best_fused_cuda(*args)
+    p = tsolver.swap_best_fused_plain(*args)
     assert float(k[0]) > NEG / 2
     assert all(torch.equal(x, y) for x, y in zip(k, p))
 
@@ -279,4 +288,122 @@ def test_robust_engine_on_card_equals_cpu(cuda, agg):
     _, hp = run("cpu", card.sampler._h.cpu())
     assert hc.all_sampled == hp.all_sampled
     assert hc.chosen == hp.chosen
+    np.testing.assert_allclose(hc.val_loss, hp.val_loss, atol=1e-4)
+
+
+# ------------------------------------------ staged 3DG route, dense swap
+# the quickstart's N at d = 610, larger N, and the vision shapes: the
+# oracle's (100, 10) label distributions and (100, 13946) CNN updates
+STAGED_SHAPES = [(30, 610), (130, 610), (1024, 610), (100, 10),
+                 (100, 13946)]
+
+
+@pytest.mark.parametrize("n,d", STAGED_SHAPES)
+def test_staged_kernels_vs_plain(cuda, n, d):
+    u = _features(np.random.default_rng(n + d), n, d).to(cuda)
+    v_k = tps.similarity_cuda(u)
+    assert torch.equal(v_k, tps.similarity_plain(u))
+    stats = torch.stack([v_k.min(), v_k.max()])
+    r_k = tps.adjacency_cuda(v_k, stats, eps=0.1, sigma2=0.01).cpu().numpy()
+    r_p = tps.adjacency_plain(v_k, stats, eps=0.1, sigma2=0.01).cpu().numpy()
+    assert np.array_equal(np.isinf(r_k), np.isinf(r_p))
+    assert np.array_equal(np.diag(r_k), np.zeros(n, np.float32))
+    fin = np.isfinite(r_p)
+    np.testing.assert_allclose(r_k[fin], r_p[fin], rtol=1e-4, atol=TINY)
+
+
+@pytest.mark.parametrize("n,d", [(30, 610), (100, 10), (1024, 610)])
+@pytest.mark.parametrize("sim", ["dot", "cosine", "functional"])
+def test_fused_and_staged_routes_bitwise_on_card(cuda, n, d, sim):
+    u = _features(np.random.default_rng(n), n, d).to(cuda)
+    cfg = tgd.GraphConfig(similarity=sim)
+    tops.reset_launches()
+    vn, r_staged, h_staged = tgd.build_3dg(u, cfg)
+    assert vn is not None and vn.is_cuda
+    r_fused, _ = tops.build_3dg_fused(tgd._features(u, cfg), eps=cfg.eps,
+                                      sigma2=cfg.sigma2,
+                                      clamp=sim == "functional")
+    assert torch.equal(r_staged, r_fused)
+    assert torch.equal(tgd.build_h(u, cfg), tgd.cap_and_normalize(h_staged))
+    launched = tops.launches()
+    assert launched["pairwise_similarity"] == 1 and launched["adjacency"] == 1
+    assert launched["fused_adjacency"] == 2
+
+
+def test_precomputed_build_on_card_equals_cpu(cuda):
+    """SSPP's V through similarity="precomputed" on the card."""
+    from repro_torch.core.sspp import secure_similarity_matrix
+    ds = make_cifar_like(n_clients=40, n_total=2000, seed=0)
+    v = torch.as_tensor(secure_similarity_matrix(ds.label_dist),
+                        dtype=torch.float32)
+    cfg = tgd.GraphConfig(similarity="precomputed")
+    got = [t.cpu().numpy() for t in tgd.build_3dg(v.to(cuda), cfg)]
+    want = [t.numpy() for t in tgd.build_3dg(v, cfg)]
+    np.testing.assert_allclose(got[0], want[0], rtol=1e-6, atol=1e-7)
+    for g, w in zip(got[1:], want[1:]):
+        assert np.array_equal(np.isinf(g), np.isinf(w))
+        fin = np.isfinite(w)
+        np.testing.assert_allclose(g[fin], w[fin], rtol=1e-4, atol=40 * TINY)
+
+
+@pytest.mark.parametrize("n,m", [(100, 10), (30, 3), (1024, 103),
+                                 (4096, 410)])
+def test_swap_gain_kernel_vs_plain(cuda, n, m):
+    rng = np.random.default_rng(n + m)
+    q = _h(rng, n) - torch.diag(torch.as_tensor(rng.normal(size=n),
+                                                dtype=torch.float32))
+    q[:, 3] = float("nan")
+    s = np.zeros(n, bool)
+    s[rng.choice(n, m, replace=False)] = True
+    sel = torch.as_tensor(np.concatenate([np.flatnonzero(s), [n - 1, n - 1]]))
+    valid = torch.arange(m + 2) < m
+    rr = torch.as_tensor(rng.normal(size=n), dtype=torch.float32)
+    a = torch.where(valid, (-2.0 * rr)[sel], torch.tensor(NEG))
+    b = torch.where(torch.as_tensor(~s & (rng.random(n) < 0.7)), 2.0 * rr,
+                    torch.tensor(NEG))
+    args = [x.to(cuda) for x in (q, sel, a, b)]
+    k = tsolver.swap_gain_cuda(*args)
+    p = tsolver.swap_gain_plain(*args)
+    assert float(k[0]) > NEG / 2 and int(k[2]) != 3
+    assert all(torch.equal(x, y) for x, y in zip(k, p))
+
+
+@pytest.mark.parametrize("n", [7, 100, 1024])
+def test_fedgs_solve_on_card_equals_cpu(cuda, n):
+    rng = np.random.default_rng(n)
+    z = tsd.balance_z(torch.as_tensor(rng.integers(0, 6, n),
+                                      dtype=torch.float32), max(1, n // 10))
+    q = tsd._f32_ratio(1.0, n) * _h(rng, n) - torch.diag(z)
+    q = 0.5 * (q + q.T)
+    avail = torch.as_tensor(rng.random(n) < 0.8)
+    m = min(max(1, n // 10), int(avail.sum()))
+    want = tsd.fedgs_solve(q, avail, m=m, max_sweeps=16)
+    tops.reset_launches()
+    got = tsd.fedgs_solve(q.to(cuda), avail.to(cuda), m=m, max_sweeps=16)
+    launched = tops.launches()
+    assert launched["greedy_argmax"] == m and launched["swap_best"] == 16
+    assert torch.equal(got.cpu(), want)
+
+
+def test_vision_engine_on_card_equals_cpu(cuda):
+    """small_cnn(width=4) on make_cifar_like(20, 1200): the card run builds
+    the oracle 3DG through the staged kernels; a CPU run given the card's
+    H selects the same clients every round."""
+    ds = make_cifar_like(n_clients=20, n_total=1200, seed=0)
+    cfg = FLConfig(rounds=6, sample_frac=0.1, local_steps=10, batch_size=32,
+                   lr=0.03, eval_every=1, seed=0)
+    mode = make_mode("LN", n_clients=ds.n_clients, beta=0.5, seed=99)
+    tops.reset_launches()
+    card = FLEngine(ds, small_cnn(width=4), FedGSSampler(alpha=1.0), mode,
+                    cfg)
+    card.install_oracle_graph()
+    hc = card.run()
+    launched = tops.launches()
+    assert all(launched[k] > 0 for k in FEDGS_KERNELS), launched
+    assert not torch.backends.cudnn.allow_tf32
+    cpu = FLEngine(ds, small_cnn(width=4), FedGSSampler(alpha=1.0), mode,
+                   cfg, device="cpu")
+    cpu.install_graph_from_H(card.sampler._h.cpu())
+    hp = cpu.run()
+    assert hc.all_sampled == hp.all_sampled
     np.testing.assert_allclose(hc.val_loss, hp.val_loss, atol=1e-4)

@@ -3,6 +3,12 @@ JAX package (``repro``) on the CPU.  The kernels against their plain
 versions on the card are in ``test_torch_gpu.py``.
 
 Contracts:
+* the SSPP copy: bitwise (numpy);
+* the staged route (similarity -> adjacency -> Floyd–Warshall) against the
+  reference's ``backend="pallas"``: V within rtol 1e-4 / atol 1e-2 (the
+  reference's own bound for its kernel against the jnp product), Vn
+  returned for every similarity, R and H as below; the port's staged R is
+  bitwise its fused R (the same V order and epilogue);
 * dataset arrays and availability masks: bitwise (both are numpy);
 * Floyd–Warshall: bitwise given the same R;
 * R and H from features: identical inf pattern, finite entries within
@@ -24,6 +30,7 @@ from repro.core import availability as javail
 from repro.core import fairness as jfair
 from repro.core import graph as jgraph
 from repro.core import graph_device as jgd
+from repro.core import sspp as jsspp
 from repro.data.synthetic import make_synthetic as jax_make_synthetic
 from repro.kernels import ops as jops
 from repro.kernels.ref import floyd_warshall_ref as jax_fw_ref
@@ -32,6 +39,7 @@ from repro_torch.core import availability as tavail
 from repro_torch.core import fairness as tfair
 from repro_torch.core import graph as tgraph
 from repro_torch.core import graph_device as tgd
+from repro_torch.core import sspp as tsspp
 from repro_torch.data.synthetic import make_synthetic
 from repro_torch.kernels import graph_fused as tgf
 from repro_torch.kernels import ops as tops
@@ -256,7 +264,11 @@ def test_cap_and_normalize_bitwise(rng, normalize):
                               jgraph.finite_cap(h))
 
 
-@pytest.mark.parametrize("fn", ["build_3dg", "finite_cap"])
+@pytest.mark.parametrize("fn", ["build_3dg", "finite_cap", "normalize_01",
+                                "oracle_similarity",
+                                "update_cosine_similarity",
+                                "functional_similarity",
+                                "similarity_to_adjacency", "shortest_paths"])
 def test_graph_face_without_device_raises_when_cuda_is_absent(monkeypatch,
                                                               fn):
     """The numpy face runs on CUDA unless asked for the CPU: with no CUDA
@@ -264,3 +276,181 @@ def test_graph_face_without_device_raises_when_cuda_is_absent(monkeypatch,
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         getattr(tgraph, fn)(np.ones((4, 4), np.float32))
+
+
+# ------------------------------------------------------- the staged route
+@pytest.mark.parametrize("n,d", [(7, 3), (100, 13), (130, 200)])
+def test_pairwise_similarity_vs_pallas(rng, n, d):
+    """V within rtol 1e-4 / atol 1e-2 of the Pallas kernel (the bound
+    tests/test_kernels.py holds it to against u @ u.T: the sums run in
+    another order); bitwise the fused kernel's order."""
+    u = rng.normal(size=(n, d)).astype(np.float32)
+    want = np.asarray(jops.pairwise_similarity(jnp.asarray(u)))
+    got = tops.pairwise_similarity(_t(u)).numpy()
+    np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-2)
+    assert np.array_equal(got, similarity_ref(_t(u)).numpy())
+
+
+@pytest.mark.parametrize("n,eps", [(7, 0.1), (100, 0.1), (130, 0.1),
+                                   (100, 0.95)])
+def test_similarity_to_adjacency_vs_pallas(rng, n, eps):
+    """The same raw V into both: the same inf pattern, a 0 diagonal, finite
+    R within rtol 1e-4 (TINY absolute below the normal range)."""
+    u = rng.normal(size=(n, 16)).astype(np.float32)
+    v = u @ u.T
+    want = np.asarray(jops.similarity_to_adjacency(jnp.asarray(v), eps=eps,
+                                                   sigma2=0.01))
+    got = tops.similarity_to_adjacency(_t(v), eps=eps, sigma2=0.01).numpy()
+    _assert_graph_close(got, want)
+    assert np.array_equal(np.diag(got), np.zeros(n, np.float32))
+
+
+@pytest.mark.parametrize("n", [7, 130])
+def test_build_3dg_kernel_vs_pallas(rng, n):
+    """ops.build_3dg_kernel, the staged (V, R, H), against the
+    reference's."""
+    u = rng.normal(size=(n, 24)).astype(np.float32)
+    jv, jr, jh = jops.build_3dg_kernel(jnp.asarray(u))
+    tv, tr, th = tops.build_3dg_kernel(_t(u))
+    np.testing.assert_allclose(tv.numpy(), jv, rtol=1e-4, atol=1e-2)
+    _assert_graph_close(tr.numpy(), jr)
+    _assert_graph_close(th.numpy(), jh, paths=True)
+
+
+def _graph_input(rng, sim):
+    if sim == "precomputed":
+        v = rng.normal(size=(40, 40)).astype(np.float32)
+        return 0.5 * (v + v.T)
+    return rng.normal(size=(67, 8)).astype(np.float32)
+
+
+@pytest.mark.parametrize("sim", ["dot", "cosine", "functional",
+                                 "precomputed"])
+def test_build_3dg_staged_vs_pallas(rng, sim):
+    """Vn returned for every similarity (the reference returns it on every
+    backend), R and H under the graph contract."""
+    x = _graph_input(rng, sim)
+    jvn, jr, jh = jgd.build_3dg(jnp.asarray(x),
+                                jgd.GraphConfig(similarity=sim),
+                                backend="pallas")
+    tvn, tr, th = tgd.build_3dg(_t(x), tgd.GraphConfig(similarity=sim))
+    np.testing.assert_allclose(tvn.numpy(), jvn, rtol=1e-4, atol=1e-6)
+    _assert_graph_close(tr.numpy(), jr)
+    _assert_graph_close(th.numpy(), jh, paths=True)
+
+
+@pytest.mark.parametrize("sim", ["dot", "cosine", "functional",
+                                 "precomputed"])
+def test_build_3dg_takes_the_staged_kernels(monkeypatch, rng, sim):
+    """build_3dg goes through the staged kernel wrappers on every device
+    (on CUDA they launch B5a, B5b and Floyd–Warshall) and returns Vn, also
+    for a precomputed V; the numpy face returns V."""
+    calls = []
+    for name in ("pairwise_similarity", "similarity_to_adjacency",
+                 "floyd_warshall"):
+        fn = getattr(tops, name)
+        monkeypatch.setattr(tops, name, lambda *a, _f=fn, _n=name, **k:
+                            calls.append(_n) or _f(*a, **k))
+    x = _graph_input(rng, sim)
+    vn, r, h = tgd.build_3dg(_t(x), tgd.GraphConfig(similarity=sim))
+    want = ["similarity_to_adjacency", "floyd_warshall"]
+    assert calls == (want if sim == "precomputed"
+                     else ["pairwise_similarity"] + want)
+    assert vn.shape == r.shape == h.shape == (len(x), len(x))
+    v, _, _ = tgraph.build_3dg(x, sim_kind=sim, device="cpu")
+    assert isinstance(v, np.ndarray) and np.array_equal(v, vn.numpy())
+
+
+@pytest.mark.parametrize("sim", ["dot", "functional", "precomputed"])
+def test_build_h_routes(monkeypatch, rng, sim):
+    """build_h: fused for a feature similarity, staged for a precomputed
+    V, as the reference's ``graph_device.build_h``."""
+    calls = []
+    for name in ("build_3dg_fused", "similarity_to_adjacency"):
+        fn = getattr(tops, name)
+        monkeypatch.setattr(tops, name, lambda *a, _f=fn, _n=name, **k:
+                            calls.append(_n) or _f(*a, **k))
+    tgd.build_h(_t(_graph_input(rng, sim)), tgd.GraphConfig(similarity=sim))
+    assert calls == (["similarity_to_adjacency"] if sim == "precomputed"
+                     else ["build_3dg_fused"])
+
+
+@pytest.mark.parametrize("n", [7, 100, 130])
+@pytest.mark.parametrize("sim", ["dot", "cosine", "functional"])
+def test_staged_r_and_h_bitwise_fused(rng, n, sim):
+    """The staged route's R is bitwise the fused route's (the same V order
+    and the same epilogue), so build_h's H is bitwise cap(staged H)."""
+    u = _t(rng.normal(size=(n, 16)).astype(np.float32))
+    cfg = tgd.GraphConfig(similarity=sim)
+    _, r_staged, h_staged = tgd.build_3dg(u, cfg)
+    r_fused, _ = tops.build_3dg_fused(tgd._features(u, cfg), eps=cfg.eps,
+                                      sigma2=cfg.sigma2,
+                                      clamp=sim == "functional")
+    assert torch.equal(r_staged, r_fused)
+    assert torch.equal(tgd.build_h(u, cfg), tgd.cap_and_normalize(h_staged))
+
+
+# -------------------------------------------------------------------- SSPP
+def test_sspp_copy_bitwise(rng):
+    feats = rng.normal(size=(9, 5))
+    for seed in (0, 3):
+        assert np.array_equal(tsspp.secure_similarity_matrix(feats, seed=seed),
+                              jsspp.secure_similarity_matrix(feats, seed=seed))
+    tj, tt = [], []
+    a, b = rng.normal(size=16), rng.normal(size=16)
+    assert tsspp.secure_dot(a, b, seed=7, transcript=tt) == \
+        jsspp.secure_dot(a, b, seed=7, transcript=tj)
+    assert all(np.array_equal(x, y) for x, y in zip(tt, tj))
+
+
+def test_sspp_precomputed_3dg_vs_reference():
+    """SSPP's V over the label distributions (paper Appendix D) builds a
+    precomputed 3DG: the same as the reference's, under the graph
+    contract."""
+    ds = jax_make_synthetic(n_clients=30, seed=0)
+    v = jsspp.secure_similarity_matrix(ds.label_dist, seed=0)
+    jv, jr, jh = jgraph.build_3dg(v, sim_kind="precomputed",
+                                  backend="pallas")
+    tv, tr, th = tgraph.build_3dg(tsspp.secure_similarity_matrix(
+        ds.label_dist, seed=0), sim_kind="precomputed", device="cpu")
+    np.testing.assert_allclose(tv, jv, rtol=1e-4, atol=1e-6)
+    _assert_graph_close(tr, jr)
+    _assert_graph_close(th, jh, paths=True)
+
+
+# ------------------------------------------------- similarity sources, F1
+@pytest.mark.parametrize("fn", ["normalize_01", "oracle_similarity/dot",
+                                "oracle_similarity/cosine",
+                                "update_cosine_similarity",
+                                "functional_similarity",
+                                "similarity_to_adjacency", "shortest_paths"])
+def test_graph_face_vs_reference(rng, fn):
+    """The numpy face against ``repro.core.graph``: similarities within
+    f32 round-off (rtol 1e-4 / atol 1e-6), adjacency under the graph
+    contract, APSP bitwise given the same R."""
+    feats = rng.random((30, 10)).astype(np.float32)
+    if fn == "shortest_paths":
+        r = _adjacency(rng, 30)
+        assert np.array_equal(tgraph.shortest_paths(r, device="cpu"),
+                              jgraph.shortest_paths(r))
+        return
+    if fn == "similarity_to_adjacency":
+        vn = jgraph.oracle_similarity(feats)
+        _assert_graph_close(tgraph.similarity_to_adjacency(vn, device="cpu"),
+                            jgraph.similarity_to_adjacency(vn))
+        return
+    name, _, kind = fn.partition("/")
+    kw = {"kind": kind} if kind else {}
+    x = feats if name != "update_cosine_similarity" else \
+        rng.normal(size=(30, 50)).astype(np.float32)
+    got = getattr(tgraph, name)(x, device="cpu", **kw)
+    want = getattr(jgraph, name)(x, **kw)
+    np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-6)
+
+
+def test_edge_f1_matches_reference(rng):
+    r_true = _adjacency(rng, 25)
+    for _ in range(3):
+        r_pred = _adjacency(rng, 25)
+        assert tgraph.edge_f1(r_pred, r_true) == jgraph.edge_f1(r_pred, r_true)
+    assert tgraph.edge_f1(r_true, r_true)[2] == pytest.approx(1.0)

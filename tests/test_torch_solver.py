@@ -5,27 +5,39 @@ kernels against their plain versions on the card are in
 Contracts:
 * ``q_diag`` / ``q_row`` and ``greedy_argmax``: bitwise (value and index),
   including exact ties, NaN and the all-masked lane;
-* ``swap_best_fused``: (best, rank, j) bitwise whenever best > −1e18/2.
+* ``swap_best_fused`` and the dense ``swap_best``: (best, rank, j) bitwise
+  whenever best > −1e18/2, NaN entries included.
   The fixtures use H with a zero diagonal, as every H from
   ``cap_and_normalize`` has: XLA:CPU contracts a·H_kk − z_k into an FMA
   under jit (DESIGN assumption #23), so a nonzero diagonal can differ by
   one ulp for a reason that is not the port's;
 * FedGS selected sets: identical given the same (H, counts, A_t, α, m,
-  m_target), on the port's Q-free route and on its dense one.
+  m_target), on the port's Q-free route and on its dense one; given the
+  same dense Q, ``fedgs_solve``'s kernel route (its plain versions here)
+  selects the reference's ``backend="pallas"`` sets;
+* the MD and PoC samplers draw from torch generators: shape, support and
+  rate checks, and PoC's deterministic step (top-m by loss among the
+  candidates) equal to the reference's given the same candidates.
 """
 import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 
+from repro.core import sampler as jsampler
 from repro.core.sampler_device import _fedgs_select, _fedgs_solve
+from repro.core.sampler_device import md_select as jax_md_select
 from repro.core.sampler_device import select_k as jax_select_k
 from repro.kernels import ops as jops
 from repro.kernels import solver as jsolver
 
+from repro_torch.core import sampler as tsampler
 from repro_torch.core import sampler_device as tsd
-from repro_torch.core.sampler import FedGSSampler, UniformSampler
+from repro_torch.core.sampler import (FedGSSampler, MDSampler,
+                                      PowerOfChoiceSampler, UniformSampler,
+                                      make_sampler)
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import solver as tsolver
 
@@ -244,7 +256,7 @@ def test_fedgs_sampler_host_face(rng):
     h[0, 1] = h[1, 0] = np.inf
     counts = rng.integers(0, 4, n).astype(np.float64)
     avail = rng.random(n) < 0.7
-    sp = FedGSSampler(alpha=1.0)
+    sp = FedGSSampler(alpha=1.0, device="cpu")
     sp.set_graph(h)
     got = sp.sample(avail=avail, m=6, rng=np.random.default_rng(0),
                     counts=counts)
@@ -282,3 +294,162 @@ def test_uniform_select_invariants_and_spread():
     few = UniformSampler().sample(avail=np.eye(n, dtype=bool)[3], m=m,
                                   rng=np.random.default_rng(0))
     assert few.tolist() == [3]
+
+
+# ------------------------------------------------------ dense-Q swap (B8)
+@pytest.mark.parametrize("n,m,case", [(7, 2, "random"), (100, 10, "random"),
+                                      (130, 13, "pad"), (52, 9, "ties"),
+                                      (40, 5, "nan")])
+def test_swap_best_dense_bitwise_vs_pallas(rng, n, m, case):
+    """The dense swap reads Q[sel] in place; the reference takes the
+    gathered panel (padded with 0 and −1e18): the same winner bit for bit,
+    ties to the lowest flat index, NaN entries never win."""
+    _, _, sel, valid, a, b = _swap_inputs(rng, n, m, integer=case == "ties",
+                                          pad=3 if case == "pad" else 0)
+    q = (rng.integers(0, 3, (n, n)).astype(np.float32) if case == "ties"
+         else _rand_q(rng, n))
+    if case == "nan":
+        q[:, 11] = np.nan
+    jb, jr, jj = jops.swap_best(jnp.asarray(q[sel]), jnp.asarray(a),
+                                jnp.asarray(b))
+    tb, tr, tj = tops.swap_best(_t(q), _t(sel), _t(a), _t(b))
+    assert float(jb) > NEG / 2
+    assert np.asarray(tb).tobytes() == np.asarray(jb, np.float32).tobytes()
+    assert (int(tr), int(tj)) == (int(jr), int(jj))
+    if case == "nan":
+        assert int(tj) != 11
+
+
+@pytest.mark.parametrize("case", ["7", "100", "130", "all_unavailable",
+                                  "fewer_than_m", "ties", "nan"])
+def test_fedgs_solve_kernel_route_vs_pallas(rng, case):
+    """fedgs_solve's CUDA route (greedy argmax + dense swap over a given Q),
+    run here on its plain versions, against the reference's
+    ``fedgs_solve(backend="pallas")`` on the same Q: the same set."""
+    h, counts, avail, alpha, m, mt, sweeps = _fedgs_case(rng, case)
+    n = h.shape[0]
+    z = tsd.balance_z(_t(counts), mt)
+    q = tsd._f32_ratio(alpha, n) * _t(h) - torch.diag(z)
+    q = (0.5 * (q + q.T)).numpy()
+    want = np.asarray(_fedgs_solve(jnp.asarray(q), jnp.asarray(avail), m=m,
+                                   max_sweeps=sweeps, backend="pallas"))
+    got = tsd._solve_dense(_t(q), _t(avail), m=m, max_sweeps=sweeps).numpy()
+    assert np.array_equal(got, want)
+    assert np.array_equal(tsd.fedgs_solve(_t(q), _t(avail), m=m,
+                                          max_sweeps=sweeps).numpy(), want)
+    assert got.sum() == m and not np.any(got & ~avail)
+
+
+# --------------------------------------------------------- host samplers
+def test_fedgs_sampler_without_device_raises_when_cuda_is_absent(
+        monkeypatch):
+    """FedGSSampler runs on CUDA unless asked for the CPU: with no CUDA
+    and no device it raises; an engine hands it the engine's device."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        FedGSSampler(alpha=1.0)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        make_sampler("fedgs")
+    sp = FedGSSampler(alpha=1.0, device="cpu")
+    sp.set_graph(np.ones((4, 4), np.float32) - np.eye(4, dtype=np.float32))
+    assert sp.device.type == "cpu" and sp._h.device.type == "cpu"
+    assert sp.to("cpu") is sp
+
+
+def test_make_sampler_factory():
+    assert isinstance(make_sampler("uniform"), UniformSampler)
+    assert isinstance(make_sampler("md"), MDSampler)
+    assert isinstance(make_sampler("poc"), PowerOfChoiceSampler)
+    g = make_sampler("fedgs", alpha=2.0, device="cpu")
+    assert isinstance(g, FedGSSampler) and g.alpha == 2.0
+    assert make_sampler("poc").needs_losses and not g.needs_losses
+    with pytest.raises(ValueError):
+        make_sampler("nope")
+
+
+def test_md_sampler_weights_by_size():
+    """Shape and support as the reference's; the inclusion rates of both
+    packages' MD draws agree (they match in distribution only)."""
+    sizes = np.array([1.0, 2.0, 4.0, 8.0, 1.0, 0.0])
+    avail = np.ones(6, bool)
+    avail[4] = False
+    draws = 400
+    hits_t, hits_j = np.zeros(6), np.zeros(6)
+    for t in range(draws):
+        sel = MDSampler().sample(avail=avail, m=2, data_sizes=sizes,
+                                 rng=np.random.default_rng(t))
+        assert len(sel) == 2 and np.all(avail[sel])
+        assert np.array_equal(sel, np.sort(sel))
+        hits_t[sel] += 1
+        s = np.asarray(jax_md_select(jax.random.PRNGKey(t),
+                                     jnp.asarray(sizes), jnp.asarray(avail),
+                                     2))
+        hits_j += s
+    assert hits_t[4] == 0 and hits_t[3] > hits_t[2] > hits_t[1] > hits_t[0]
+    np.testing.assert_allclose(hits_t / draws, hits_j / draws, atol=0.1)
+
+
+def test_md_select_degenerate_sizes():
+    """The log floor makes all-zero sizes equal weights (never NaN); a
+    single positive-size client is always taken, zero-size ones fill."""
+    avail = torch.ones(10, dtype=torch.bool)
+    s = tsd.md_select(torch.Generator().manual_seed(0), np.zeros(10), avail, 4)
+    assert int(s.sum()) == 4
+    sizes = np.zeros(10)
+    sizes[7] = 100.0
+    for i in range(30):
+        s = tsd.md_select(torch.Generator().manual_seed(i), sizes, avail, 3)
+        assert int(s.sum()) == 3 and bool(s[7])
+    assert torch.equal(tsd.log_size_weights(sizes).isfinite(),
+                       torch.ones(10, dtype=torch.bool))
+
+
+def test_power_of_choice_picks_high_loss(rng):
+    s = PowerOfChoiceSampler(d_factor=10)
+    losses = np.arange(20, dtype=float)
+    sel = s.sample(avail=np.ones(20, bool), m=3, rng=rng,
+                   data_sizes=np.ones(20), losses=losses)
+    assert len(sel) == 3 and set(sel) <= set(range(20))
+    assert list(sel) == [17, 18, 19]           # d = 20: every client probed
+    sel = PowerOfChoiceSampler().sample(
+        avail=np.ones(12, bool), m=3, rng=rng, data_sizes=np.zeros(12),
+        losses=np.arange(12, dtype=float))
+    assert len(sel) == 3
+
+
+@pytest.mark.parametrize("case", ["distinct", "ties", "fewer_avail"])
+def test_poc_deterministic_step_matches_reference(monkeypatch, case):
+    """Given the same candidate mask, PoC keeps the same m clients as the
+    reference: top-m by loss, stable on ties, returned sorted."""
+    n, m = 16, 3
+    rng = np.random.default_rng(5)
+    avail = np.ones(n, bool)
+    if case == "fewer_avail":
+        avail[:] = False
+        avail[[2, 9, 11, 14]] = True
+    cand = np.zeros(n, bool)
+    cand[rng.choice(np.flatnonzero(avail), min(2 * m, avail.sum()),
+                    replace=False)] = True
+    losses = (np.repeat([1.0, 2.0], n // 2) if case == "ties"
+              else rng.normal(size=n))
+    monkeypatch.setattr(jsampler, "gumbel_topk_select",
+                        lambda key, lw, av, d: jnp.asarray(cand))
+    monkeypatch.setattr(tsampler, "gumbel_topk_select",
+                        lambda gen, lw, av, d: torch.as_tensor(cand))
+    kw = dict(avail=avail, m=m, data_sizes=np.ones(n), losses=losses)
+    want = jsampler.PowerOfChoiceSampler().sample(
+        rng=np.random.default_rng(0), **kw)
+    got = PowerOfChoiceSampler().sample(rng=np.random.default_rng(0), **kw)
+    assert np.array_equal(got, want) and np.all(cand[got])
+
+
+def test_host_samplers_empty_availability_return_empty(rng):
+    n = 9
+    avail = np.zeros(n, bool)
+    for s in (UniformSampler(), MDSampler(), PowerOfChoiceSampler()):
+        sel = s.sample(avail=avail, m=3, rng=rng, data_sizes=np.ones(n),
+                       losses=np.arange(n, dtype=float))
+        assert sel.size == 0 and sel.dtype.kind == "i", s.name
+    g = FedGSSampler(alpha=1.0, max_sweeps=4, device="cpu")
+    g.set_graph(np.ones((n, n)) - np.eye(n))
+    assert g.sample(avail=avail, m=3, rng=rng, counts=np.zeros(n)).size == 0
