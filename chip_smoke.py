@@ -63,9 +63,25 @@ Phases, each printing one JSON line (any failure exits non-zero):
               build_h, with its H bitwise the engine's), per-round solve,
               training and aggregation times, and one profiled round's
               device busy share.
-  7. the ``{"kernels": [...]}`` line (times at the main path's shapes:
+  7. serve    the LM serving path, smollm-135m at full width (30 layers,
+              d 576, 9/3 heads of 64, vocab 49152, bf16, random weights
+              from a seed): (a) the window attention kernel against its
+              plain version at (B, S, Hq/Hkv, D) = (8, 512, 9/3, 64) bf16
+              full, (1, 8192, 9/3, 64) bf16 window 4096, (2, 384, 4/2, 32)
+              f32 window 100 and (1, 1000, 3/3, 128) f32 full, with
+              kernel, plain and scaled_dot_product_attention times;
+              (b) repro_torch.launch.serve.main at batch 8, prompt 512,
+              gen 32, greedy: exactly 30 launches of the kernel (one per
+              layer, prefill only), then the same request warm, timed and
+              profiled; (c) batch 2, prompt 128, gen 8 on the card, then
+              the same weights on the CPU: prefill and teacher-forced
+              decode logits within atol 5e-2, rtol 2e-2, greedy tokens
+              equal wherever the card's top-2 margin exceeds the gap;
+              (d) the sliding-window variant (window 4096): prefill of
+              8,191 tokens + one decode step against the prefill of 8,192.
+  8. the ``{"kernels": [...]}`` line (times at the main path's shapes:
      N = 30, M = 6, P = 610; the dense swap at the vision solve's
-     (m, N) = (10, 100)).
+     (m, N) = (10, 100); window attention at smollm's prefill).
 The last line is ``{"ok": true, "device": {...}}``.  The script needs a CUDA
 device and the repository's ``src/`` beside it; without either it exits
 non-zero and prints no result.  Full output also goes to
@@ -122,6 +138,24 @@ KRUM_F = max(1, min(math.ceil(0.2 * 6) + 1, (6 - 3) // 2))
 KRUM_MULTI = max(2, 6 // 2)
 MAIN_N = ENGINE_RUNS[0][0]
 NEG = -1e18
+# phase 7: the LM serving path.  bf16 inputs run on the tensor cores in the
+# library call, so their bound takes the bf16 tensor-core peak
+PEAK_BF16_OPS_PER_S = 989e12
+SERVE_ARCH = "smollm-135m"
+# the window attention kernel's (B, S, Hq, Hkv, D, dtype, window): smollm's
+# prefill in (b) (the kernels line's row), the long-context variant's
+# window, a window that is not a multiple of the 64-row tile, an S that is
+# not; window None is full causal attention
+WA_SHAPES = ((8, 512, 9, 3, 64, "bfloat16", None),
+             (1, 8192, 9, 3, 64, "bfloat16", 4096),
+             (2, 384, 4, 2, 32, "float32", 100),
+             (1, 1000, 3, 3, 128, "float32", None))
+SERVE_MAIN = {"batch": 8, "prompt": 512, "gen": 32}
+SERVE_CHECK = {"batch": 2, "prompt": 128, "gen": 8}
+LONG_S, LONG_WINDOW = 8192, 4096        # launch/specs.py's long variant
+# prefill against decode, and card against CPU, in bf16: the reference's
+# own bound (tests/test_arch_smoke.py)
+LM_ATOL, LM_RTOL = 5e-2, 2e-2
 
 KERNEL_INFO = {
     "pairwise_similarity": (
@@ -143,6 +177,8 @@ KERNEL_INFO = {
                "src/repro/kernels/aggregate.py:61"),
     "krum": ("src/repro_torch/kernels/csrc/krum.cu",
              "src/repro/kernels/krum.py:36"),
+    "window_attention": ("src/repro_torch/kernels/csrc/window_attention.cu",
+                         "src/repro/kernels/window_attention.py:31"),
 }
 
 _log_lines: list[str] = []
@@ -194,9 +230,10 @@ def swap_panels(n: int) -> list[int]:
                   {engine_m(nn, f) for nn, f in ENGINE_RUNS if nn == n})
 
 
-def bound(nbytes: float, ops: float) -> tuple[float, str]:
+def bound(nbytes: float, ops: float,
+          peak: float = PEAK_F32_OPS_PER_S) -> tuple[float, str]:
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = ops / PEAK_F32_OPS_PER_S * 1e3
+    t_ops = ops / peak * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -1080,6 +1117,299 @@ def scale_run(np, torch, dev, *, n_clients: int, frac: float,
             "device_busy_share": dev_us / 1e3 / wall_ms if dev_us else None,
             "top_device_ms": [[k, t / 1e3, c] for k, t, c in top]}
 
+# ------------------------------------------------------------ phase 7
+def visible_pairs(s: int, window: int) -> int:
+    """Σ_i min(i + 1, window) over i < s: the (query, key) pairs one head
+    of one sequence attends to."""
+    w = min(window, s)
+    return w * (w + 1) // 2 + (s - w) * w
+
+
+def attention_kernel_checks(np, torch, dev) -> dict:
+    """The window attention kernel against its plain version at WA_SHAPES:
+    f32 within 1e-5 absolute, bf16 within one bf16 ulp of the plain output
+    (2⁻⁷·|o| + 1e-6).  Times by CUDA events: the kernel, the plain
+    version, and scaled_dot_product_attention on (B, H, S, D) with the KV
+    heads repeated (is_causal for full attention, a boolean band mask for
+    a window).  Returns shape -> row."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import window_attention as wa
+
+    rows = {}
+    for b, s, hq, hkv, d, dt, window in WA_SHAPES:
+        dtype = getattr(torch, dt)
+        w = s if window is None else window
+        rng = np.random.default_rng(s + d)
+        q, k, v = (torch.as_tensor(rng.normal(size=(b, s, h, d)),
+                                   dtype=torch.float32).to(dtype).to(dev)
+                   for h in (hq, hkv, hkv))
+        got = wa.window_attention_cuda(q, k, v, window=w)
+        want = wa.window_attention_plain(q, k, v, window=w)
+        torch.cuda.synchronize()
+        err = (got.float() - want.float()).abs()
+        if dtype == torch.float32:
+            ok, tol = float(err.max()) <= 1e-5, "f32: max |Δ| <= 1e-5"
+        else:
+            ok = bool((err <= 2.0 ** -7 * want.float().abs() + 1e-6).all())
+            tol = "bf16: |Δ| <= 2^-7 |o_plain| + 1e-6 (one bf16 ulp)"
+        if not ok:
+            raise AssertionError(f"window_attention {b, s, hq, hkv, d, dt, w}"
+                                 f": beyond {tol} ({float(err.max())})")
+        rep = hq // hkv
+        qh = q.transpose(1, 2).contiguous()
+        kh = k.repeat_interleave(rep, 2).transpose(1, 2).contiguous()
+        vh = v.repeat_interleave(rep, 2).transpose(1, 2).contiguous()
+        if window is None:
+            def library():
+                return F.scaled_dot_product_attention(qh, kh, vh,
+                                                      is_causal=True)
+        else:
+            pos = torch.arange(s, device=dev)
+            band = (pos[None, :] <= pos[:, None]) & \
+                (pos[None, :] > pos[:, None] - w)
+
+            def library():
+                return F.scaled_dot_product_attention(qh, kh, vh,
+                                                      attn_mask=band)
+        lib_err = float((library().transpose(1, 2).float() -
+                         want.float()).abs().max())
+        elt = q.element_size()
+        pairs = b * hq * visible_pairs(s, w)
+        bnd, by = bound(elt * (2 * b * s * hq * d + 2 * b * s * hkv * d),
+                        4 * d * pairs, PEAK_BF16_OPS_PER_S
+                        if dtype == torch.bfloat16 else PEAK_F32_OPS_PER_S)
+        rows[f"window_attention/{b}x{s}x{hq}/{hkv}x{d}/{dt}/w={w}"] = dict(
+            shape=[b, s, hq, hkv, d], dtype=dt, window=w,
+            visible_pairs=pairs, max_abs_err=float(err.max()), tolerance=tol,
+            ms=cuda_ms(torch, lambda: wa.window_attention_cuda(
+                q, k, v, window=w)),
+            plain_ms=cuda_ms(torch, lambda: wa.window_attention_plain(
+                q, k, v, window=w), max_reps=20),
+            bound_ms=bnd, bound_by=by, library_ms=cuda_ms(torch, library),
+            library="F.scaled_dot_product_attention, KV heads repeated, " +
+                    ("is_causal=True" if window is None else
+                     "boolean band mask"),
+            library_max_abs_err=lib_err)
+    return rows
+
+
+def _gated_agreement(torch, card, cpu):
+    """Greedy tokens card vs CPU per row of logits: where the card's top-2
+    margin exceeds the row's largest |Δlogit| the argmax must agree.
+    Returns (agreeing rows, rows, gated rows)."""
+    top2 = card.float().topk(2, dim=-1).values
+    margin = top2[:, 0] - top2[:, 1]
+    gap = (card.float() - cpu.float()).abs().max(dim=-1).values
+    same = card.argmax(-1) == cpu.argmax(-1)
+    gated = margin > gap
+    if not bool(same[gated].all()):
+        raise AssertionError(f"serve (c): greedy tokens differ where the "
+                             f"margin {margin.tolist()} exceeds the gap "
+                             f"{gap.tolist()}")
+    return int(same.sum()), same.numel(), int(gated.sum())
+
+
+def _lm_close(torch, got, want, what: str) -> float:
+    err = (got.float().cpu() - want.float().cpu()).abs()
+    if not bool((err <= LM_ATOL + LM_RTOL * want.float().cpu().abs()).all()):
+        raise AssertionError(f"serve {what}: logits beyond atol {LM_ATOL}, "
+                             f"rtol {LM_RTOL} ({float(err.max())})")
+    return float(err.max())
+
+
+def serve_run(np, torch, dev) -> tuple[dict, int]:
+    """Phase 7: (b) serve smollm-135m through ``launch.serve.main`` with the
+    launch counts reset before and read after (30 window-attention
+    launches, one per layer, none in decode), then a warm repeat timed and
+    profiled; (c) a second request card vs CPU with the same weights,
+    prefill and teacher-forced decode; (d) the long-context variant's
+    prefill of 8,191 tokens + one decode step against the prefill of
+    8,192.  Returns (info, (b)'s launches of the kernel)."""
+    import contextlib
+    import dataclasses
+    import io
+    import re
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    from repro_torch.models import lm
+
+    t_phase = time.perf_counter()
+    cfg = get_config(SERVE_ARCH)
+    info = {"phase": "serve", "arch": SERVE_ARCH, "dtype": cfg.dtype,
+            "layers": cfg.n_layers, "d_model": cfg.d_model,
+            "heads": [cfg.n_heads, cfg.n_kv_heads], "head_dim": cfg.head_dim,
+            "vocab": cfg.padded_vocab}
+    # (b) the user's entry point
+    argv = ["--arch", SERVE_ARCH, "--batch", str(SERVE_MAIN["batch"]),
+            "--prompt-len", str(SERVE_MAIN["prompt"]), "--gen",
+            str(SERVE_MAIN["gen"]), "--seed", "0"]
+    out = io.StringIO()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        gen = serve.main(argv)
+    main_s = time.perf_counter() - t0
+    launched = ops.launches()
+    printed = out.getvalue().splitlines()
+    for line in printed:
+        emit(line)
+    others = {k: n for k, n in launched.items()
+              if n and k != "window_attention"}
+    if launched["window_attention"] != cfg.n_layers or others:
+        raise AssertionError(f"serve (b): launches {launched}, expected "
+                             f"{cfg.n_layers} of window_attention only")
+    if gen.shape != (SERVE_MAIN["batch"], SERVE_MAIN["gen"]) or \
+            gen.min() < 0 or gen.max() >= cfg.padded_vocab:
+        raise AssertionError(f"serve (b): tokens {gen.shape}, range "
+                             f"[{gen.min()}, {gen.max()}]")
+    m = re.match(r"prefill: ([0-9.]+)s  decode: ([0-9.]+)s \(([0-9.]+) "
+                 r"tok/s\)", printed[1])
+    info["b"] = {"argv": argv, "launches": launched["window_attention"],
+                 "main_s": main_s, "printed_prefill_s": float(m.group(1)),
+                 "printed_decode_s": float(m.group(2)),
+                 "printed_tok_per_s": float(m.group(3)),
+                 "first_sequence": gen[0][:16].tolist()}
+
+    # the same request warm: generate() twice on the same weights, the
+    # second timed; then one prefill and 4 decode steps profiled
+    params = lm.init_params(cfg, seed=0, device=dev)
+    tokens = torch.as_tensor(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (SERVE_MAIN["batch"], SERVE_MAIN["prompt"])),
+        device=dev)
+    serve.generate(params, cfg, tokens, gen=SERVE_MAIN["gen"])
+    torch.cuda.reset_peak_memory_stats()
+    warm, t = serve.generate(params, cfg, tokens, gen=SERVE_MAIN["gen"])
+    if not np.array_equal(warm.cpu().numpy(), gen):
+        raise AssertionError("serve (b): the warm repeat's tokens differ "
+                             "from main's")
+    n_tok = SERVE_MAIN["batch"] * SERVE_MAIN["gen"]
+    info["b"].update({
+        "warm_prefill_ms": t["prefill_s"] * 1e3,
+        "warm_decode_ms_per_step": t["decode_s"] * 1e3 /
+        (SERVE_MAIN["gen"] - 1),
+        "warm_tok_per_s": n_tok / t["decode_s"],
+        "peak_mem_bytes": int(torch.cuda.max_memory_allocated())})
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    for what, steps in (("prefill", 0), ("decode", 4)):
+        logits, cache = lm.prefill(params, cfg, {"tokens": tokens},
+                                   max_len=SERVE_MAIN["prompt"] + steps + 1)
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=acts) as prof:
+            t0 = time.perf_counter()
+            if steps == 0:
+                lm.prefill(params, cfg, {"tokens": tokens})
+            for _ in range(steps):
+                logits, cache = lm.decode_step(params, cfg,
+                                               logits.argmax(-1), cache)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        on_dev = [e for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA]
+        dev_us = sum(e.self_device_time_total for e in on_dev)
+        top = sorted(((e.key, e.self_device_time_total, e.count)
+                      for e in on_dev), key=lambda x: -x[1])[:8]
+        info["b"][f"profiled_{what}"] = {
+            "decode_steps": steps, "wall_ms": wall_ms,
+            "device_ms": dev_us / 1e3 if dev_us else None,
+            "device_busy_share": dev_us / 1e3 / wall_ms if dev_us else None,
+            "kernel_launches": sum(e.count for e in on_dev),
+            "top_device_ms": [[k[:90], us / 1e3, c] for k, us, c in top]}
+
+    # (c) a second request on the card, then the same weights on the CPU
+    params_cpu = lm.init_params(cfg, seed=1, device="cpu")
+    params = {k: v.to(dev) for k, v in params_cpu.items()}
+    toks = torch.as_tensor(np.random.default_rng(1).integers(
+        0, cfg.vocab_size, (SERVE_CHECK["batch"], SERVE_CHECK["prompt"])))
+    n_gen = SERVE_CHECK["gen"]
+    served, _ = serve.generate(params, cfg, toks.to(dev), gen=n_gen)
+    logits, cache = lm.prefill(params, cfg, {"tokens": toks.to(dev)},
+                               max_len=SERVE_CHECK["prompt"] + n_gen)
+    card_logits, card_toks = [logits], [logits.argmax(-1)]
+    for _ in range(n_gen - 1):
+        logits, cache = lm.decode_step(params, cfg, card_toks[-1], cache)
+        card_logits.append(logits)
+        card_toks.append(logits.argmax(-1))
+    card_toks = torch.stack(card_toks, 1)
+    if not torch.equal(card_toks, served):
+        raise AssertionError("serve (c): generate() and the step loop differ")
+    def teacher_forced(params, cfg, toks, forced):
+        """Prefill ``toks``, then decode ``forced`` (B, n_gen) in turn: the
+        logits of every step."""
+        logits, cache = lm.prefill(params, cfg, {"tokens": toks},
+                                   max_len=toks.shape[1] + n_gen)
+        out = [logits]
+        for i in range(1, n_gen):
+            logits, cache = lm.decode_step(params, cfg, forced[:, i - 1],
+                                           cache)
+            out.append(logits)
+        return out
+
+    cpu_logits = teacher_forced(params_cpu, cfg, toks, card_toks.cpu())
+    errs, agree = [], []
+    for i, (card, cpu) in enumerate(zip(card_logits, cpu_logits)):
+        errs.append(_lm_close(torch, card, cpu, f"(c) step {i}"))
+        agree.append(_gated_agreement(torch, card.cpu(), cpu))
+    # findings, not gated: each side against an f32 run of the same
+    # weights on the CPU, and the card with cuBLAS's reduced-precision
+    # bf16 reduction off
+    truth = teacher_forced({k: v.float() for k, v in params_cpu.items()},
+                           dataclasses.replace(cfg, dtype="float32"), toks,
+                           card_toks.cpu())
+    flag = torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    try:
+        exact = teacher_forced(params, cfg, toks.to(dev), card_toks)
+    finally:
+        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = \
+            flag
+
+    def gaps(a, b):
+        return [float((x.float().cpu() - y.float().cpu()).abs().max())
+                for x, y in zip(a, b)]
+    info["c"] = {"request": SERVE_CHECK, "max_abs_err_per_step": errs,
+                 "bound": f"atol {LM_ATOL}, rtol {LM_RTOL}",
+                 "greedy_agree": sum(a[0] for a in agree),
+                 "greedy_total": sum(a[1] for a in agree),
+                 "greedy_gated": sum(a[2] for a in agree),
+                 "card_tokens": card_toks.cpu().tolist(),
+                 "max_abs_logit": float(truth[0].abs().max()),
+                 "card_vs_f32": gaps(card_logits, truth),
+                 "cpu_vs_f32": gaps(cpu_logits, truth),
+                 "card_no_reduced_reduction_vs_cpu": gaps(exact, cpu_logits),
+                 "card_no_reduced_reduction_vs_f32": gaps(exact, truth)}
+
+    # (d) past the window on the card: prefill S − 1, decode the last token
+    cfg_w = dataclasses.replace(cfg, attention="sliding_window",
+                                window=LONG_WINDOW)
+    toks = torch.as_tensor(np.random.default_rng(2).integers(
+        0, cfg.vocab_size, (1, LONG_S)), device=dev)
+    ops.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    full, _ = lm.prefill(params, cfg_w, {"tokens": toks})
+    torch.cuda.synchronize()
+    long_prefill_ms = (time.perf_counter() - t0) * 1e3
+    _, cache = lm.prefill(params, cfg_w, {"tokens": toks[:, :-1]},
+                          max_len=LONG_S)
+    step, _ = lm.decode_step(params, cfg_w, toks[:, -1], cache)
+    launched_d = ops.launches()["window_attention"]
+    # finding, not gated: both against the f32 prefill of the same weights
+    truth, _ = lm.prefill({k: v.float() for k, v in params.items()},
+                          dataclasses.replace(cfg_w, dtype="float32"),
+                          {"tokens": toks})
+    info["d"] = {"s": LONG_S, "window": LONG_WINDOW,
+                 "max_abs_err": _lm_close(torch, step, full, "(d)"),
+                 "prefill_vs_f32": float((full.float() - truth).abs().max()),
+                 "decode_vs_f32": float((step.float() - truth).abs().max()),
+                 "bound": f"atol {LM_ATOL}, rtol {LM_RTOL}",
+                 "prefill_ms": long_prefill_ms, "launches": launched_d}
+    if info["d"]["launches"] != 2 * cfg.n_layers:
+        raise AssertionError(f"serve (d): {info['d']['launches']} launches")
+    info["seconds"] = time.perf_counter() - t_phase
+    return info, launched["window_attention"]
+
 
 def main() -> int:
     import torch
@@ -1133,6 +1463,12 @@ def main() -> int:
                 "swap_best": vision_launches["swap_best"]}
     emit(scale_run(np, torch, dev, n_clients=ENGINE_RUNS[1][0],
                    frac=ENGINE_RUNS[1][1], aggregator="memory"))
+    t0 = time.perf_counter()
+    attn_rows = attention_kernel_checks(np, torch, dev)
+    emit({"phase": "kernels", "attention": True, "card": smi,
+          "seconds": time.perf_counter() - t0, "rows": attn_rows})
+    info, launches["window_attention"] = serve_run(np, torch, dev)
+    emit(info)
     main_rows = {
         "pairwise_similarity": staged_rows[
             "pairwise_similarity/{}x{}".format(*STAGED_SHAPES[0])],
@@ -1140,7 +1476,8 @@ def main() -> int:
         "swap_best": staged_rows[
             "swap_best/m={}/n={}".format(*SWAP_GAIN_SHAPES[-1])],
         "memagg": robust_rows["memagg/{}x{}/m={}".format(*MEMAGG_SHAPES[0])],
-        "krum": robust_rows["krum/m={}/p={}".format(*KRUM_SHAPES[0])]}
+        "krum": robust_rows["krum/m={}/p={}".format(*KRUM_SHAPES[0])],
+        "window_attention": next(iter(attn_rows.values()))}
 
     kernels = []
     if any(launches[name] <= 0 for name in KERNEL_INFO):
@@ -1154,8 +1491,10 @@ def main() -> int:
                         "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
                         "bound_by": row["bound_by"],
                         "library_ms": row["library_ms"],
-                        **{k: row[k] for k in ("n", "m", "p") if k in row},
-                        **({} if "n" in row else {"n": MAIN_N}),
+                        **{k: row[k] for k in ("n", "m", "p", "shape",
+                                               "dtype", "window") if k in row},
+                        **({} if "n" in row or "shape" in row
+                           else {"n": MAIN_N}),
                         "parity": "pass"})
     emit({"kernels": kernels})
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})

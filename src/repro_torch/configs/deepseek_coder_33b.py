@@ -1,0 +1,18 @@
+"""DeepSeek-Coder-33B — llama-arch GQA.  [arXiv:2401.14196]"""
+from repro_torch.configs.base import ArchConfig
+
+CONFIG = ArchConfig(
+    name="deepseek-coder-33b",
+    family="dense",
+    source="arXiv:2401.14196",
+    n_layers=62,
+    d_model=7168,
+    n_heads=56,
+    n_kv_heads=8,
+    head_dim=128,              # 7168 / 56
+    d_ff=19200,
+    vocab_size=32256,
+    ffn_kind="swiglu",
+    attention="full",
+    rope_theta=100000.0,
+)

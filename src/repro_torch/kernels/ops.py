@@ -15,6 +15,7 @@ from repro_torch.kernels import graph_fused as _gf
 from repro_torch.kernels import krum as _kr
 from repro_torch.kernels import pairwise_similarity as _ps
 from repro_torch.kernels import solver as _sv
+from repro_torch.kernels import window_attention as _wa
 
 # name -> Kernel (each with its ``launches`` count), in main-path order
 KERNELS = {
@@ -27,6 +28,7 @@ KERNELS = {
     "swap_best": _sv.SWAP_GAIN_KERNEL,
     "memagg": _ag.KERNEL,
     "krum": _kr.KERNEL,
+    "window_attention": _wa.KERNEL,
 }
 
 
@@ -131,3 +133,19 @@ def krum_distances(x: torch.Tensor) -> torch.Tensor:
     the (m, P) flat update matrix.  The expansion can go slightly negative
     for near-identical rows; the Krum selection clamps at 0."""
     return _kr.krum_distances(x)
+
+
+# -------------------------------------------------------- window attention
+def window_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                     window: int) -> torch.Tensor:
+    """Causal sliding-window attention: q (B, S, Hq, D), k/v (B, S, Hkv, D)
+    with Hkv dividing Hq (query head h reads KV head h // (Hq/Hkv)); query i
+    attends to keys i − window < j ≤ i.  Returns (B, S, Hq, D) in q's dtype.
+    Any S: the ragged edge is masked, nothing is padded."""
+    return _wa.window_attention(q, k, v, window=window)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor,
+                    v: torch.Tensor) -> torch.Tensor:
+    """Full causal attention: the sliding-window kernel with window = S."""
+    return window_attention(q, k, v, window=q.shape[1])

@@ -1,10 +1,16 @@
-"""Plain PyTorch versions of the 3DG kernels (the port of ``repro.kernels.ref``).
+"""Plain PyTorch references (the port of ``repro.kernels.ref``).
 
-Both follow the op order their CUDA kernels use, so kernel and plain version
-agree bit for bit on the same device; against the JAX package they agree
-under the contracts the tests state.
+The two 3DG references follow the op order their CUDA kernels use, so
+kernel and plain version agree bit for bit on the same device; against the
+JAX package they agree under the contracts the tests state.
+``window_attention_ref`` follows the JAX reference's op order instead
+(probabilities rounded to the input dtype before the product with V); the
+attention kernel's own plain version is ``window_attention.
+window_attention_plain``.
 """
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -35,3 +41,18 @@ def similarity_ref(u: torch.Tensor) -> torch.Tensor:
     for k in range(u.shape[1]):
         v = v + u[:, k:k + 1] * u[:, k]
     return v
+
+
+def window_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         *, window: int) -> torch.Tensor:
+    """Causal sliding-window attention, q/k/v (B, S, H, D) with the KV heads
+    already repeated; f32 softmax, probabilities cast to q's dtype before
+    the product with V (``repro.kernels.ref.window_attention_ref``)."""
+    s, d = q.shape[1], q.shape[3]
+    scores = torch.einsum("bqhd,bkhd->bhqk", q, k).to(torch.float32) / math.sqrt(d)
+    pos = torch.arange(s, device=q.device)
+    qpos, kpos = pos[:, None], pos[None, :]
+    mask = (kpos <= qpos) & (kpos > qpos - window)
+    scores = torch.where(mask[None, None], scores, -1e30)
+    p = torch.softmax(scores, dim=-1).to(q.dtype)
+    return torch.einsum("bhqk,bkhd->bqhd", p, v)

@@ -83,7 +83,8 @@ def test_port_imports_no_jax_and_no_repro(target):
 
 def test_guard_covers_every_port_module():
     """The scan above reaches every module of the port, the robust
-    server-update modules and the staged-3DG, vision and SSPP modules
+    server-update modules, the staged-3DG, vision and SSPP modules and the
+    LM serving path's configs, models, attention kernel and launcher
     included, and importing all of them in a fresh interpreter loads
     neither jax nor repro."""
     pkg = ROOT / "src" / "repro_torch"
@@ -94,7 +95,13 @@ def test_guard_covers_every_port_module():
                  "repro_torch.kernels.aggregate", "repro_torch.kernels.krum",
                  "repro_torch.kernels.pairwise_similarity",
                  "repro_torch.core.sspp", "repro_torch.data.vision",
-                 "repro_torch.data.partition"):
+                 "repro_torch.data.partition",
+                 "repro_torch.configs.base", "repro_torch.configs.registry",
+                 "repro_torch.configs.smollm_135m",
+                 "repro_torch.kernels.window_attention",
+                 "repro_torch.models.layers", "repro_torch.models.attention",
+                 "repro_torch.models.ffn", "repro_torch.models.lm",
+                 "repro_torch.launch.serve"):
         assert need in mods, need
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"

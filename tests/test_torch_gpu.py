@@ -25,12 +25,19 @@ Contracts, kernel against plain version on the same device:
 * FedGS selected sets, the quickstart slice and the vision slice
   (``small_cnn``, cuDNN with TF32 off): the card run (kernels) and a CPU
   run given the card's H select the same clients every round, and
-  val_loss agrees within 1e-4.
+  val_loss agrees within 1e-4;
+* window attention: f32 within 1e-5 absolute on N(0, 1) inputs; bf16
+  within one bf16 ulp of the plain output (2⁻⁷·|o| + 1e-6): both keep
+  scores, probabilities and V in f32 and round the output once;
+* the LM: a smollm-135m prefill launches the attention kernel once per
+  layer (30) and decode not at all; the reduced LM (f32) on the card
+  agrees with the CPU (the plain version) within 1e-4.
 """
 import numpy as np
 import pytest
 import torch
 
+from repro_torch.configs.registry import get_config
 from repro_torch.core import graph_device as tgd
 from repro_torch.core import sampler_device as tsd
 from repro_torch.core.availability import make_mode
@@ -47,6 +54,8 @@ from repro_torch.kernels import krum as tkr
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import pairwise_similarity as tps
 from repro_torch.kernels import solver as tsolver
+from repro_torch.kernels import window_attention as twa
+from repro_torch.models import lm as tlm
 
 pytestmark = pytest.mark.gpu
 
@@ -407,3 +416,88 @@ def test_vision_engine_on_card_equals_cpu(cuda):
     hp = cpu.run()
     assert hc.all_sampled == hp.all_sampled
     np.testing.assert_allclose(hc.val_loss, hp.val_loss, atol=1e-4)
+
+
+# (B, S, Hq, Hkv, D, dtype, window): chip_smoke's four (smollm's prefill,
+# the long window, a window that is not a multiple of the tile, an S that
+# is not), then edges: one position, window 1, D = 48 / 192 / 256
+WA_SHAPES = [(8, 512, 9, 3, 64, torch.bfloat16, 512),
+             (1, 8192, 9, 3, 64, torch.bfloat16, 4096),
+             (2, 384, 4, 2, 32, torch.float32, 100),
+             (1, 1000, 3, 3, 128, torch.float32, 1000),
+             (1, 1, 2, 1, 16, torch.float32, 1),
+             (2, 65, 4, 4, 16, torch.float32, 1),
+             (1, 130, 2, 2, 48, torch.bfloat16, 63),
+             (1, 200, 6, 2, 256, torch.float32, 65),
+             (1, 300, 2, 1, 192, torch.bfloat16, 300)]
+
+
+def _qkv(rng, b, s, hq, hkv, d, dtype, dev):
+    return [torch.as_tensor(rng.normal(size=(b, s, h, d)),
+                            dtype=torch.float32).to(dtype).to(dev)
+            for h in (hq, hkv, hkv)]
+
+
+@pytest.mark.parametrize("b,s,hq,hkv,d,dtype,window", WA_SHAPES)
+def test_window_attention_kernel_vs_plain(cuda, b, s, hq, hkv, d, dtype,
+                                          window):
+    q, k, v = _qkv(np.random.default_rng(s + d), b, s, hq, hkv, d, dtype,
+                   cuda)
+    tops.reset_launches()
+    got = tops.window_attention(q, k, v, window=window)
+    assert tops.launches()["window_attention"] == 1
+    want = twa.window_attention_plain(q, k, v, window=window)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == q.shape
+    got, want = got.float().cpu(), want.float().cpu()
+    if dtype == torch.float32:
+        assert float((got - want).abs().max()) <= 1e-5
+    else:
+        assert bool(((got - want).abs() <=
+                     2.0 ** -7 * want.abs() + 1e-6).all())
+
+
+def test_window_attention_kernel_rejects(cuda):
+    q = torch.zeros(1, 8, 2, 64, device=cuda)
+    for bad, match in [((q[..., :24].contiguous(),) * 3, "multiple of 16"),
+                       ((q.transpose(1, 2),) * 3, "contiguous"),
+                       ((q, q.half(), q), "float32 or bfloat16"),
+                       ((q.double(),) * 3, "float32 or bfloat16")]:
+        with pytest.raises(ValueError, match=match):
+            twa.window_attention_cuda(*bad, window=4)
+
+
+def test_prefill_launches_the_kernel_once_per_layer(cuda):
+    cfg = get_config("smollm-135m")
+    params = tlm.init_params(cfg, seed=0, device=cuda)
+    tokens = torch.as_tensor(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (2, 64)), device=cuda)
+    tops.reset_launches()
+    logits, cache = tlm.prefill(params, cfg, {"tokens": tokens}, max_len=66)
+    assert tops.launches()["window_attention"] == cfg.n_layers == 30
+    for _ in range(2):
+        logits, cache = tlm.decode_step(params, cfg, logits.argmax(-1),
+                                        cache)
+    assert tops.launches()["window_attention"] == 30
+    assert logits.shape == (2, cfg.padded_vocab)
+    assert bool(torch.isfinite(logits.float()).all())
+
+
+def test_reduced_lm_on_card_equals_cpu(cuda):
+    cfg = get_config("smollm-135m").reduced()
+    params = tlm.init_params(cfg, seed=0, device="cpu")
+    tokens = torch.as_tensor(np.random.default_rng(1).integers(
+        0, cfg.vocab_size, (3, 100)))
+    out = []
+    for dev in (cuda, torch.device("cpu")):
+        p = {k: v.to(dev) for k, v in params.items()}
+        logits, cache = tlm.prefill(p, cfg, {"tokens": tokens[:, :96].to(dev)},
+                                    max_len=100)
+        steps = [logits]
+        for t in range(96, 99):
+            logits, cache = tlm.decode_step(p, cfg, tokens[:, t].to(dev),
+                                            cache)
+            steps.append(logits)
+        out.append(torch.stack(steps).cpu())
+    np.testing.assert_allclose(out[0].numpy(), out[1].numpy(), atol=1e-4,
+                               rtol=1e-4)
