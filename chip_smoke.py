@@ -5,18 +5,24 @@
 
 Phases, each printing one JSON line (any failure exits non-zero):
   1. build    every CUDA kernel of the port from ``src/repro_torch/
-              kernels/csrc`` (one nvcc per source, all at once); prints the
-              card's name and power limit.
+              kernels/csrc`` (one nvcc per source, all at once; the seconds
+              until each source's nvcc ended); prints the card's name and
+              power limit.
   2. kernels  each kernel against its plain PyTorch version on the card at
               N in {30, 130, 1024, 4096} (swap panel m = ceil(0.1 N), and
               the engine's own M = 6 at N = 30 and M = 102 at N = 1024, the
               shapes phases 3 and 5 give it), under the stated tolerance;
               kernel, plain and (where one PyTorch call computes the same
-              function) library times by CUDA events, beside the least time
-              the card could take.
+              function) library times by CUDA events over a loop of calls
+              (``ms``: a short call reads its host time), the kernel's and
+              the library call's also by replaying a CUDA graph of calls
+              (``device_ms``: device time only), beside the least time the
+              card could take.
      The staged 3DG kernels (similarity, adjacency) at (N, d) in
               {30, 130, 1024, 4096} x 610 and the vision shapes (100, 10)
-              (label distributions) and (100, 13946) (CNN updates); the
+              (label distributions) and (100, 13946) (CNN updates), and
+              the similarity's serial plan beside its planned one at
+              SIM_PLAN_SHAPES (bitwise the same V); the
               dense-Q swap at (m, N) = (ceil(0.1 N), N) and (10, 100); the
               graph routes: fused R == staged R and build_h's H ==
               cap(staged H), bitwise, at (30, 610) and (100, 10).
@@ -68,8 +74,9 @@ Phases, each printing one JSON line (any failure exits non-zero):
               from a seed): (a) the window attention kernel against its
               plain version at (B, S, Hq/Hkv, D) = (8, 512, 9/3, 64) bf16
               full, (1, 8192, 9/3, 64) bf16 window 4096, (2, 384, 4/2, 32)
-              f32 window 100 and (1, 1000, 3/3, 128) f32 full, with
-              kernel, plain and scaled_dot_product_attention times;
+              window 100 and (1, 1000, 3/3, 128) full, each in f32 (the
+              CUDA-core body) and bf16 (the tensor cores), with kernel,
+              plain and scaled_dot_product_attention times;
               (b) repro_torch.launch.serve.main at batch 8, prompt 512,
               gen 32, greedy: exactly 30 launches of the kernel (one per
               layer, prefill only), then the same request warm, timed and
@@ -79,9 +86,12 @@ Phases, each printing one JSON line (any failure exits non-zero):
               equal wherever the card's top-2 margin exceeds the gap;
               (d) the sliding-window variant (window 4096): prefill of
               8,191 tokens + one decode step against the prefill of 8,192.
+              (c) and (d) print their gaps beside the earlier readings.
   8. the ``{"kernels": [...]}`` line (times at the main path's shapes:
-     N = 30, M = 6, P = 610; the dense swap at the vision solve's
-     (m, N) = (10, 100); window attention at smollm's prefill).
+     N = 30, M = 6, P = 610; the similarity also at the vision phase's
+     (100, 13946) update-cosine 3DG, with that call's launches; the dense
+     swap at the vision solve's (m, N) = (10, 100); window attention at
+     smollm's prefill).
 The last line is ``{"ok": true, "device": {...}}``.  The script needs a CUDA
 device and the repository's ``src/`` beside it; without either it exits
 non-zero and prints no result.  Full output also goes to
@@ -115,6 +125,9 @@ KRUM_SHAPES = ((6, 610), (64, 512), (128, 2048), (256, 4096), (512, 16384))
 # the staged 3DG kernels' (N, d): the quickstart's local optima at every N,
 # then the vision oracle's label distributions and the CNN's flat updates
 STAGED_SHAPES = tuple((n, 610) for n in SIZES) + ((100, 10), (100, 13946))
+# where the similarity's big plan (128x128 tiles) takes over on an H100 and
+# the largest size above: each is timed beside the serial plan (32x32)
+SIM_PLAN_SHAPES = ((2900, 300), (4096, 610))
 # the dense-Q swap's (m, N); the last is the vision solve's (phase 5 (c))
 SWAP_GAIN_SHAPES = tuple((math.ceil(0.1 * n), n) for n in SIZES) + ((10, 100),)
 FEDGS_KERNELS = ("pairwise_similarity", "adjacency", "floyd_warshall",
@@ -145,11 +158,18 @@ SERVE_ARCH = "smollm-135m"
 # the window attention kernel's (B, S, Hq, Hkv, D, dtype, window): smollm's
 # prefill in (b) (the kernels line's row), the long-context variant's
 # window, a window that is not a multiple of the 64-row tile, an S that is
-# not; window None is full causal attention
+# not, the last two in f32 (the CUDA-core body) and in bf16 (the tensor
+# cores, at a ragged S and at D = 128); window None is full causal
 WA_SHAPES = ((8, 512, 9, 3, 64, "bfloat16", None),
              (1, 8192, 9, 3, 64, "bfloat16", 4096),
              (2, 384, 4, 2, 32, "float32", 100),
-             (1, 1000, 3, 3, 128, "float32", None))
+             (1, 1000, 3, 3, 128, "float32", None),
+             (2, 384, 4, 2, 32, "bfloat16", 100),
+             (1, 1000, 3, 3, 128, "bfloat16", None))
+# the serve gaps (c) (card vs CPU, range over the steps) and (d) (prefill
+# + decode vs prefill) as first measured on an H100 80GB HBM3 at 700 W,
+# with the CUDA-core attention kernel; printed beside this run's
+SERVE_GAPS_BEFORE = {"c": [0.034, 0.042], "d": 0.043}
 SERVE_MAIN = {"batch": 8, "prompt": 512, "gen": 32}
 SERVE_CHECK = {"batch": 2, "prompt": 128, "gen": 8}
 LONG_S, LONG_WINDOW = 8192, 4096        # launch/specs.py's long variant
@@ -159,6 +179,10 @@ LM_ATOL, LM_RTOL = 5e-2, 2e-2
 
 KERNEL_INFO = {
     "pairwise_similarity": (
+        "src/repro_torch/kernels/csrc/pairwise_similarity.cu",
+        "src/repro/kernels/pairwise_similarity.py:22"),
+    # the same kernel at the vision phase's (100, 13946) update-cosine 3DG
+    "pairwise_similarity/vision": (
         "src/repro_torch/kernels/csrc/pairwise_similarity.cu",
         "src/repro/kernels/pairwise_similarity.py:22"),
     "adjacency": ("src/repro_torch/kernels/csrc/pairwise_similarity.cu",
@@ -214,6 +238,29 @@ def cuda_ms(torch, fn, *, budget_s: float = 0.25, max_reps: int = 200) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def device_ms(torch, fn, *, reps: int = 20) -> float:
+    """Mean ms of ``fn`` on the device: ``reps`` calls captured in a CUDA
+    graph and replayed, so its kernels run back to back with no host time
+    between them (warm).  cuda_ms, by contrast, times a call whose launch
+    costs more host time than its kernels take at its host time."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(3):
+        graph.replay()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / (3 * reps)
 
 
 def engine_m(n: int, frac: float) -> int:
@@ -276,6 +323,8 @@ def kernel_checks(np, torch, n: int, dev) -> dict:
         tolerance="lo/hi bitwise, inf pattern identical, finite R rtol 1e-4",
         ms=cuda_ms(torch, lambda: gf.fused_adjacency_cuda(u, eps=0.1,
                                                           sigma2=0.01)),
+        device_ms=device_ms(torch, lambda: gf.fused_adjacency_cuda(
+            u, eps=0.1, sigma2=0.01)),
         plain_ms=cuda_ms(torch, lambda: gf.fused_adjacency_plain(
             u, eps=0.1, sigma2=0.01), max_reps=20),
         bound_ms=b, bound_by=by, library_ms=None,
@@ -292,6 +341,8 @@ def kernel_checks(np, torch, n: int, dev) -> dict:
         max_abs_err=0.0, tolerance="bitwise",
         ms=cuda_ms(torch, lambda: fw.floyd_warshall_cuda(r_p), budget_s=0.5,
                    max_reps=50),
+        device_ms=device_ms(torch, lambda: fw.floyd_warshall_cuda(r_p),
+                            reps=5),
         plain_ms=cuda_ms(torch, lambda: fw.floyd_warshall_plain(r_p),
                          budget_s=0.5, max_reps=20),
         bound_ms=b, bound_by=by, library_ms=None,
@@ -333,9 +384,12 @@ def kernel_checks(np, torch, n: int, dev) -> dict:
     rows["greedy_argmax"] = dict(
         max_abs_err=0.0, tolerance="bitwise (value and index)",
         ms=cuda_ms(torch, lambda: sv.masked_argmax_cuda(diag, r, mask)),
+        device_ms=device_ms(torch, lambda: sv.masked_argmax_cuda(diag, r,
+                                                                 mask)),
         plain_ms=cuda_ms(torch, lambda: sv.masked_argmax_plain(diag, r, mask)),
         bound_ms=b, bound_by=by,
         library_ms=cuda_ms(torch, lambda: torch.argmax(gain)),
+        library_device_ms=device_ms(torch, lambda: torch.argmax(gain)),
         library="torch.argmax over the masked gain")
 
     for m in swap_panels(n):
@@ -354,6 +408,8 @@ def kernel_checks(np, torch, n: int, dev) -> dict:
         rows[f"swap_best_fused/m={m}"] = dict(
             max_abs_err=0.0, tolerance="bitwise (best, rank, j)", m=m,
             ms=cuda_ms(torch, lambda: sv.swap_best_fused_cuda(*kargs)),
+            device_ms=device_ms(torch,
+                                lambda: sv.swap_best_fused_cuda(*kargs)),
             plain_ms=cuda_ms(torch, lambda: sv.swap_best_fused_plain(*kargs)),
             bound_ms=b, bound_by=by, library_ms=None,
             library="none: no single PyTorch call rebuilds Q and arg-maxes it")
@@ -388,15 +444,19 @@ def staged_kernel_checks(np, torch, dev) -> dict:
         prev = torch.backends.cuda.matmul.allow_tf32
         torch.backends.cuda.matmul.allow_tf32 = False
         lib_ms = cuda_ms(torch, lambda: torch.matmul(u, u.T))
+        lib_dev_ms = device_ms(torch, lambda: torch.matmul(u, u.T))
         torch.backends.cuda.matmul.allow_tf32 = prev
         # V is symmetric: N(N+1)/2 dot products of 2d operations each
         b, by = bound(4 * n * d + 4 * n * n, n * (n + 1) * d)
         rows[f"pairwise_similarity/{n}x{d}"] = dict(
             n=n, d=d, max_abs_err=0.0, tolerance="V bitwise",
+            plan=ps.similarity_plan(n, d),
             ms=cuda_ms(torch, lambda: ps.similarity_cuda(u)),
+            device_ms=device_ms(torch, lambda: ps.similarity_cuda(u)),
             plain_ms=cuda_ms(torch, lambda: ps.similarity_plain(u),
                              max_reps=20),
             bound_ms=b, bound_by=by, library_ms=lib_ms,
+            library_device_ms=lib_dev_ms,
             library="torch.matmul(u, u.T), TF32 off")
 
         stats = torch.stack([torch.min(v), torch.max(v)])
@@ -412,11 +472,25 @@ def staged_kernel_checks(np, torch, dev) -> dict:
             tolerance="inf pattern identical, finite R rtol 1e-4",
             ms=cuda_ms(torch, lambda: ps.adjacency_cuda(v, stats, eps=0.1,
                                                         sigma2=0.01)),
+            device_ms=device_ms(torch, lambda: ps.adjacency_cuda(
+                v, stats, eps=0.1, sigma2=0.01)),
             plain_ms=cuda_ms(torch, lambda: ps.adjacency_plain(
                 v, stats, eps=0.1, sigma2=0.01)),
             bound_ms=b, bound_by=by, library_ms=None,
             library="none: no single PyTorch call computes the thresholded "
                     "min-max adjacency")
+    for n, d in SIM_PLAN_SHAPES:
+        u = features(np, torch, n, seed=n + d, d=d).to(dev)
+        if not torch.equal(ps.similarity_serial_cuda(u),
+                           ps.similarity_cuda(u)):
+            raise AssertionError(f"similarity {n, d}: serial plan differs")
+        rows[f"similarity_plans/{n}x{d}"] = dict(
+            n=n, d=d, plan=ps.similarity_plan(n, d),
+            ms=cuda_ms(torch, lambda: ps.similarity_cuda(u)),
+            device_ms=device_ms(torch, lambda: ps.similarity_cuda(u)),
+            serial_ms=cuda_ms(torch, lambda: ps.similarity_serial_cuda(u)),
+            serial_device_ms=device_ms(
+                torch, lambda: ps.similarity_serial_cuda(u)))
     return rows
 
 
@@ -457,6 +531,7 @@ def swap_gain_checks(np, torch, dev) -> dict:
         rows[f"swap_best/m={m}/n={n}"] = dict(
             n=n, m=m, max_abs_err=0.0, tolerance="bitwise (best, rank, j)",
             ms=cuda_ms(torch, lambda: sv.swap_gain_cuda(*args)),
+            device_ms=device_ms(torch, lambda: sv.swap_gain_cuda(*args)),
             plain_ms=cuda_ms(torch, lambda: sv.swap_gain_plain(*args)),
             bound_ms=b, bound_by=by, library_ms=None,
             library="none: no single PyTorch call arg-maxes the swap gain "
@@ -544,9 +619,12 @@ def robust_kernel_checks(np, torch, dev) -> dict:
                       "launch to launch",
             ms=cuda_ms(torch, lambda: ag.memory_aggregate_cuda(
                 work, upd, sel, valid, w)),
+            device_ms=device_ms(torch, lambda: ag.memory_aggregate_cuda(
+                work, upd, sel, valid, w)),
             plain_ms=cuda_ms(torch, lambda: ag.memory_scatter_reduce_ref(
                 work, upd, sel, valid, w)),
             bound_ms=b, bound_by=by, library_ms=cuda_ms(torch, library),
+            library_device_ms=device_ms(torch, library),
             library="two calls: index_copy_ of the rows + torch.mv")
 
     rng = np.random.default_rng(0)            # the bench's recipe, in order
@@ -579,9 +657,12 @@ def robust_kernel_checks(np, torch, dev) -> dict:
                       "exactly symmetric; selection bitwise",
             selection_bitwise=True, chosen=int(ck.sum()),
             ms=cuda_ms(torch, lambda: kr.krum_distances_cuda(x)),
+            device_ms=device_ms(torch, lambda: kr.krum_distances_cuda(x)),
             plain_ms=cuda_ms(torch, lambda: kr.krum_pairwise_ref(x)),
             bound_ms=b, bound_by=by,
             library_ms=cuda_ms(torch, lambda: torch.cdist(x, x).square()),
+            library_device_ms=device_ms(
+                torch, lambda: torch.cdist(x, x).square()),
             library="torch.cdist(x, x).square()")
     return rows
 
@@ -958,12 +1039,13 @@ def vision_run(np, torch, dev) -> tuple[dict, dict]:
     keys = sorted(params0)
     upd = torch.cat([(stacked[k] - params0[k]).reshape(n, -1) for k in keys],
                     dim=1)
-    table3 = {}
-    for name, v_pred in (
-            ("functional", G.functional_similarity(emb.cpu().numpy(),
-                                                   device=dev)),
-            ("update_cosine", G.update_cosine_similarity(upd.cpu().numpy(),
-                                                         device=dev))):
+    table3, f_launches = {}, {}
+    for name, source, feats in (
+            ("functional", G.functional_similarity, emb.cpu().numpy()),
+            ("update_cosine", G.update_cosine_similarity, upd.cpu().numpy())):
+        before = ops.launches()["pairwise_similarity"]
+        v_pred = source(feats, device=dev)
+        f_launches[name] = ops.launches()["pairwise_similarity"] - before
         best = {"f1": -1.0}
         for eps in EPS_SWEEP:
             r_pred = G.similarity_to_adjacency(G.normalize_01(v_pred,
@@ -974,10 +1056,13 @@ def vision_run(np, torch, dev) -> tuple[dict, dict]:
                 best = {"eps": eps, "precision": p, "recall": rc, "f1": f1}
         table3[name] = best
     table3["launches"] = ops.launches()
+    table3["similarity_launches"] = f_launches
     if upd.shape != (n, n_params) or \
-            table3["launches"]["pairwise_similarity"] != 2:
+            table3["launches"]["pairwise_similarity"] != 2 or \
+            f_launches["update_cosine"] != 1:
         raise AssertionError(f"vision (f): {tuple(upd.shape)}, "
-                             f"{table3['launches']}")
+                             f"{table3['launches']}, {f_launches}")
+    launches["f_update_cosine"] = f_launches["update_cosine"]
 
     # (g) SSPP's V through similarity="precomputed", card vs CPU
     v = secure_similarity_matrix(ds.label_dist, seed=0)
@@ -1006,7 +1091,8 @@ def vision_run(np, torch, dev) -> tuple[dict, dict]:
         "seconds": seconds, "launches": launches,
         "finding_fedgs_count_var_below_uniform":
             findings["fedgs"]["count_var"] < findings["uniform"]["count_var"]})
-    return info, launches["c"]
+    return info, {**launches["c"],
+                  "pairwise_similarity/vision": launches["f_update_cosine"]}
 
 
 def scale_run(np, torch, dev, *, n_clients: int, frac: float,
@@ -1148,10 +1234,12 @@ def attention_kernel_checks(np, torch, dev) -> dict:
         torch.cuda.synchronize()
         err = (got.float() - want.float()).abs()
         if dtype == torch.float32:
-            ok, tol = float(err.max()) <= 1e-5, "f32: max |Δ| <= 1e-5"
+            gate = torch.full_like(err, 1e-5)
+            tol = "f32: max |Δ| <= 1e-5"
         else:
-            ok = bool((err <= 2.0 ** -7 * want.float().abs() + 1e-6).all())
+            gate = 2.0 ** -7 * want.float().abs() + 1e-6
             tol = "bf16: |Δ| <= 2^-7 |o_plain| + 1e-6 (one bf16 ulp)"
+        ok = bool((err <= gate).all())
         if not ok:
             raise AssertionError(f"window_attention {b, s, hq, hkv, d, dt, w}"
                                  f": beyond {tol} ({float(err.max())})")
@@ -1180,12 +1268,18 @@ def attention_kernel_checks(np, torch, dev) -> dict:
                         if dtype == torch.bfloat16 else PEAK_F32_OPS_PER_S)
         rows[f"window_attention/{b}x{s}x{hq}/{hkv}x{d}/{dt}/w={w}"] = dict(
             shape=[b, s, hq, hkv, d], dtype=dt, window=w,
+            body="tensor cores" if dtype == torch.bfloat16 and d <= 128
+            else "CUDA cores",
             visible_pairs=pairs, max_abs_err=float(err.max()), tolerance=tol,
+            max_err_over_gate=float((err / gate).max()),
             ms=cuda_ms(torch, lambda: wa.window_attention_cuda(
+                q, k, v, window=w)),
+            device_ms=device_ms(torch, lambda: wa.window_attention_cuda(
                 q, k, v, window=w)),
             plain_ms=cuda_ms(torch, lambda: wa.window_attention_plain(
                 q, k, v, window=w), max_reps=20),
             bound_ms=bnd, bound_by=by, library_ms=cuda_ms(torch, library),
+            library_device_ms=device_ms(torch, library),
             library="F.scaled_dot_product_attention, KV heads repeated, " +
                     ("is_causal=True" if window is None else
                      "boolean band mask"),
@@ -1378,7 +1472,8 @@ def serve_run(np, torch, dev) -> tuple[dict, int]:
                  "card_vs_f32": gaps(card_logits, truth),
                  "cpu_vs_f32": gaps(cpu_logits, truth),
                  "card_no_reduced_reduction_vs_cpu": gaps(exact, cpu_logits),
-                 "card_no_reduced_reduction_vs_f32": gaps(exact, truth)}
+                 "card_no_reduced_reduction_vs_f32": gaps(exact, truth),
+                 "max_abs_err_range_before": SERVE_GAPS_BEFORE["c"]}
 
     # (d) past the window on the card: prefill S − 1, decode the last token
     cfg_w = dataclasses.replace(cfg, attention="sliding_window",
@@ -1404,6 +1499,7 @@ def serve_run(np, torch, dev) -> tuple[dict, int]:
                  "prefill_vs_f32": float((full.float() - truth).abs().max()),
                  "decode_vs_f32": float((step.float() - truth).abs().max()),
                  "bound": f"atol {LM_ATOL}, rtol {LM_RTOL}",
+                 "max_abs_err_before": SERVE_GAPS_BEFORE["d"],
                  "prefill_ms": long_prefill_ms, "launches": launched_d}
     if info["d"]["launches"] != 2 * cfg.n_layers:
         raise AssertionError(f"serve (d): {info['d']['launches']} launches")
@@ -1426,11 +1522,13 @@ def main() -> int:
     smi = smi_line()
     emit(smi)
     t0 = time.perf_counter()
-    logs = _build.build(verbose=True)
+    built = _build.build(verbose=True)
     build_s = time.perf_counter() - t0
     OUT.mkdir(exist_ok=True)
-    (OUT / "ptxas.txt").write_text("\n".join(f"== {k}\n{v}" for k, v in logs.items()))
-    emit({"phase": "build", "seconds": build_s, "sources": sorted(logs),
+    (OUT / "ptxas.txt").write_text("\n".join(f"== {k}\n{v['log']}"
+                                             for k, v in built.items()))
+    emit({"phase": "build", "seconds": build_s, "sources": sorted(built),
+          "seconds_per_source": {k: v["seconds"] for k, v in built.items()},
           "torch": torch.__version__, "cuda": torch.version.cuda,
           "device": torch.cuda.get_device_name(0)})
 
@@ -1460,7 +1558,9 @@ def main() -> int:
         emit(info)
     launches = {**launches, **robust_launches,
                 "fused_adjacency": info["fused_launches"],
-                "swap_best": vision_launches["swap_best"]}
+                "swap_best": vision_launches["swap_best"],
+                "pairwise_similarity/vision":
+                    vision_launches["pairwise_similarity/vision"]}
     emit(scale_run(np, torch, dev, n_clients=ENGINE_RUNS[1][0],
                    frac=ENGINE_RUNS[1][1], aggregator="memory"))
     t0 = time.perf_counter()
@@ -1472,6 +1572,8 @@ def main() -> int:
     main_rows = {
         "pairwise_similarity": staged_rows[
             "pairwise_similarity/{}x{}".format(*STAGED_SHAPES[0])],
+        "pairwise_similarity/vision": staged_rows[
+            "pairwise_similarity/{}x{}".format(*STAGED_SHAPES[-1])],
         "adjacency": staged_rows["adjacency/{}x{}".format(*STAGED_SHAPES[0])],
         "swap_best": staged_rows[
             "swap_best/m={}/n={}".format(*SWAP_GAIN_SHAPES[-1])],
@@ -1491,7 +1593,9 @@ def main() -> int:
                         "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
                         "bound_by": row["bound_by"],
                         "library_ms": row["library_ms"],
-                        **{k: row[k] for k in ("n", "m", "p", "shape",
+                        "device_ms": row["device_ms"],
+                        "library_device_ms": row.get("library_device_ms"),
+                        **{k: row[k] for k in ("n", "d", "m", "p", "shape",
                                                "dtype", "window") if k in row},
                         **({} if "n" in row or "shape" in row
                            else {"n": MAIN_N}),

@@ -21,6 +21,7 @@ import os
 import shutil
 import subprocess
 import threading
+import time
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
@@ -53,36 +54,45 @@ def _target(name: str) -> Path:
     return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 
 
-def build(names=SOURCES, *, verbose: bool = False) -> dict[str, str]:
+def build(names=SOURCES, *, verbose: bool = False) -> dict[str, dict]:
     """Compile every library in ``names`` that is not built yet, one
-    ``nvcc`` process per source, all started together.  Returns the
-    compiler's messages per source (with ``verbose``, ``-Xptxas -v``'s
-    register and shared-memory report).  Raises if any build fails."""
+    ``nvcc`` process per source, all started together.  Returns, per source
+    built, the compiler's messages (``log``; with ``verbose``, ``-Xptxas
+    -v``'s register and shared-memory report) and the seconds from the start
+    until its ``nvcc`` ended (``seconds``).  Raises if any build fails."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
     procs = {}
     for name in names:
         out = _target(name)
         if out.exists() and not verbose:
             continue
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        log = out.with_suffix(f".{os.getpid()}.log")
         cmd = [nvcc_path(), *NVCC_FLAGS, f"-I{CSRC}",
                *(["-Xptxas", "-v"] if verbose else []),
                "-o", str(tmp), str(CSRC / f"{name}.cu")]
-        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                        stderr=subprocess.STDOUT, text=True),
-                       tmp, out)
-    logs, failed = {}, []
-    for name, (proc, tmp, out) in procs.items():
-        logs[name] = proc.communicate()[0]
-        if proc.returncode != 0:
-            failed.append(name)
-            tmp.unlink(missing_ok=True)
-        else:
-            os.replace(tmp, out)
+        with open(log, "w") as fh:
+            proc = subprocess.Popen(cmd, stdout=fh, stderr=subprocess.STDOUT)
+        procs[name] = (proc, tmp, out, log)
+    done, failed = {}, []
+    while len(done) < len(procs):
+        for name, (proc, tmp, out, log) in procs.items():
+            if name in done or proc.poll() is None:
+                continue
+            done[name] = {"seconds": time.perf_counter() - t0,
+                          "log": log.read_text()}
+            log.unlink()
+            if proc.returncode != 0:
+                failed.append(name)
+                tmp.unlink(missing_ok=True)
+            else:
+                os.replace(tmp, out)
+        time.sleep(0.05)
     if failed:
         raise RuntimeError("nvcc failed for " + ", ".join(failed) + ":\n" +
-                           "\n".join(logs[n] for n in failed))
-    return logs
+                           "\n".join(done[n]["log"] for n in failed))
+    return done
 
 
 def library(name: str) -> ctypes.CDLL:

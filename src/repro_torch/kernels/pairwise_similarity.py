@@ -6,10 +6,15 @@ Replaces ``repro/kernels/pairwise_similarity.py`` ``_sim_kernel`` /
 ``csrc/pairwise_similarity.cu``.  The staged route writes V and R between
 its stages (the fused kernel, ``graph_fused``, never writes V): it serves
 ``similarity="precomputed"`` and every caller that needs V.  The similarity
-is summed in ascending k, mul then add (``ref.similarity_ref``), and the
-adjacency is the fused kernel's epilogue, so given the same features the
-staged R is bitwise the fused R.  What bounds them on the card: the
-similarity's N²·d multiply-adds, the adjacency's bytes (V in, R out).
+is summed in the order ``ref.similarity_ref`` fixes (chunks of
+``SIM_CHUNK`` columns, each chunk's partial in ascending k, mul then add,
+the partials added in ascending order), which the fused kernel also
+follows, and the adjacency is the fused kernel's epilogue, so given the
+same features the staged R is bitwise the fused R.  What bounds them on the
+card: the similarity's N(N+1)/2·d multiply-adds (the kernel computes the
+upper triangle and mirrors it; where its tiles are too few to fill the card
+it splits the chunks over blocks and adds their partials in order), the
+adjacency's bytes (V in, R out).
 
 lo/hi are reduced by the caller (``torch.min``/``torch.max``, as the JAX
 wrapper reduces them outside its kernel) and handed over as a (2,) device
@@ -19,13 +24,19 @@ tensors.
 """
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
-from repro_torch.kernels._build import F, I, P, Kernel, stream_of
+from repro_torch.kernels._build import (F, I, P, Kernel, library,
+                                        stream_of)
 # the plain similarity: V summed in the kernel's order
 from repro_torch.kernels.ref import similarity_ref as similarity_plain
 
-SIM_KERNEL = Kernel("pairwise_similarity", "similarity_launch", [P, I, I, P, P])
+SIM_KERNEL = Kernel("pairwise_similarity", "similarity_launch",
+                    [P, I, I, P, P, P])
+SERIAL_KERNEL = Kernel("pairwise_similarity", "similarity_serial_launch",
+                       [P, I, I, P, P])
 ADJ_KERNEL = Kernel("pairwise_similarity", "adjacency_launch",
                     [P, I, P, F, F, P, P])
 
@@ -41,8 +52,52 @@ def similarity_cuda(u: torch.Tensor) -> torch.Tensor:
     if n == 0:
         return v
     with torch.cuda.device(u.device):
-        SIM_KERNEL(u.data_ptr(), n, d, v.data_ptr(), stream_of(u))
+        # the split plan's partials (none when the plan does not split)
+        nbytes = _plan(n, d, u.device.index)[1]
+        scratch = torch.empty(nbytes, dtype=torch.uint8, device=u.device) \
+            if nbytes else None
+        SIM_KERNEL(u.data_ptr(), n, d, v.data_ptr(),
+                   None if scratch is None else scratch.data_ptr(),
+                   stream_of(u))
     return v
+
+
+def similarity_serial_cuda(u: torch.Tensor) -> torch.Tensor:
+    """V through the kernel's serial plan whatever the shape: bitwise
+    similarity_cuda's V.  It exists to time the plans against each other;
+    no path of the port calls it."""
+    if not u.is_cuda or u.dim() != 2:
+        raise ValueError(f"similarity_serial_cuda takes a 2-D CUDA tensor, "
+                         f"got {u.dim()}-D on {u.device}")
+    u = u.to(torch.float32).contiguous()
+    n, d = u.shape
+    v = torch.empty((n, n), dtype=torch.float32, device=u.device)
+    if n:
+        with torch.cuda.device(u.device):
+            SERIAL_KERNEL(u.data_ptr(), n, d, v.data_ptr(), stream_of(u))
+    return v
+
+
+def similarity_plan(n: int, d: int) -> str:
+    """The plan similarity_cuda takes for (n, d) on the current device."""
+    return _plan(n, d, torch.cuda.current_device())[0]
+
+
+_plans: dict[tuple, tuple[str, int]] = {}
+
+
+def _plan(n: int, d: int, device_index) -> tuple[str, int]:
+    """The kernel's plan for (n, d) on the current device (it depends on
+    the SM count) and its scratch bytes, asked once per shape and device."""
+    key = (n, d, device_index)
+    if key not in _plans:
+        lib = library("pairwise_similarity")
+        kind, nbytes = lib.similarity_plan_kind, lib.similarity_scratch_bytes
+        kind.argtypes, kind.restype = [I, I], ctypes.c_int
+        nbytes.argtypes, nbytes.restype = [I, I], ctypes.c_longlong
+        _plans[key] = (("serial", "split", "big")[kind(n, d)],
+                       int(nbytes(n, d)))
+    return _plans[key]
 
 
 def similarity(u: torch.Tensor) -> torch.Tensor:

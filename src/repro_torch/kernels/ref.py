@@ -14,6 +14,10 @@ import math
 
 import torch
 
+# columns of U per partial sum of the similarity; mirrors `KS` in
+# csrc/common.cuh (a test holds the two equal)
+SIM_CHUNK = 256
+
 
 def floyd_warshall_ref(h: torch.Tensor) -> torch.Tensor:
     """APSP min-plus closure. h (N, N) f32, inf = no edge, diag 0.
@@ -30,16 +34,24 @@ def floyd_warshall_ref(h: torch.Tensor) -> torch.Tensor:
 def similarity_ref(u: torch.Tensor) -> torch.Tensor:
     """Raw dot-product similarity V = U Uᵀ.  u (N, d) f32.
 
-    Summed in ascending k as ``acc = acc + u_ik·u_jk`` with a rounding after
-    the product and after the sum (no FMA): the op order of the fused CUDA
-    kernel, so the kernel's V (and so its min-max stats and R's inf pattern)
-    is bitwise this one's.  Against XLA's matmul the sums run in another
-    order: f32 round-off."""
+    The summation order every similarity kernel follows: the d columns of U
+    fall into chunks of ``SIM_CHUNK`` consecutive columns; each chunk's
+    partial P_c is summed in ascending k as ``p = p + u_ik·u_jk`` with a
+    rounding after the product and after the sum (no FMA), starting from 0;
+    V = Σ_c P_c adds the partials in ascending c into an accumulator that
+    starts from 0.  For d ≤ ``SIM_CHUNK`` that is one ascending-k sum.  The
+    CUDA kernels (the staged similarity's split over chunks and the fused
+    kernel's serial loop) sum in this order, so their V (and so the min-max
+    stats and R's inf pattern) is bitwise this one's.  Against XLA's matmul
+    the sums run in another order: f32 round-off."""
     u = u.to(torch.float32)
-    v = torch.zeros((u.shape[0], u.shape[0]), dtype=torch.float32,
-                    device=u.device)
-    for k in range(u.shape[1]):
-        v = v + u[:, k:k + 1] * u[:, k]
+    n, d = u.shape
+    v = torch.zeros((n, n), dtype=torch.float32, device=u.device)
+    for c0 in range(0, d, SIM_CHUNK):
+        p = torch.zeros_like(v)
+        for k in range(c0, min(d, c0 + SIM_CHUNK)):
+            p = p + u[:, k:k + 1] * u[:, k]
+        v = v + p
     return v
 
 

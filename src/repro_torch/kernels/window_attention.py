@@ -3,13 +3,16 @@
 Replaces ``repro/kernels/window_attention.py`` ``_wa_kernel`` /
 ``window_attention_pallas`` with ``csrc/window_attention.cu``: one block
 per (64-row query tile, query head, batch row) loops over 64-key tiles of
-the rows' span, with K and V staged in shared memory as f32 and each row's
-running max, denominator and accumulator in registers.  Scores,
-probabilities and the accumulator are f32; the output is cast once to the
-input dtype.  Query head h reads KV head h // (Hq / Hkv), the reference's
-``_repeat_kv`` without the copy.  Full causal attention is window = S.
-What bounds it on the card: 4·B·Hq·D·P operations over the P visible pairs
-per (b, h); this first version runs them on the CUDA cores.
+the rows' span, each row's running max, denominator and accumulator in
+registers.  Scores, probabilities and the accumulator are f32; the output
+is cast once to the input dtype.  Query head h reads KV head h // (Hq /
+Hkv), the reference's ``_repeat_kv`` without the copy.  Full causal
+attention is window = S.  What bounds it on the card: 4·B·Hq·D·P
+operations over the P visible pairs per (b, h).  bf16 with D <= 128 (the
+LM's prefill) runs them on the tensor cores (``mma.sync`` bf16 -> f32,
+K/V tiles in bf16 through a ``cp.async`` ring, P·V with p split into three
+bf16 terms so that it keeps f32's precision); f32, and bf16 with D > 128,
+on the CUDA cores.
 
 :func:`window_attention` launches the kernel for a CUDA tensor and takes the
 plain version only for a CPU tensor.
@@ -81,6 +84,11 @@ def window_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if d % 16 or not 16 <= d <= 256:
         raise ValueError(f"window_attention_cuda takes a head dim that is a "
                          f"multiple of 16 up to 256, got {d}")
+    if q.dtype == torch.bfloat16 and d <= 128 and \
+            any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError("window_attention_cuda takes bf16 q, k, v whose "
+                         "data start on a 16-byte boundary (the tensor-core "
+                         "body's 16-byte async copies)")
     o = torch.empty_like(q)
     if b == 0 or s == 0:
         return o

@@ -11,7 +11,9 @@ Contracts, kernel against plain version on the same device:
 * fused adjacency: lo/hi bitwise (V is summed in the same order), the same
   inf pattern, finite R within rtol 1e-4 (``expf`` in the kernel and
   ``torch.exp`` may differ in the last bits);
-* the staged similarity: V bitwise; the staged adjacency: as the fused;
+* the staged similarity: V bitwise in each of its plans (split over
+  chunks, serial, big tiles) and exactly symmetric; the staged adjacency:
+  as the fused;
   on the card the staged R is bitwise the fused R, and ``build_h``'s H
   bitwise cap(staged H) (both share the tile product and the epilogue);
 * the dense swap: (best, rank, j) bitwise; ``fedgs_solve`` on the card
@@ -28,7 +30,9 @@ Contracts, kernel against plain version on the same device:
   val_loss agrees within 1e-4;
 * window attention: f32 within 1e-5 absolute on N(0, 1) inputs; bf16
   within one bf16 ulp of the plain output (2⁻⁷·|o| + 1e-6): both keep
-  scores, probabilities and V in f32 and round the output once;
+  scores and V exact and round the output once; the tensor-core body
+  (bf16, D <= 128) carries p in three bf16 terms (about 24 bits), the
+  CUDA-core body in f32;
 * the LM: a smollm-135m prefill launches the attention kernel once per
   layer (30) and decode not at all; the reduced LM (f32) on the card
   agrees with the CPU (the plain version) within 1e-4.
@@ -55,6 +59,7 @@ from repro_torch.kernels import ops as tops
 from repro_torch.kernels import pairwise_similarity as tps
 from repro_torch.kernels import solver as tsolver
 from repro_torch.kernels import window_attention as twa
+from repro_torch.kernels.ref import SIM_CHUNK
 from repro_torch.models import lm as tlm
 
 pytestmark = pytest.mark.gpu
@@ -302,9 +307,13 @@ def test_robust_engine_on_card_equals_cpu(cuda, agg):
 
 # ------------------------------------------ staged 3DG route, dense swap
 # the quickstart's N at d = 610, larger N, and the vision shapes: the
-# oracle's (100, 10) label distributions and (100, 13946) CNN updates
+# oracle's (100, 10) label distributions and (100, 13946) CNN updates;
+# then the similarity's plans at their edges: split over chunks (a ragged
+# N at d = KS and KS + 1, one column), serial (N = 1000), big tiles
+# (N = 2900)
 STAGED_SHAPES = [(30, 610), (130, 610), (1024, 610), (100, 10),
-                 (100, 13946)]
+                 (100, 13946), (70, SIM_CHUNK), (70, SIM_CHUNK + 1), (33, 1),
+                 (1000, 520), (2900, 300)]
 
 
 @pytest.mark.parametrize("n,d", STAGED_SHAPES)
@@ -312,6 +321,7 @@ def test_staged_kernels_vs_plain(cuda, n, d):
     u = _features(np.random.default_rng(n + d), n, d).to(cuda)
     v_k = tps.similarity_cuda(u)
     assert torch.equal(v_k, tps.similarity_plain(u))
+    assert torch.equal(v_k, v_k.T)
     stats = torch.stack([v_k.min(), v_k.max()])
     r_k = tps.adjacency_cuda(v_k, stats, eps=0.1, sigma2=0.01).cpu().numpy()
     r_p = tps.adjacency_plain(v_k, stats, eps=0.1, sigma2=0.01).cpu().numpy()
@@ -321,7 +331,59 @@ def test_staged_kernels_vs_plain(cuda, n, d):
     np.testing.assert_allclose(r_k[fin], r_p[fin], rtol=1e-4, atol=TINY)
 
 
-@pytest.mark.parametrize("n,d", [(30, 610), (100, 10), (1024, 610)])
+@pytest.mark.parametrize("d", [520, 610, 611])
+def test_similarity_kernel_on_a_row_offset_view(cuda, d):
+    """U starting one row into its storage: its rows are 16-, 8- or only
+    4-byte aligned, and the kernel stages them with copies that wide."""
+    full = _features(np.random.default_rng(d), 101, d).to(cuda)
+    u = full[1:]
+    assert u.is_contiguous() and u.data_ptr() != full.data_ptr()
+    assert torch.equal(tps.similarity_cuda(u), tps.similarity_plain(u))
+
+
+@pytest.mark.parametrize("n,d", [(33, 1), (100, 13946), (2900, 300)])
+def test_similarity_serial_plan_is_bitwise_the_planned_one(cuda, n, d):
+    """The serial plan that chip_smoke.py times beside the planned one (the
+    split plan at N = 100, the big plan at N = 2900) gives the same V."""
+    u = _features(np.random.default_rng(n * d), n, d).to(cuda)
+    assert torch.equal(tps.similarity_serial_cuda(u), tps.similarity_cuda(u))
+
+
+def _chunked_order_pair(a: np.ndarray, b: np.ndarray) -> np.float32:
+    """One entry of V in the kernels' order, vectorised over the chunks:
+    each chunk's partial summed in ascending k from 0, then the partials
+    added in ascending order (numpy's float32 cumsum is sequential)."""
+    nch = -(-a.size // SIM_CHUNK)
+    prod = np.zeros(nch * SIM_CHUNK, np.float32)
+    prod[:a.size] = a * b
+    prod = prod.reshape(nch, SIM_CHUNK)
+    part = np.zeros(nch, np.float32)
+    for k in range(SIM_CHUNK):
+        part = part + prod[:, k]
+    return np.cumsum(part, dtype=np.float32)[-1]
+
+
+@pytest.mark.parametrize("n,d", [(500, 61517), (2, 65535 * SIM_CHUNK + 1)])
+def test_similarity_kernel_past_one_window_of_partials(cuda, n, d):
+    """The split plan's partials go in windows of at most 64 MiB (and at
+    most 65535 chunks, the grid's y limit): N = 500 spans three windows,
+    N = 2 at d past 65535 chunks four.  V stays bitwise the plain order."""
+    u_np = np.random.default_rng(d).standard_normal((n, d), dtype=np.float32)
+    v = tps.similarity_cuda(torch.as_tensor(u_np).to(cuda))
+    assert torch.equal(v, v.T)
+    if n > 2:
+        want = tps.similarity_plain(torch.as_tensor(u_np).to(cuda))
+        assert torch.equal(v, want)
+    else:
+        for i, j in ((0, 0), (0, 1), (1, 1)):
+            assert float(v[i, j]) == float(_chunked_order_pair(u_np[i],
+                                                               u_np[j]))
+
+
+# (100, 13946) spans 55 chunks: the fused kernel runs them in series, the
+# staged kernel splits them over blocks
+@pytest.mark.parametrize("n,d", [(30, 610), (100, 10), (1024, 610),
+                                 (100, 13946)])
 @pytest.mark.parametrize("sim", ["dot", "cosine", "functional"])
 def test_fused_and_staged_routes_bitwise_on_card(cuda, n, d, sim):
     u = _features(np.random.default_rng(n), n, d).to(cuda)
@@ -429,7 +491,11 @@ WA_SHAPES = [(8, 512, 9, 3, 64, torch.bfloat16, 512),
              (2, 65, 4, 4, 16, torch.float32, 1),
              (1, 130, 2, 2, 48, torch.bfloat16, 63),
              (1, 200, 6, 2, 256, torch.float32, 65),
-             (1, 300, 2, 1, 192, torch.bfloat16, 300)]
+             (1, 300, 2, 1, 192, torch.bfloat16, 300)] + [
+    # the tensor-core body (bf16, D <= 128) at S in {1, 65, 1000}, window
+    # in {1, 63, S}
+    (2, s, 4, 2, d, torch.bfloat16, w) for d in (16, 32, 64, 128)
+    for s in (1, 65, 1000) for w in (1, 63, s)]
 
 
 def _qkv(rng, b, s, hq, hkv, d, dtype, dev):
@@ -455,6 +521,19 @@ def test_window_attention_kernel_vs_plain(cuda, b, s, hq, hkv, d, dtype,
     else:
         assert bool(((got - want).abs() <=
                      2.0 ** -7 * want.abs() + 1e-6).all())
+
+
+def test_window_attention_tensor_cores_on_a_cancelling_row(cuda):
+    """The last row's output is the small difference of two large terms
+    (tests/test_torch_lm.py: two bf16 terms of p miss the gate there)."""
+    q, k, v = (torch.zeros(1, 3, 1, 16) for _ in range(3))
+    q[0, 2, 0, 0], q[0, 2, 0, 1] = 1.0, 2.0 ** -10
+    k[0, 2, 0, 0], k[0, 1, 0, 1] = 2.34375, 1.0625
+    v[0, 0], v[0, 1] = 100.0, -100.0
+    q, k, v = (t.to(torch.bfloat16).to(cuda) for t in (q, k, v))
+    got = twa.window_attention_cuda(q, k, v, window=3).float().cpu()
+    want = twa.window_attention_plain(q, k, v, window=3).float().cpu()
+    assert bool(((got - want).abs() <= 2.0 ** -7 * want.abs() + 1e-6).all())
 
 
 def test_window_attention_kernel_rejects(cuda):

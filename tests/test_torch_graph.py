@@ -20,6 +20,9 @@ Contracts:
   edges) by up to N·TINY.  At σ² = 0.01 cosine graphs live entirely in
   that range (max H ≈ 1e-33); the oracle dot graphs do not.
 """
+import re
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -43,7 +46,8 @@ from repro_torch.core import sspp as tsspp
 from repro_torch.data.synthetic import make_synthetic
 from repro_torch.kernels import graph_fused as tgf
 from repro_torch.kernels import ops as tops
-from repro_torch.kernels.ref import floyd_warshall_ref, similarity_ref
+from repro_torch.kernels.ref import (SIM_CHUNK, floyd_warshall_ref,
+                                    similarity_ref)
 
 R_RTOL = 1e-4
 TINY = float(np.finfo(np.float32).tiny)
@@ -158,6 +162,35 @@ def test_similarity_ref_vs_reference(rng, n, d):
     u = rng.normal(size=(n, d)).astype(np.float32)
     np.testing.assert_allclose(similarity_ref(_t(u)).numpy(), u @ u.T,
                                rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("d", [1, SIM_CHUNK - 1, SIM_CHUNK, SIM_CHUNK + 1,
+                               3 * SIM_CHUNK + 5])
+def test_similarity_ref_follows_the_chunked_order(rng, d):
+    """similarity_ref is bitwise an explicit float32 loop in the order the
+    kernels follow: per chunk of SIM_CHUNK columns a partial p = p + a·b
+    in ascending k from 0, the partials added in ascending order from 0;
+    for d <= SIM_CHUNK that is one ascending sum."""
+    u = rng.normal(size=(9, d)).astype(np.float32)
+    v = np.zeros((9, 9), np.float32)
+    for c0 in range(0, d, SIM_CHUNK):
+        p = np.zeros((9, 9), np.float32)
+        for k in range(c0, min(d, c0 + SIM_CHUNK)):
+            p = p + u[:, k:k + 1] * u[:, k]
+        v = v + p
+    got = similarity_ref(_t(u)).numpy()
+    assert np.array_equal(got, v)
+    if d <= SIM_CHUNK:
+        one = np.zeros((9, 9), np.float32)
+        for k in range(d):
+            one = one + u[:, k:k + 1] * u[:, k]
+        assert np.array_equal(got, one)
+
+
+def test_similarity_chunk_is_the_kernels():
+    """SIM_CHUNK mirrors the one constant the CUDA kernels sum by."""
+    src = (Path(tgf.__file__).parent / "csrc" / "common.cuh").read_text()
+    assert re.findall(r"constexpr int KS = (\d+);", src) == [str(SIM_CHUNK)]
 
 
 @pytest.mark.parametrize("n", [7, 100, 130])

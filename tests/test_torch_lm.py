@@ -25,7 +25,10 @@ Contracts:
   the port keeps the probabilities in f32 in prefill (the kernel's order)
   where the reference's ``attend_dense`` rounds them to bf16 first — the
   bound the JAX package allows for that same difference;
-* greedy serving with the reference's weights picks the reference's tokens.
+* greedy serving with the reference's weights picks the reference's tokens;
+* the tensor-core body's precision argument: p split into three bf16
+  terms keeps the output within one bf16 ulp of the f32-p plain version;
+  two terms miss it on a row whose output cancels.
 """
 import dataclasses
 import math
@@ -224,6 +227,58 @@ def test_window_attention_ref_matches_reference(dtype):
         # both round p to bf16 before the product: a one-ulp flip of p
         # moves the output by up to 2⁻⁸·|v|
         np.testing.assert_allclose(_np(got), _np(want), atol=3e-2, rtol=0)
+
+
+def _split_p(q, k, v, *, window: int, terms: int) -> torch.Tensor:
+    """The plain version with the tensor-core body's P·V: the unnormalized
+    p = exp(s − m) in f32 split into ``terms`` bf16 terms (bf16(p), then
+    bf16 of what is left, in turn), each multiplied with V and summed in
+    f32, divided by the f32 row sum at the end."""
+    b, s, hq, d = q.shape
+    rep = hq // k.shape[2]
+    qf = q.float().transpose(1, 2)
+    kf = k.float().repeat_interleave(rep, 2).transpose(1, 2)
+    vf = v.float().repeat_interleave(rep, 2).transpose(1, 2)
+    scores = (qf @ kf.transpose(-1, -2)) * (1.0 / math.sqrt(d))
+    pos = torch.arange(s)
+    mask = (pos[None, :] <= pos[:, None]) & (pos[None, :] > pos[:, None] - window)
+    scores = torch.where(mask, scores, -1e30)
+    p = torch.exp(scores - scores.amax(-1, keepdim=True))
+    acc, rest = torch.zeros_like(qf), p
+    for _ in range(terms):
+        part = rest.to(torch.bfloat16).float()
+        acc = acc + part @ vf
+        rest = rest - part
+    return (acc / p.sum(-1, keepdim=True)).transpose(1, 2).to(q.dtype)
+
+
+def _cancelling_qkv():
+    """bf16 (1, 3, 1, 16): the last row sees three keys, the largest score
+    with v = 0 and two scores 2⁻¹²·1.0625 apart with v = ±100, so its
+    output is the small difference of two large terms, and the bits of p
+    past the 16th show in it."""
+    q, k, v = (torch.zeros(1, 3, 1, 16) for _ in range(3))
+    q[0, 2, 0, 0], q[0, 2, 0, 1] = 1.0, 2.0 ** -10
+    k[0, 2, 0, 0], k[0, 1, 0, 1] = 2.34375, 1.0625
+    v[0, 0], v[0, 1] = 100.0, -100.0
+    return tuple(t.to(torch.bfloat16) for t in (q, k, v))
+
+
+# the tensor-core body's precision argument, on the CPU
+@pytest.mark.parametrize("b,s,hq,hkv,d,w", [(1, 130, 2, 2, 48, 63),
+                                            (2, 200, 4, 2, 32, 200)])
+def test_three_bf16_terms_of_p_stay_within_one_ulp(b, s, hq, hkv, d, w):
+    (_, q), (_, k), (_, v) = _qkv(s + d, b, s, hq, hkv, d, "bfloat16")
+    _assert_ulp(_split_p(q, k, v, window=w, terms=3),
+                twa.window_attention_plain(q, k, v, window=w))
+
+
+def test_two_bf16_terms_of_p_miss_the_ulp_gate_where_three_hold():
+    q, k, v = _cancelling_qkv()
+    want = twa.window_attention_plain(q, k, v, window=3)
+    _assert_ulp(_split_p(q, k, v, window=3, terms=3), want)
+    two, want = _np(_split_p(q, k, v, window=3, terms=2)), _np(want)
+    assert np.any(np.abs(two - want) > BF16_ULP * np.abs(want) + 1e-6)
 
 
 def test_window_attention_is_causal():
