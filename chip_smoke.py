@@ -26,11 +26,23 @@ Phases, each printing one JSON line (any failure exits non-zero):
               dense-Q swap at (m, N) = (ceil(0.1 N), N) and (10, 100); the
               graph routes: fused R == staged R and build_h's H ==
               cap(staged H), bitwise, at (30, 610) and (100, 10).
+     The launch floor: an empty one-warp kernel's device_ms, the floor of
+              every tiny kernel's row (a reading, not a gate).
+     The Q-free swap at its small path's threshold ± 1 entry (the path
+              each call took, and both paths timed), on an all-masked and
+              an all-equal panel and after CUDA-graph replays with new
+              inputs, bitwise; each swap row also gives its sector-aware
+              floor beside the bound.
      The robust server update's two kernels likewise: memagg at (N, P, m)
               in {(30, 610, 6), (1024, 610, 102), (2000, 300, 700),
               (4096, 2048, 410)}, krum at (m, P) in {(6, 610), (64, 512),
-              (128, 2048), (256, 4096), (512, 16384)} with the Krum
-              selection compared too.
+              (128, 2048), (256, 4096), (512, 16384)}, at its two plans'
+              crossover at P = 610 (the last m of the small plan, ± 1), at
+              (6, 31) and (1, 1), and at the small plan's longest rows, m =
+              8 at P = 8192 and 8193, with the Krum selection compared too,
+              the diagonal 0, bitwise call to call, and the plan each call
+              took beside the other plan's device time (that plan held to
+              the same checks).
   3. slice    the quickstart: Synthetic(0.5, 0.5), N = 30, logistic
               regression, LN(0.5) availability, 40 rounds of FedGS
               (alpha = 1, oracle 3DG built by the staged kernels) and of
@@ -68,7 +80,8 @@ Phases, each printing one JSON line (any failure exits non-zero):
               graph build (staged, through the engine; and fused, through
               build_h, with its H bitwise the engine's), per-round solve,
               training and aggregation times, and one profiled round's
-              device busy share.
+              device busy share, its top kernels and the port's own
+              kernels' device time (memsets too).
   7. serve    the LM serving path, smollm-135m at full width (30 layers,
               d 576, 9/3 heads of 64, vocab 49152, bf16, random weights
               from a seed): (a) the window attention kernel against its
@@ -122,6 +135,10 @@ ENGINE_RUNS = ((30, 0.2), (1024, 0.1))
 MEMAGG_SHAPES = ((30, 610, 6), (1024, 610, 102), (2000, 300, 700),
                  (4096, 2048, 410))
 KRUM_SHAPES = ((6, 610), (64, 512), (128, 2048), (256, 4096), (512, 16384))
+# krum at a P below 32 that is no multiple of 4 (one lane per column, 4-byte
+# loads), one row of one column, and the small plan's longest rows and one
+# column past them (csrc/krum.cu SMALL_MAX_P)
+KRUM_EDGE_SHAPES = ((6, 31), (1, 1), (8, 8192), (8, 8193))
 # the staged 3DG kernels' (N, d): the quickstart's local optima at every N,
 # then the vision oracle's label distributions and the CNN's flat updates
 STAGED_SHAPES = tuple((n, 610) for n in SIZES) + ((100, 10), (100, 13946))
@@ -176,6 +193,11 @@ LONG_S, LONG_WINDOW = 8192, 4096        # launch/specs.py's long variant
 # prefill against decode, and card against CPU, in bf16: the reference's
 # own bound (tests/test_arch_smoke.py)
 LM_ATOL, LM_RTOL = 5e-2, 2e-2
+
+# substrings of the port's kernel names (and of the memsets) in a profile
+PORT_KERNEL_KEYS = ("swap_best", "masked_argmax", "swap_gain", "memagg",
+                    "krum", "similarity", "adjacency", "stats_kernel",
+                    "fw_pivot", "emset")
 
 KERNEL_INFO = {
     "pairwise_similarity": (
@@ -407,6 +429,8 @@ def kernel_checks(np, torch, n: int, dev) -> dict:
                       10 * m * n)
         rows[f"swap_best_fused/m={m}"] = dict(
             max_abs_err=0.0, tolerance="bitwise (best, rank, j)", m=m,
+            plan=sv.swap_best_fused_plan(m, n),
+            sector_floor_ms=swap_sector_floor_ms(np, n, sel.cpu().numpy()),
             ms=cuda_ms(torch, lambda: sv.swap_best_fused_cuda(*kargs)),
             device_ms=device_ms(torch,
                                 lambda: sv.swap_best_fused_cuda(*kargs)),
@@ -414,6 +438,124 @@ def kernel_checks(np, torch, n: int, dev) -> dict:
             bound_ms=b, bound_by=by, library_ms=None,
             library="none: no single PyTorch call rebuilds Q and arg-maxes it")
     return rows
+
+
+def swap_sector_floor_ms(np, n: int, sel) -> float:
+    """The Q-free swap's least time when every byte of H it reads comes in
+    32-byte sectors: the distinct sectors of the rows H[sel, :] and of the
+    columns H[:, sel] (a sparse sel puts each column value in a sector of
+    its own), plus the bound's other bytes, over the HBM rate.  The bound
+    (8·m·N + 4·N + 17·m bytes) counts only the values."""
+    sel = np.unique(sel.astype(np.int64))
+    m = len(sel)
+    starts = sel * n * 4 // 32
+    ends = ((sel + 1) * n * 4 - 1) // 32
+    rows = np.concatenate([np.arange(a, e + 1) for a, e in zip(starts, ends)])
+    cols = ((np.arange(n)[:, None] * n + sel[None, :]) * 4 // 32).ravel()
+    sectors = len(np.union1d(rows, cols))
+    return (32 * sectors + 4 * n + 17 * m + 20) / PEAK_BYTES_PER_S * 1e3
+
+
+def swap_fused_edge_checks(np, torch, dev) -> dict:
+    """The Q-free swap at its small path's threshold ± 1 entry, each timed
+    on both paths, and on an all-masked panel (no column to swap in:
+    (-1e18, 0, 0)), an all-equal panel (the lowest flat index wins: rank 0,
+    column 0) and after a CUDA graph's replays with new inputs: bitwise
+    against its plain version everywhere.  Returns name -> row."""
+    from repro_torch.kernels import solver as sv
+
+    last = next(t for t in range(1, 1 << 16)
+                if sv.swap_best_fused_plan(1, t + 1) != "small")
+
+    def inputs(m, n, seed):
+        rng = np.random.default_rng(seed)
+        h = rng.random((n, n)).astype(np.float32)
+        h = torch.as_tensor(0.5 * (h + h.T), device=dev)
+        h[:, min(3, n - 1)] = float("nan")
+        z = torch.as_tensor(rng.normal(size=n), dtype=torch.float32,
+                            device=dev)
+        sel = torch.as_tensor(np.sort(rng.choice(n, m, replace=False)),
+                              device=dev)
+        r = torch.as_tensor(rng.normal(size=n), dtype=torch.float32,
+                            device=dev)
+        free = torch.as_tensor(rng.random(n) < 0.7, device=dev)
+        free[sel] = False
+        b = torch.where(free, 2.0 * r, torch.full_like(r, NEG))
+        return [h, z, float(np.float32(1.0) / np.float32(n)), sel,
+                torch.ones(m, dtype=torch.bool, device=dev), (-2.0 * r)[sel], b]
+
+    def same(args, **kw):
+        k = sv.swap_best_fused_cuda(*args, **kw)
+        p = sv.swap_best_fused_plain(*args)
+        if not all(torch.equal(x, y) for x, y in zip(k, p)):
+            raise AssertionError(f"swap_best_fused {kw}: {k} != {p}")
+        return k
+
+    rows = {}
+    # (m, N) with m·N = last − 1, last, last + 1
+    rows_at = next(d for d in (4, 3, 2, 1) if last % d == 0)
+    for m, n in ((1, last - 1), (rows_at, last // rows_at), (1, last + 1)):
+        args = inputs(m, n, m * n)
+        same(args)
+        row = dict(m=m, n=n, entries=m * n, plan=sv.swap_best_fused_plan(m, n),
+                   tolerance="bitwise (best, rank, j)",
+                   device_ms=device_ms(torch,
+                                       lambda: sv.swap_best_fused_cuda(*args)))
+        for path in sv.SWAP_FUSED_PLANS:
+            same(args, plan=path)
+            row[f"{path}_device_ms"] = device_ms(
+                torch, lambda: sv.swap_best_fused_cuda(*args, plan=path))
+        rows[f"swap_best_fused/m={m}/n={n}"] = row
+    # the quickstart's panel and the large one, on each path where it fits
+    for m, n in ((MAIN_M, MAIN_N), (410, 4096)):
+        masked = inputs(m, n, 7)
+        masked[6] = torch.full((n,), NEG, device=dev)
+        equal = inputs(m, n, 8)
+        equal[0] = torch.full((n, n), 0.25, device=dev)
+        equal[1] = torch.zeros(n, device=dev)
+        equal[5] = torch.full((m,), 1.5, device=dev)
+        equal[6] = torch.full((n,), -0.5, device=dev)
+        for path in sv.SWAP_FUSED_PLANS:
+            if path == "small" and m * n > last:
+                continue
+            k = same(masked, plan=path)
+            if (float(k[0]), int(k[1]), int(k[2])) != (float(np.float32(NEG)),
+                                                       0, 0):
+                raise AssertionError(f"swap_best_fused all-masked: {k}")
+            k = same(equal, plan=path)
+            if (int(k[1]), int(k[2])) != (0, 0):
+                raise AssertionError(f"swap_best_fused all-equal: {k}")
+        # captured once, replayed on new inputs copied into the same buffers
+        static = inputs(m, n, 9)
+        sv.swap_best_fused_cuda(*static)
+        torch.cuda.synchronize()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            out = sv.swap_best_fused_cuda(*static)
+        for seed in (10, 11, 12):
+            for dst, src in zip(static, inputs(m, n, seed)):
+                if isinstance(dst, torch.Tensor):
+                    dst.copy_(src)
+            graph.replay()
+            torch.cuda.synchronize()
+            want = sv.swap_best_fused_plain(*static)
+            if not all(torch.equal(x, y) for x, y in zip(out, want)):
+                raise AssertionError(f"swap_best_fused {m, n}: graph replay "
+                                     f"{out} != {want}")
+        rows[f"swap_best_fused/m={m}/n={n}/cases"] = dict(
+            all_masked=True, all_equal=True, graph_replays=3)
+    return rows
+
+
+def launch_floor_ms(torch) -> float:
+    """An empty one-warp kernel's device time, replayed from a CUDA graph
+    as device_ms replays every kernel: the floor of a tiny kernel's row."""
+    import ctypes
+
+    from repro_torch.kernels._build import library
+    fn = library("solver").empty_launch
+    fn.argtypes, fn.restype = [ctypes.c_void_p], ctypes.c_int
+    return device_ms(torch, lambda: fn(torch.cuda.current_stream().cuda_stream))
 
 
 def r_close(torch, got, want, *, atol: float) -> float:
@@ -576,9 +718,9 @@ def graph_route_checks(np, torch, dev) -> dict:
 
 
 def robust_kernel_checks(np, torch, dev) -> dict:
-    """memagg and krum against their plain versions at every listed shape.
-    Returns name/shape -> row."""
-    from repro_torch.fed.aggregator_device import krum_select
+    """memagg and krum against their plain versions at every listed shape,
+    krum also at its plans' crossover and at KRUM_EDGE_SHAPES.  Returns
+    name/shape -> row."""
     from repro_torch.kernels import aggregate as ag
     from repro_torch.kernels import krum as kr
 
@@ -632,39 +774,77 @@ def robust_kernel_checks(np, torch, dev) -> dict:
         x = torch.as_tensor(rng.normal(size=(m, p)).astype(np.float32),
                             device=dev)
         valid = torch.as_tensor(rng.random(m) < 0.95, device=dev)
-        dk = kr.krum_distances_cuda(x)
-        dp = kr.krum_pairwise_ref(x)
-        if not torch.equal(dk, dk.T):
-            raise AssertionError(f"krum {m, p}: panel not symmetric")
-        n2 = torch.sum(x.double() ** 2, dim=1)
-        scale = n2[:, None] + n2[None, :]
-        err = (dk.double() - dp.double()).abs()
-        # f32 round-off of two length-P sums in different orders
-        tol = 8.0 * math.sqrt(p) * 2.0 ** -24 * scale
-        if not bool((err <= tol).all()):
-            raise AssertionError(f"krum {m, p}: panel beyond its bound "
-                                 f"({float((err / tol).max())} of it)")
-        f = max(1, m // 5)
-        ck, _ = krum_select(x, valid, f, 3)
-        cp, _ = krum_select(x.cpu(), valid.cpu(), f, 3)
-        if not torch.equal(ck.cpu(), cp):
-            raise AssertionError(f"krum {m, p}: selection differs")
-        b, by = bound(4 * (m * p + m * m), m * (m + 1) * p)
-        rows[f"krum/m={m}/p={p}"] = dict(
-            m=m, p=p, max_abs_err=float(err.max()),
-            max_err_over_scale=float((err / scale).max()),
-            tolerance="|dD| <= 8 sqrt(P) 2^-24 (|x_i|^2 + |x_j|^2); "
-                      "exactly symmetric; selection bitwise",
-            selection_bitwise=True, chosen=int(ck.sum()),
-            ms=cuda_ms(torch, lambda: kr.krum_distances_cuda(x)),
-            device_ms=device_ms(torch, lambda: kr.krum_distances_cuda(x)),
-            plain_ms=cuda_ms(torch, lambda: kr.krum_pairwise_ref(x)),
-            bound_ms=b, bound_by=by,
-            library_ms=cuda_ms(torch, lambda: torch.cdist(x, x).square()),
-            library_device_ms=device_ms(
-                torch, lambda: torch.cdist(x, x).square()),
-            library="torch.cdist(x, x).square()")
+        rows[f"krum/m={m}/p={p}"] = krum_row(np, torch, x, valid)
+    # the plans' crossover at the main path's P (the last m the small plan
+    # takes, and one either side), and a P below 32 that is no multiple of 4
+    edge = next(m for m in range(1, 4096)
+                if kr.krum_plan(m + 1, KRUM_SHAPES[0][1]) != "small")
+    rng = np.random.default_rng(1)
+    for m, p in ((edge - 1, KRUM_SHAPES[0][1]), (edge, KRUM_SHAPES[0][1]),
+                 (edge + 1, KRUM_SHAPES[0][1])) + KRUM_EDGE_SHAPES:
+        x = torch.as_tensor(rng.normal(size=(m, p)).astype(np.float32),
+                            device=dev)
+        valid = torch.ones(m, dtype=torch.bool, device=dev)
+        rows[f"krum/m={m}/p={p}"] = krum_row(np, torch, x, valid)
     return rows
+
+
+def krum_row(np, torch, x, valid) -> dict:
+    """krum at one shape against its plain version, in the plan it takes
+    and in the other one: exactly symmetric, a zero diagonal, within its
+    bound, bitwise call to call; the selection card = CPU.  Timed in both
+    plans."""
+    from repro_torch.fed.aggregator_device import krum_select
+    from repro_torch.kernels import krum as kr
+
+    m, p = x.shape
+    dp = kr.krum_pairwise_ref(x)
+    n2 = torch.sum(x.double() ** 2, dim=1)
+    scale = n2[:, None] + n2[None, :]
+    # f32 round-off of two length-P sums in different orders
+    tol = 8.0 * math.sqrt(p) * 2.0 ** -24 * scale
+    plan = kr.krum_plan(m, p)
+    other = next(q for q in kr.PLANS if q != plan)
+    errs = {}
+    for forced in (None, other):
+        what = f"krum {m, p} ({forced or plan} plan)"
+        dk = kr.krum_distances_cuda(x, plan=forced)
+        if not torch.equal(dk, dk.T):
+            raise AssertionError(f"{what}: panel not symmetric")
+        if not torch.equal(torch.diagonal(dk), torch.zeros_like(dk[0])):
+            raise AssertionError(f"{what}: diagonal not 0")
+        if not torch.equal(kr.krum_distances_cuda(x, plan=forced), dk):
+            raise AssertionError(f"{what}: not bitwise call to call")
+        e = (dk.double() - dp.double()).abs()
+        if not bool((e <= tol).all()):
+            raise AssertionError(f"{what}: panel beyond its bound "
+                                 f"({float((e / tol).max())} of it)")
+        errs[forced] = e
+    err = errs[None]
+    f = max(1, m // 5)
+    ck, _ = krum_select(x, valid, f, 3)
+    cp, _ = krum_select(x.cpu(), valid.cpu(), f, 3)
+    if not torch.equal(ck.cpu(), cp):
+        raise AssertionError(f"krum {m, p}: selection differs")
+    b, by = bound(4 * (m * p + m * m), m * (m + 1) * p)
+    return dict(
+        m=m, p=p, plan=plan, max_abs_err=float(err.max()),
+        max_err_over_scale=float((err / scale).max()),
+        tolerance="|dD| <= 8 sqrt(P) 2^-24 (|x_i|^2 + |x_j|^2); "
+                  "exactly symmetric, zero diagonal, bitwise call to "
+                  "call; selection bitwise",
+        selection_bitwise=True, chosen=int(ck.sum()),
+        ms=cuda_ms(torch, lambda: kr.krum_distances_cuda(x)),
+        device_ms=device_ms(torch, lambda: kr.krum_distances_cuda(x)),
+        other_plan=other, other_plan_max_abs_err=float(errs[other].max()),
+        other_plan_device_ms=device_ms(
+            torch, lambda: kr.krum_distances_cuda(x, plan=other)),
+        plain_ms=cuda_ms(torch, lambda: kr.krum_pairwise_ref(x)),
+        bound_ms=b, bound_by=by,
+        library_ms=cuda_ms(torch, lambda: torch.cdist(x, x).square()),
+        library_device_ms=device_ms(
+            torch, lambda: torch.cdist(x, x).square()),
+        library="torch.cdist(x, x).square()")
 
 
 # --------------------------------------------------------- phases 3, 4, 5
@@ -1188,6 +1368,9 @@ def scale_run(np, torch, dev, *, n_clients: int, frac: float,
     dev_us = sum(e.self_device_time_total for e in on_dev)
     top = sorted(((e.key, e.self_device_time_total, e.count) for e in on_dev),
                  key=lambda x: -x[1])[:6]
+    # the port's own kernels in that round, and the memsets
+    port = {e.key[:60]: [e.self_device_time_total / 1e3, e.count]
+            for e in on_dev if any(t in e.key for t in PORT_KERNEL_KEYS)}
     return {"phase": "scale", "n": n_clients, "m": eng.m, "rounds": rounds,
             "aggregator": aggregator,
             "x_bytes": int(ds.x.nbytes), "data_gen_s": data_s,
@@ -1201,7 +1384,8 @@ def scale_run(np, torch, dev, *, n_clients: int, frac: float,
             "profiled_round_wall_ms": wall_ms,
             "profiled_round_device_ms": dev_us / 1e3 if dev_us else None,
             "device_busy_share": dev_us / 1e3 / wall_ms if dev_us else None,
-            "top_device_ms": [[k, t / 1e3, c] for k, t, c in top]}
+            "top_device_ms": [[k, t / 1e3, c] for k, t, c in top],
+            "port_device_ms": port}
 
 # ------------------------------------------------------------ phase 7
 def visible_pairs(s: int, window: int) -> int:
@@ -1537,6 +1721,11 @@ def main() -> int:
         rows = kernel_checks(np, torch, n, dev)
         per_n[n] = rows
         emit({"phase": "kernels", "n": n, "card": smi, "rows": rows})
+    emit({"phase": "kernels", "card": smi, "launch_floor": {
+        "kernel": "empty, one warp (csrc/solver.cu empty_launch)",
+        "device_ms": launch_floor_ms(torch)}})
+    emit({"phase": "kernels", "swap_best_fused_edges": True, "card": smi,
+          "rows": swap_fused_edge_checks(np, torch, dev)})
     staged_rows = {**staged_kernel_checks(np, torch, dev),
                    **swap_gain_checks(np, torch, dev)}
     emit({"phase": "kernels", "staged": True, "card": smi,
@@ -1596,7 +1785,8 @@ def main() -> int:
                         "device_ms": row["device_ms"],
                         "library_device_ms": row.get("library_device_ms"),
                         **{k: row[k] for k in ("n", "d", "m", "p", "shape",
-                                               "dtype", "window") if k in row},
+                                               "dtype", "window", "plan")
+                           if k in row},
                         **({} if "n" in row or "shape" in row
                            else {"n": MAIN_N}),
                         "parity": "pass"})

@@ -32,7 +32,8 @@
 //     one wrote, which is the running sum itself, so any d keeps the order.
 //   * serial: 32x32 tiles that fill the card alone; each block runs the
 //     chunks in series (acc = acc + partial), no scratch.
-//   In both, a block stages half a chunk of its rows at a time in shared
+//   In both, a block computes its tile through tile32.cuh (which Krum's
+//   split plan shares): it stages half a chunk of its rows at a time in shared
 //   memory with cp.async copies (16, 8 or 4 bytes, as U's row alignment
 //   allows), all in flight at once (128 threads, a 4x2 register tile per
 //   thread read as float4 over 4 columns; 33 KB, so 6 blocks share an SM
@@ -53,85 +54,20 @@
 #include <algorithm>
 
 #include "common.cuh"
+#include "tile32.cuh"
 
 namespace {
 
 using fedgs::KS;
+using namespace fedgs::tile32;
 
 // ------------------------------------------------- split / serial plans
-constexpr int ST = 32;               // output tile edge
-constexpr int S_THREADS = 128;       // 4 x 2 outputs each
-constexpr int SK = 128;              // columns staged at a time (half a chunk)
-constexpr int SROW = SK + 4;         // shared row stride in floats: rows 16-byte
-                                     // aligned, float4 reads conflict-free
-constexpr size_t S_SMEM = 2 * ST * SROW * sizeof(float);   // 33 KB: 6 blocks/SM
+// (the tile, its staging and its chunk sums: tile32.cuh)
 constexpr int R_ROWS = 8;            // tile rows per block of the ordered sum
 constexpr int RB = 32;               // partials in flight per thread there
 constexpr size_t SCRATCH_MAX = 64u << 20;   // bytes of one window's partials
-static_assert(KS % SK == 0, "a chunk of KS columns is whole stages of SK");
 
-// (ti, tj), ti <= tj, of upper-triangle tile t of an nt x nt tile grid,
-// row by row
-__device__ __forceinline__ void upper_tile(int t, int nt, int& ti, int& tj) {
-    ti = 0;
-    while (t >= nt - ti) { t -= nt - ti; ++ti; }
-    tj = ti + t;
-}
-
-__device__ __forceinline__ float madd4(float p, float4 a, float4 b) {
-    p = __fadd_rn(p, __fmul_rn(a.x, b.x));
-    p = __fadd_rn(p, __fmul_rn(a.y, b.y));
-    p = __fadd_rn(p, __fmul_rn(a.z, b.z));
-    return __fadd_rn(p, __fmul_rn(a.w, b.w));
-}
-
-// rows r0 .. r0 + ST - 1 of U, columns [k0, k0 + kc), into dst (ST, SROW),
-// zero past n and from kc up to kc4 = kc rounded up to 4, in async copies
-// of EL floats (4, 2 or 1: as wide as the alignment of U's rows allows; d
-// is any width), all in flight at once; the caller waits
-// (cp.async.wait_all) and syncs.
-template <int EL>
-__device__ __forceinline__ void stage_rows(const float* __restrict__ u, int n,
-                                           int d, int r0, int k0, int kc,
-                                           int kc4, float* dst) {
-    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-    for (int r = warp; r < ST; r += S_THREADS / 32) {
-        const bool rin = r0 + r < n;
-        const float* src = u + (size_t)(rin ? r0 + r : 0) * d + k0;
-        const uint32_t row = static_cast<uint32_t>(
-            __cvta_generic_to_shared(dst + r * SROW));
-        for (int k = lane * EL; k < kc4; k += 32 * EL) {
-            const int valid = rin ? max(0, min(EL, kc - k)) : 0;
-            asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n"
-                         :: "r"(row + 4 * k), "l"(src + (valid ? k : 0)),
-                            "n"(4 * EL), "r"(4 * valid));
-        }
-    }
-}
-
-// both operands' rows of one stage, with the copy width el (uniform)
-__device__ __forceinline__ void stage_tile(const float* __restrict__ u, int n,
-                                           int d, int el, int i0, int j0,
-                                           bool diag, int k0, int kc,
-                                           int kc4, float* as, float* bs) {
-    if (el == 4) {
-        stage_rows<4>(u, n, d, i0, k0, kc, kc4, as);
-        if (!diag) stage_rows<4>(u, n, d, j0, k0, kc, kc4, bs);
-    } else if (el == 2) {
-        stage_rows<2>(u, n, d, i0, k0, kc, kc4, as);
-        if (!diag) stage_rows<2>(u, n, d, j0, k0, kc, kc4, bs);
-    } else {
-        stage_rows<1>(u, n, d, i0, k0, kc, kc4, as);
-        if (!diag) stage_rows<1>(u, n, d, j0, k0, kc, kc4, bs);
-    }
-}
-
-// Thread (tx, ty) = (tid / 8, tid % 8) holds rows ty + 8*a (a < 4) and
-// columns tx + 16*b (b < 2) of a 32 x 32 tile.  A quarter warp reads 8
-// consecutive rows of one operand (distinct banks) and one row of the
-// other (a broadcast); warp w holds columns 4w .. 4w + 3 and 16 + 4w ..,
-// so a warp whose columns all lie past N (the ragged last tile column)
-// skips the products.
+// One 32 x 32 upper-triangle tile per block (tile32_chunks).
 // part null, serial plan: grid (upper tiles, 1); each block runs the chunks
 //   in series and writes V_ij and, through a transpose in shared memory,
 //   V_ji;
@@ -143,55 +79,15 @@ similarity_tile32_kernel(const float* __restrict__ u, int n, int d, int el,
                          int nt, int nchunks, int c0,
                          float* __restrict__ part, float* __restrict__ v) {
     extern __shared__ __align__(16) float smem[];
-    float* as = smem;
-    float* bs = smem + ST * SROW;
     int ti, tj;
     upper_tile(blockIdx.x, nt, ti, tj);
     const int i0 = ti * ST, j0 = tj * ST;
     const bool diag = ti == tj, split = part != nullptr;
-    const float* bsrc = diag ? as : bs;
     const int tid = threadIdx.x, tx = tid >> 3, ty = tid & 7;
-    const bool live = j0 + 4 * (tid >> 5) < n;    // warp-uniform
-    float acc[4][2];
-#pragma unroll
-    for (int a = 0; a < 4; ++a)
-#pragma unroll
-        for (int b = 0; b < 2; ++b) acc[a][b] = 0.0f;
     const int c_lo = split ? c0 + blockIdx.y : 0;
     const int c_hi = split ? c_lo + 1 : nchunks;
-    for (int c = c_lo; c < c_hi; ++c) {
-        float p[4][2];
-#pragma unroll
-        for (int a = 0; a < 4; ++a)
-#pragma unroll
-            for (int b = 0; b < 2; ++b) p[a][b] = 0.0f;
-        for (int k0 = c * KS; k0 < min(d, (c + 1) * KS); k0 += SK) {
-            const int kc = min(SK, d - k0), kc4 = (kc + 3) & ~3;
-            __syncthreads();                 // the previous stage is consumed
-            stage_tile(u, n, d, el, i0, j0, diag, k0, kc, kc4, as, bs);
-            asm volatile("cp.async.wait_all;\n");
-            __syncthreads();
-            if (!live) continue;
-#pragma unroll 2
-            for (int k = 0; k < kc4; k += 4) {
-                float4 av[4], bv[2];
-#pragma unroll
-                for (int a = 0; a < 4; ++a)
-                    av[a] = *reinterpret_cast<const float4*>(as + (ty + 8 * a) * SROW + k);
-#pragma unroll
-                for (int b = 0; b < 2; ++b)
-                    bv[b] = *reinterpret_cast<const float4*>(bsrc + (tx + 16 * b) * SROW + k);
-#pragma unroll
-                for (int a = 0; a < 4; ++a)
-#pragma unroll
-                    for (int b = 0; b < 2; ++b) p[a][b] = madd4(p[a][b], av[a], bv[b]);
-            }
-        }
-#pragma unroll
-        for (int a = 0; a < 4; ++a)
-#pragma unroll
-            for (int b = 0; b < 2; ++b) acc[a][b] = __fadd_rn(acc[a][b], p[a][b]);
-    }
+    float acc[4][2];
+    tile32_chunks(u, n, d, el, i0, j0, diag, c_lo, c_hi, smem, acc);
     if (split) {                             // acc is 0 + P_c = P_c
         float* mine = part + ((size_t)blockIdx.x * gridDim.y + blockIdx.y) * (ST * ST);
 #pragma unroll
@@ -448,10 +344,7 @@ int launch(const Plan& p, const float* u, int n, int d, float* v,
         similarity_tile32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(S_SMEM));
     if (err != cudaSuccess) return static_cast<int>(err);
-    // the widest async copy U's row starts allow: 16 bytes, 8 or 4
-    const uintptr_t base = reinterpret_cast<uintptr_t>(u);
-    const int el = (d % 4 == 0 && base % 16 == 0) ? 4
-                 : (d % 2 == 0 && base % 8 == 0) ? 2 : 1;
+    const int el = copy_width(u, d);
     if (p.window == 0) {
         similarity_tile32_kernel<<<p.tiles, S_THREADS, S_SMEM, s>>>(
             u, n, d, el, p.nt, p.nchunks, 0, nullptr, v);

@@ -13,13 +13,28 @@
 // greedy step, an m x N panel for the swap), so at the main path's sizes
 // they are bound by launch latency, and at large N by reading the H row
 // and column panels (bytes).  The greedy step is one block with no padding
-// of N.  The swap reads H[sel_r, j] and H[j, sel_r] straight from H (no
-// gathered panels; H need not be symmetric) and finishes in the last block
-// to arrive, so a call is one memset and one launch.  The dense swap
-// (`fedgs_solve`'s route, Q given) reads the selected rows Q[sel_s, :] in
-// place instead of a gathered (m, N) panel; it needs no padding, and its
-// keys carry the global flat index s·N + j, so the lowest one wins ties as
-// in the JAX wrapper (which pads Q with 0 and a, b with -1e18).
+// of N.  The Q-free swap reads H[sel_s, j] and H[j, sel_s] straight from H
+// (no gathered panels; H need not be symmetric), on one of two paths
+// (swap_best_plan_kind):
+//   * small (m·N <= 2,048 entries: the quickstart's 6 x 30, N = 130's
+//     13 x 130): one block folds every key and thread 0 writes the result,
+//     as the greedy step does: one launch, no scratch, no atomics;
+//   * tiled: one block per 32 x 64 tile of the panel.  The column term
+//     H[j, sel_s] is read with the lanes along s (sel ascending, so a
+//     warp's loads lie in one row of H and share sectors where the
+//     selected rows are closer than 8) into shared memory; the row term
+//     H[sel_s, j] with the lanes along j.  Each block folds its best key
+//     into a 16-byte (key, arrival count) state that the caller keeps for
+//     its stream (one per stream, and one per CUDA-graph capture, zeroed
+//     once when made: kernels/solver.py); the last block to arrive reads
+//     the key, writes the result and zeroes the state again, so the next
+//     call on the stream, or the graph's next replay, finds it zero with no
+//     memset, and calls on other streams never share it.
+// The dense swap (`fedgs_solve`'s route, Q given) reads the selected rows
+// Q[sel_s, :] in place instead of a gathered (m, N) panel; it needs no
+// padding, and its keys carry the global flat index s·N + j, so the lowest
+// one wins ties as in the JAX wrapper (which pads Q with 0 and a, b with
+// -1e18).  It still zeroes its scratch with a memset before each launch.
 //
 // Numerics: Q = 0.5·((a·H_sj − δz) + (a·H_js − δz)) and delta =
 // (a_s + b_j) − 2Q are written with __fmul_rn / __fadd_rn / __fsub_rn so
@@ -73,32 +88,162 @@ __device__ __forceinline__ void finish_best(uint64_t best, int n,
     }
 }
 
-__global__ void swap_best_kernel(const float* __restrict__ h,
-                                 const float* __restrict__ z, float scale,
-                                 const int64_t* __restrict__ sel,
-                                 const uint8_t* __restrict__ valid,
-                                 const float* __restrict__ a,
-                                 const float* __restrict__ b, int m, int n,
-                                 unsigned long long* __restrict__ scratch,
-                                 float* __restrict__ out_val,
-                                 int64_t* __restrict__ out_rank,
-                                 int64_t* __restrict__ out_j) {
+// The small path serves panels of up to kSwapSmall entries: on an H100 it
+// beats the tiled path's ~3.9 µs up to 2,000–3,000 entries, as the column
+// reads of one SM pile up (chip_smoke.py's swap_best_fused rows time both).
+// Forced, it takes at most kSmallMost (E <= 4).
+constexpr long long kSwapSmall = 2048;
+constexpr int kSmallMost = 4096;
+
+// delta of one Q-free panel entry from its H terms (the plain version's
+// op order), NaN -> NEG, packed with its flat index f = s·n + j
+__device__ __forceinline__ uint64_t swap_fused_key(float scale, float hrow,
+                                                  float hcol, float zc,
+                                                  float as, float bj,
+                                                  uint32_t f) {
+    const float t1 = __fsub_rn(__fmul_rn(scale, hrow), zc);
+    const float t2 = __fsub_rn(__fmul_rn(scale, hcol), zc);
+    const float q = __fmul_rn(0.5f, __fadd_rn(t1, t2));
+    float delta = __fsub_rn(__fadd_rn(as, bj), __fmul_rn(2.0f, q));
+    if (isnan(delta)) delta = NEG;
+    return fedgs::pack(delta, f);
+}
+
+__device__ __forceinline__ void write_best(uint64_t key, int n,
+                                           float* out_val, int64_t* out_rank,
+                                           int64_t* out_j) {
+    const uint32_t flat = fedgs::unpack_idx(key);
+    *out_val = fedgs::unpack_val(key);
+    *out_rank = static_cast<int64_t>(flat / n);
+    *out_j = static_cast<int64_t>(flat % n);
+}
+
+// Small path: the whole m x n panel in one block of up to 1024 threads;
+// thread slot t = threadIdx.x + e·blockDim.x (e < E) takes panel row s = t
+// mod m and column j = t / m, so a warp's column reads H[j, sel_s] fall in
+// a few rows of H (fewer cache lines than with the lanes along j).  Each
+// round of loads (the row's sel, a, b; then its two H terms) is issued for
+// all E entries before any is used, at a clamped in-range index, so a
+// thread waits for two rounds of loads whatever E.  One SM issues every
+// load, so the panel's scattered column reads set its time as it grows.
+template <int E>
+__global__ void __launch_bounds__(1024)
+swap_best_small_kernel(const float* __restrict__ h, const float* __restrict__ z,
+                       float scale, const int64_t* __restrict__ sel,
+                       const uint8_t* __restrict__ valid,
+                       const float* __restrict__ a, const float* __restrict__ b,
+                       int m, int n, float* __restrict__ out_val,
+                       int64_t* __restrict__ out_rank,
+                       int64_t* __restrict__ out_j) {
     const uint32_t total = static_cast<uint32_t>(m) * static_cast<uint32_t>(n);
+    uint32_t f[E], jj[E];
+    int64_t row[E];
+    bool vld[E];
+    float as[E], bj[E], hr[E], hc[E];
+#pragma unroll
+    for (int e = 0; e < E; ++e) {
+        const uint32_t t = threadIdx.x + e * blockDim.x;
+        const uint32_t tc = t < total ? t : 0u, s = tc % m;
+        jj[e] = tc / m;
+        f[e] = t < total ? s * n + jj[e] : total;
+        row[e] = sel[s];
+        vld[e] = valid[s];
+        as[e] = a[s];
+        bj[e] = b[jj[e]];
+    }
+#pragma unroll
+    for (int e = 0; e < E; ++e) {
+        hr[e] = h[row[e] * n + jj[e]];
+        hc[e] = h[(int64_t)jj[e] * n + row[e]];
+    }
     uint64_t best = 0ull;
-    for (uint32_t f = blockIdx.x * blockDim.x + threadIdx.x; f < total;
-         f += gridDim.x * blockDim.x) {
-        const uint32_t s = f / n, j = f % n;
-        const int64_t row = sel[s];
-        const float zc = (valid[s] && row == j) ? z[row] : 0.0f;
-        const float t1 = __fsub_rn(__fmul_rn(scale, h[row * n + j]), zc);
-        const float t2 = __fsub_rn(__fmul_rn(scale, h[(int64_t)j * n + row]), zc);
-        const float q = __fmul_rn(0.5f, __fadd_rn(t1, t2));
-        float delta = __fsub_rn(__fadd_rn(a[s], b[j]), __fmul_rn(2.0f, q));
-        if (isnan(delta)) delta = NEG;
-        const uint64_t key = fedgs::pack(delta, f);
+#pragma unroll
+    for (int e = 0; e < E; ++e) {
+        if (f[e] >= total) continue;
+        const float zc = (vld[e] && row[e] == jj[e]) ? z[row[e]] : 0.0f;
+        const uint64_t key = swap_fused_key(scale, hr[e], hc[e], zc, as[e],
+                                            bj[e], f[e]);
         best = key > best ? key : best;
     }
-    finish_best(best, n, scratch, out_val, out_rank, out_j);
+    best = fedgs::block_max_u64(best);
+    if (threadIdx.x == 0) write_best(best, n, out_val, out_rank, out_j);
+}
+
+constexpr int kTileS = 32;            // panel rows per tile (the lanes)
+constexpr int kTileJ = 64;            // panel columns per tile
+constexpr int kTileThreads = 256;
+
+// Tiled path: grid (ceil(n / kTileJ), ceil(m / kTileS)), one block per
+// tile.  Warp w reads the column terms of columns w, w + 8, .. with lane =
+// panel row; then thread t takes column t % 64 and rows t / 64, + 4, ..;
+// each thread issues all its loads of a phase before it uses one.  state:
+// [0] = uint64 best key, [1] (low half) = uint32 arrival count, zero on
+// entry and zeroed again by the last block.
+__global__ void __launch_bounds__(kTileThreads)
+swap_best_tiled_kernel(const float* __restrict__ h, const float* __restrict__ z,
+                       float scale, const int64_t* __restrict__ sel,
+                       const uint8_t* __restrict__ valid,
+                       const float* __restrict__ a, const float* __restrict__ b,
+                       int m, int n, unsigned long long* __restrict__ state,
+                       float* __restrict__ out_val,
+                       int64_t* __restrict__ out_rank,
+                       int64_t* __restrict__ out_j) {
+    __shared__ float col[kTileJ][kTileS + 1];    // H[j0 + jj, sel[s0 + ss]]
+    __shared__ int64_t rows[kTileS];
+    __shared__ float zs[kTileS], as_[kTileS];
+    __shared__ bool vs[kTileS];
+    const int s0 = blockIdx.y * kTileS, j0 = blockIdx.x * kTileJ;
+    const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+    const bool s_in = s0 + lane < m;
+    const int64_t r = s_in ? sel[s0 + lane] : 0;
+    if (warp == 0) {
+        rows[lane] = r;
+        vs[lane] = s_in && valid[s0 + lane];
+        zs[lane] = vs[lane] ? z[r] : 0.0f;
+        as_[lane] = s_in ? a[s0 + lane] : 0.0f;
+    }
+    constexpr int kWarps = kTileThreads / 32, kCols = kTileJ / kWarps;
+    float cv[kCols];                         // all in flight, then stored
+#pragma unroll
+    for (int q = 0; q < kCols; ++q) {
+        const int jj = warp + kWarps * q;
+        cv[q] = (s_in && j0 + jj < n) ? h[(int64_t)(j0 + jj) * n + r] : 0.0f;
+    }
+#pragma unroll
+    for (int q = 0; q < kCols; ++q) col[warp + kWarps * q][lane] = cv[q];
+    __syncthreads();
+    constexpr int kGroups = kTileThreads / kTileJ, kRows = kTileS / kGroups;
+    const int jj = tid % kTileJ, j = j0 + jj, g = tid / kTileJ;
+    const bool j_in = j < n;
+    const float bj = j_in ? b[j] : 0.0f;
+    float hr[kRows];                         // all in flight, then used
+#pragma unroll
+    for (int q = 0; q < kRows; ++q) {
+        const int ss = g + kGroups * q;
+        hr[q] = (j_in && s0 + ss < m) ? h[rows[ss] * n + j] : 0.0f;
+    }
+    uint64_t best = 0ull;
+#pragma unroll
+    for (int q = 0; q < kRows; ++q) {
+        const int ss = g + kGroups * q, s = s0 + ss;
+        if (!j_in || s >= m) continue;
+        const float zc = (vs[ss] && rows[ss] == j) ? zs[ss] : 0.0f;
+        const uint64_t key = swap_fused_key(
+            scale, hr[q], col[jj][ss], zc, as_[ss], bj,
+            static_cast<uint32_t>(s) * static_cast<uint32_t>(n) + j);
+        best = key > best ? key : best;
+    }
+    best = fedgs::block_max_u64(best);
+    if (threadIdx.x == 0) {
+        unsigned int* arrived = reinterpret_cast<unsigned int*>(&state[1]);
+        atomicMax(&state[0], static_cast<unsigned long long>(best));
+        __threadfence();
+        if (atomicAdd(arrived, 1u) == gridDim.x * gridDim.y - 1) {
+            write_best(atomicExch(&state[0], 0ull), n, out_val, out_rank,
+                       out_j);
+            atomicExch(arrived, 0u);
+        }
+    }
 }
 
 __global__ void swap_gain_kernel(const float* __restrict__ q,
@@ -123,6 +268,8 @@ __global__ void swap_gain_kernel(const float* __restrict__ q,
     finish_best(best, n, scratch, out_val, out_rank, out_j);
 }
 
+__global__ void empty_kernel() {}
+
 constexpr int kSwapThreads = 256;
 
 // Grid of a swap reduction over an m x n panel: one thread per entry, at
@@ -146,19 +293,60 @@ extern "C" int masked_argmax_launch(const float* diag, const float* r,
     return static_cast<int>(cudaGetLastError());
 }
 
+// The path swap_best_launch takes for an m x n panel: 0 small, 1 tiled.
+extern "C" int swap_best_plan_kind(int m, int n) {
+    return static_cast<long long>(m) * n <= kSwapSmall ? 0 : 1;
+}
+
+namespace {
+
+template <int E>
+void launch_small(int threads, cudaStream_t s, const float* h, const float* z,
+                  float scale, const int64_t* sel, const uint8_t* valid,
+                  const float* a, const float* b, int m, int n,
+                  float* out_val, int64_t* out_rank, int64_t* out_j) {
+    swap_best_small_kernel<E><<<1, threads, 0, s>>>(
+        h, z, scale, sel, valid, a, b, m, n, out_val, out_rank, out_j);
+}
+
+}  // namespace
+
 // h (n, n), z (n,) f32; sel (m,) int64 row indices in range; valid (m,)
 // bool; a (m,), b (n,) f32 with the -1e18 sentinel on invalid entries;
-// scratch 2 x uint64; outputs () f32, () int64, () int64.  m·n < 2^32.
+// outputs () f32, () int64, () int64; kind: 0 small or 1 tiled
+// (swap_best_plan_kind's path, or the other one to time the two; the small
+// one takes at most 4,096 entries); state: the tiled path's 2 x uint64,
+// zero, used on `stream` alone (null for the small path).  0 < m·n < 2^31.
 extern "C" int swap_best_launch(const float* h, const float* z, float scale,
                                 const int64_t* sel, const uint8_t* valid,
                                 const float* a, const float* b, int m, int n,
-                                unsigned long long* scratch, float* out_val,
-                                int64_t* out_rank, int64_t* out_j,
-                                void* stream) {
+                                int kind, unsigned long long* state,
+                                float* out_val, int64_t* out_rank,
+                                int64_t* out_j, void* stream) {
     cudaStream_t s = static_cast<cudaStream_t>(stream);
-    cudaMemsetAsync(scratch, 0, 2 * sizeof(unsigned long long), s);
-    swap_best_kernel<<<swap_blocks(m, n), kSwapThreads, 0, s>>>(
-        h, z, scale, sel, valid, a, b, m, n, scratch, out_val, out_rank, out_j);
+    if (kind == 0) {
+        // one block of up to 1024 threads, E entries per thread
+        if (static_cast<long long>(m) * n > kSmallMost)
+            return static_cast<int>(cudaErrorInvalidValue);
+        const int total = m * n;
+        const int threads = total < 1024 ? (total + 31) / 32 * 32 : 1024;
+        const int e = (total + threads - 1) / threads;
+        if (e <= 1)
+            launch_small<1>(threads, s, h, z, scale, sel, valid, a, b, m, n,
+                            out_val, out_rank, out_j);
+        else if (e <= 2)
+            launch_small<2>(threads, s, h, z, scale, sel, valid, a, b, m, n,
+                            out_val, out_rank, out_j);
+        else
+            launch_small<4>(threads, s, h, z, scale, sel, valid, a, b, m, n,
+                            out_val, out_rank, out_j);
+    } else {
+        if (state == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+        const dim3 grid((n + kTileJ - 1) / kTileJ, (m + kTileS - 1) / kTileS);
+        swap_best_tiled_kernel<<<grid, kTileThreads, 0, s>>>(
+            h, z, scale, sel, valid, a, b, m, n, state, out_val, out_rank,
+            out_j);
+    }
     return static_cast<int>(cudaGetLastError());
 }
 
@@ -174,5 +362,23 @@ extern "C" int swap_gain_launch(const float* q, const int64_t* sel,
     cudaMemsetAsync(scratch, 0, 2 * sizeof(unsigned long long), s);
     swap_gain_kernel<<<swap_blocks(m, n), kSwapThreads, 0, s>>>(
         q, sel, a, b, m, n, scratch, out_val, out_rank, out_j);
+    return static_cast<int>(cudaGetLastError());
+}
+
+// The id of the CUDA-graph capture under way on `stream`, or 0 when none is.
+extern "C" unsigned long long stream_capture_id(void* stream) {
+    cudaStreamCaptureStatus status = cudaStreamCaptureStatusNone;
+    unsigned long long id = 0;
+    if (cudaStreamGetCaptureInfo(static_cast<cudaStream_t>(stream), &status,
+                                 &id) != cudaSuccess ||
+        status != cudaStreamCaptureStatusActive)
+        return 0;
+    return id;
+}
+
+// An empty one-warp launch: replayed from a CUDA graph, its time is the
+// floor that every tiny kernel of the port is held against.
+extern "C" int empty_launch(void* stream) {
+    empty_kernel<<<1, 32, 0, static_cast<cudaStream_t>(stream)>>>();
     return static_cast<int>(cudaGetLastError());
 }

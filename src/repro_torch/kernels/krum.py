@@ -2,26 +2,39 @@
 D[i, j] = ‖x_i‖² + ‖x_j‖² − 2 x_i·x_j over the (m, P) flat update matrix.
 
 Replaces ``repro/kernels/krum.py`` ``_krum_kernel`` / ``krum_pallas`` with
-``csrc/krum.cu``: a row-norm launch, then a tiled Gram kernel that stages
-x in shared memory and accumulates over P in IEEE f32 (CUDA cores, never
-TF32), with the epilogue ``(n_i + n_j) − 2g`` in the plain version's op
-order.  Only the upper tiles run and each writes its mirror, so D is
-exactly symmetric.  The panel agrees with the plain version to f32
-round-off (the sums over P run in another order); what Krum decides from
-it, the chosen rows, is held bitwise.  What bounds it on the card is the
-m·(m+1)·P operations of the symmetric Gram; at the main path's m = 6,
-launch latency.
+``csrc/krum.cu``, in IEEE f32 on the CUDA cores (never TF32), with the
+epilogue ``(n_i + n_j) − 2g`` in the plain version's op order and no float
+atomics, so a call repeats bit for bit.  Two plans, chosen in C from (m, P)
+(:func:`krum_plan`):
+
+* ``small`` (the main path's (6, 610), up to m = 210 there, and few pairs of
+  rows up to P = 8,192): one launch and no scratch, one warp per upper pair
+  i ≤ j folding x_i·x_i, x_j·x_j and x_i·x_j in one pass;
+* ``split``: the Gram by the similarity's 32×32 tiles (``csrc/tile32.cuh``,
+  here by FMA) with P split over blocks until the card fills, the partials
+  in scratch, then a second launch that adds them in ascending order and
+  applies the epilogue with n_i taken from the same sum of the Gram's
+  diagonal.
+
+Either way D is exactly symmetric with a zero diagonal, and agrees with the
+plain version to f32 round-off (the sums over P run in another order); what
+Krum decides from it, the chosen rows, is held bitwise.  What bounds it on
+the card is the m·(m+1)·P operations of the symmetric Gram; at the main
+path's m = 6, one launch.
 
 :func:`krum_distances` launches the kernel for a CUDA tensor and takes the
 plain version only for a CPU tensor.
 """
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
-from repro_torch.kernels._build import I, P, Kernel, stream_of
+from repro_torch.kernels._build import I, P, Kernel, library, stream_of
 
-KERNEL = Kernel("krum", "krum_distances_launch", [P, I, I, P, P, P])
+KERNEL = Kernel("krum", "krum_distances_launch", [P, I, I, I, P, P, P])
+PLANS = ("small", "split")
 
 
 def krum_pairwise_ref(x: torch.Tensor) -> torch.Tensor:
@@ -32,8 +45,11 @@ def krum_pairwise_ref(x: torch.Tensor) -> torch.Tensor:
     return n2[:, None] + n2[None, :] - 2.0 * (x @ x.T)
 
 
-def krum_distances_cuda(x: torch.Tensor) -> torch.Tensor:
-    """The CUDA kernel: x (m, P) contiguous f32 on the card -> D (m, m)."""
+def krum_distances_cuda(x: torch.Tensor, *, plan: str | None = None
+                        ) -> torch.Tensor:
+    """The CUDA kernel: x (m, P) contiguous f32 on the card -> D (m, m).
+    ``plan`` forces ``"small"`` or ``"split"`` (to time the two against each
+    other); None takes :func:`krum_plan`'s."""
     if not x.is_cuda or x.dim() != 2:
         raise ValueError(f"krum_distances_cuda takes a 2-D CUDA tensor, got "
                          f"{x.dim()}-D on {x.device}")
@@ -47,11 +63,37 @@ def krum_distances_cuda(x: torch.Tensor) -> torch.Tensor:
         return d
     if p == 0:
         return d.zero_()
-    nrm = torch.empty(m, dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):
-        KERNEL(x.data_ptr(), m, p, nrm.data_ptr(), d.data_ptr(),
+        kind, nbytes = _plan(m, p, x.device.index, plan)
+        scratch = torch.empty(nbytes, dtype=torch.uint8, device=x.device) \
+            if nbytes else None
+        KERNEL(x.data_ptr(), m, p, kind,
+               None if scratch is None else scratch.data_ptr(), d.data_ptr(),
                stream_of(x))
     return d
+
+
+def krum_plan(m: int, p: int) -> str:
+    """The plan krum_distances_cuda takes for (m, P) on the current
+    device."""
+    return PLANS[_plan(m, p, torch.cuda.current_device(), None)[0]]
+
+
+_plans: dict[tuple, tuple[int, int]] = {}
+
+
+def _plan(m: int, p: int, device_index, plan: str | None) -> tuple[int, int]:
+    """The kernel's plan for (m, P), or the one forced, and its scratch
+    bytes on the device (they depend on the SM count), asked once."""
+    key = (m, p, device_index, plan)
+    if key not in _plans:
+        lib = library("krum")
+        kind_of, nbytes = lib.krum_plan_kind, lib.krum_scratch_bytes
+        kind_of.argtypes, kind_of.restype = [I, I], ctypes.c_int
+        nbytes.argtypes, nbytes.restype = [I, I, I], ctypes.c_longlong
+        kind = kind_of(m, p) if plan is None else PLANS.index(plan)
+        _plans[key] = (kind, int(nbytes(m, p, kind)))
+    return _plans[key]
 
 
 def krum_distances(x: torch.Tensor) -> torch.Tensor:

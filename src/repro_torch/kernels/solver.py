@@ -11,7 +11,12 @@ fold packed (value, ~index) keys by max instead, which keeps the largest
 value and its LOWEST index in any block order — the reference's first-max
 tie-break.  Both are tiny per call, so at the main path's sizes they are
 bound by launch latency, and at large N by the bytes of the H panels the
-swap reads.  Q = sym(a·H) − diag(z) is never built: ``q_diag``/``q_row``
+swap reads.  The Q-free swap runs a panel of at most 2,048 entries (the
+quickstart's 6 × 30) in one block with no scratch and no atomics, and a
+larger one in 32 × 64 tiles that meet through a 16-byte state kept per
+stream (and per CUDA-graph capture), zeroed once when made and again by the
+kernel's last block, so no call needs a memset (``swap_best_fused_plan``).
+Q = sym(a·H) − diag(z) is never built: ``q_diag``/``q_row``
 rebuild what the greedy pass needs, and the swap kernel rebuilds each Q
 entry from H where it is consumed, with no FMA contraction (the op order
 of ``repro/kernels/solver.py:60-80``).  The dense swap serves
@@ -24,15 +29,18 @@ never sync with the host.
 """
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
-from repro_torch.kernels._build import F, I, P, Kernel, stream_of
+from repro_torch.kernels._build import F, I, P, Kernel, library, stream_of
 
 NEG = -1e18         # the solver's masked-entry sentinel
 
 ARGMAX_KERNEL = Kernel("solver", "masked_argmax_launch", [P, P, P, I, P, P, P])
 SWAP_FUSED_KERNEL = Kernel("solver", "swap_best_launch",
-                           [P, P, F, P, P, P, P, I, I, P, P, P, P, P])
+                           [P, P, F, P, P, P, P, I, I, I, P, P, P, P, P])
+SWAP_FUSED_PLANS = ("small", "tiled")
 SWAP_GAIN_KERNEL = Kernel("solver", "swap_gain_launch",
                           [P, P, P, P, I, I, P, P, P, P, P])
 
@@ -118,7 +126,12 @@ def swap_best_fused_plain(h, z, scale: float, sel, valid, a, b):
     return delta.reshape(-1)[flat], flat // n, flat % n
 
 
-def swap_best_fused_cuda(h, z, scale: float, sel, valid, a, b):
+def swap_best_fused_cuda(h, z, scale: float, sel, valid, a, b, *,
+                         plan: str | None = None):
+    """The CUDA kernel; ``plan`` forces the ``"small"`` (at most 4,096
+    entries) or the ``"tiled"`` path, to time the two against each other;
+    None takes :func:`swap_best_fused_plan`'s.  The tiled path's blocks meet
+    in the state :func:`_tiled_state` keeps for the current stream."""
     n, m = h.shape[0], sel.shape[0]
     if not all(t.is_cuda for t in (h, z, sel, valid, a, b)):
         raise ValueError("swap_best_fused_cuda takes CUDA tensors")
@@ -135,16 +148,65 @@ def swap_best_fused_cuda(h, z, scale: float, sel, valid, a, b):
     vv = valid.to(torch.bool).contiguous()
     aa = a.to(torch.float32).contiguous()
     bb = b.to(torch.float32).contiguous()
-    scratch = torch.empty(2, dtype=torch.int64, device=h.device)
     best = torch.empty((), dtype=torch.float32, device=h.device)
     rank = torch.empty((), dtype=torch.int64, device=h.device)
     j = torch.empty((), dtype=torch.int64, device=h.device)
+    kind = SWAP_FUSED_PLANS.index(plan or swap_best_fused_plan(m, n))
     with torch.cuda.device(h.device):
+        stream = stream_of(hh)
+        state = _tiled_state(h.device, stream) if kind else None
         SWAP_FUSED_KERNEL(hh.data_ptr(), zz.data_ptr(), scale, ss.data_ptr(),
-                    vv.data_ptr(), aa.data_ptr(), bb.data_ptr(), m, n,
-                    scratch.data_ptr(), best.data_ptr(), rank.data_ptr(),
-                    j.data_ptr(), stream_of(hh))
+                          vv.data_ptr(), aa.data_ptr(), bb.data_ptr(), m, n,
+                          kind, None if state is None else state.data_ptr(),
+                          best.data_ptr(), rank.data_ptr(), j.data_ptr(),
+                          stream)
     return best, rank, j
+
+
+_swap_plans: dict[tuple[int, int], str] = {}
+
+
+def swap_best_fused_plan(m: int, n: int) -> str:
+    """The path swap_best_fused_cuda takes for an (m, N) panel: ``small``
+    (one block, one launch) or ``tiled``."""
+    if (m, n) not in _swap_plans:
+        fn = library("solver").swap_best_plan_kind
+        fn.argtypes, fn.restype = [I, I], ctypes.c_int
+        _swap_plans[m, n] = SWAP_FUSED_PLANS[fn(m, n)]
+    return _swap_plans[m, n]
+
+
+# (device index, stream, capture id or 0) -> the tiled path's state
+_tiled_states: dict[tuple[int, int, int], torch.Tensor] = {}
+
+
+def _capture_id(stream: int) -> int:
+    """The id of the CUDA-graph capture under way on ``stream``, else 0."""
+    if not torch.cuda.is_current_stream_capturing():
+        return 0
+    fn = library("solver").stream_capture_id
+    fn.argtypes, fn.restype = [P], ctypes.c_ulonglong
+    return int(fn(stream))
+
+
+def _tiled_state(device: torch.device, stream: int) -> torch.Tensor:
+    """The tiled swap's 16-byte (key, arrival count) state for this
+    stream: zeroed once when made, on the stream, and left zero by every
+    launch's last block, so calls in stream order share it with no memset,
+    while calls on other streams, which may overlap, each have their own.
+    A CUDA-graph capture gets a state of its own, made in the graph's
+    memory (its one zeroing is a node of that graph), so two graphs
+    replayed at once never share one.  A stream holds one capture at a
+    time: a new capture on it drops the entry of the one before, whose
+    graph keeps its memory."""
+    key = (device.index, stream, _capture_id(stream))
+    state = _tiled_states.get(key)
+    if state is None:
+        for k in [k for k in _tiled_states if k[:2] == key[:2] and k[2]]:
+            del _tiled_states[k]
+        state = torch.zeros(2, dtype=torch.int64, device=device)
+        _tiled_states[key] = state
+    return state
 
 
 def swap_best_fused(h: torch.Tensor, z: torch.Tensor, scale: float,

@@ -281,14 +281,29 @@ def test_median_and_trimmed_mean_vs_reference(rng, mask):
         _close(ttm, jtm, what=f"beta {beta}")
 
 
-@pytest.mark.parametrize("m,p", [(5, 7), (16, 64), (33, 130), (64, 256)])
-def test_krum_selection_vs_reference(rng, m, p):
+@pytest.mark.parametrize("m,p,poison", [
+    pytest.param(5, 7, None, id="5-7"), pytest.param(16, 64, None, id="16-64"),
+    pytest.param(33, 130, None, id="33-130"),
+    pytest.param(64, 256, None, id="64-256"),
+    pytest.param(1, 7, None, id="1-7"), pytest.param(2, 7, None, id="2-7"),
+    pytest.param(6, 1, None, id="6-1"), pytest.param(9, 31, "nan", id="9-31-nan"),
+    pytest.param(9, 31, "inf", id="9-31-inf")])
+def test_krum_selection_vs_reference(rng, m, p, poison):
     """The shapes of tests/test_robust_aggregators.py's ref-vs-pallas
     test: the port's plain panel within f32 round-off of the reference's
-    (atol 1e-2, rtol 1e-4, that test's bound), the selection bitwise."""
+    (atol 1e-2, rtol 1e-4, that test's bound), the selection bitwise.  Then
+    the edges the CUDA kernel is held to: one and two rows, one column, and
+    a row of NaN or a row holding inf (krum_select's clamps: NaN -> inf, at
+    least 0)."""
     x = (rng.normal(size=(m, p)) * 3).astype(np.float32)
     valid = rng.random(m) < 0.9
     valid[0] = True
+    if poison == "nan":
+        x[4] = np.nan
+    elif poison == "inf":
+        x[4, 3] = np.inf
+    if poison is not None:
+        valid[4] = True
     np.testing.assert_allclose(
         np.maximum(tad.krum_pairwise_ref(torch.as_tensor(x)).numpy(), 0),
         np.maximum(np.asarray(jad.krum_pairwise_ref(jnp.asarray(x))), 0),

@@ -7,7 +7,10 @@ only, so it runs where the JAX package is not installed:
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
 
 Contracts, kernel against plain version on the same device:
-* Floyd–Warshall, the greedy masked argmax and the swap reduction: bitwise;
+* Floyd–Warshall, the greedy masked argmax and the swap reduction: bitwise
+  (the Q-free swap on both its paths, at its small path's threshold ± 1
+  entry, on all-masked and all-equal panels, in calls back to back with no
+  memset, and replayed from a CUDA graph);
 * fused adjacency: lo/hi bitwise (V is summed in the same order), the same
   inf pattern, finite R within rtol 1e-4 (``expf`` in the kernel and
   ``torch.exp`` may differ in the last bits);
@@ -22,8 +25,9 @@ Contracts, kernel against plain version on the same device:
   = 1e-5 (the reference's own bound; the kernel sums in a fixed order of
   its own) and bitwise from one launch to the next;
 * krum: the distance panel within ``krum_panel_bound`` (f32 round-off of
-  a length-P dot product, scaled by ‖xᵢ‖² + ‖xⱼ‖²), exactly symmetric, and
-  the Krum selection bitwise;
+  a length-P dot product, scaled by ‖xᵢ‖² + ‖xⱼ‖²), exactly symmetric with
+  a zero diagonal and bitwise call to call, in either plan, and the Krum
+  selection bitwise, NaN and inf rows included;
 * FedGS selected sets, the quickstart slice and the vision slice
   (``small_cnn``, cuDNN with TF32 off): the card run (kernels) and a CPU
   run given the card's H select the same clients every round, and
@@ -128,14 +132,12 @@ def test_greedy_argmax_kernel_vs_plain(cuda, n):
         assert torch.equal(kv, pv) and torch.equal(ki, pi)
 
 
-# panel rows m = ceil(0.1 N), and the engine's own M where the quickstart
-# (N = 30, M = 6) and the N = 1024 scale run (M = 102) drive the kernel
-@pytest.mark.parametrize("n,m", [(30, 3), (30, 6), (130, 13), (1024, 103),
-                                 (1024, 102), (4096, 410)])
-def test_swap_best_kernel_vs_plain(cuda, n, m):
-    rng = np.random.default_rng(n + m)
+def _swap_args(rng, n, m, dev):
+    """A Q-free swap panel of m selected rows plus two pad rows (valid
+    False, clamped to N − 1, as the solve hands them over), with a
+    NaN-poisoned column."""
     h = _h(rng, n)
-    h[:, 3] = float("nan")
+    h[:, 3 % n] = float("nan")
     z = torch.as_tensor(rng.normal(size=n), dtype=torch.float32)
     s = np.zeros(n, bool)
     s[rng.choice(n, m, replace=False)] = True
@@ -146,11 +148,130 @@ def test_swap_best_kernel_vs_plain(cuda, n, m):
     b = torch.where(torch.as_tensor(~s & (rng.random(n) < 0.7)), 2.0 * rr,
                     torch.tensor(NEG))
     al = float(np.float32(1.0) / np.float32(n))
-    args = [h.to(cuda), z.to(cuda), al] + [x.to(cuda) for x in (sel, valid, a, b)]
-    k = tsolver.swap_best_fused_cuda(*args)
+    return [h.to(dev), z.to(dev), al] + [x.to(dev) for x in (sel, valid, a, b)]
+
+
+def _swap_same(args, **kw):
+    k = tsolver.swap_best_fused_cuda(*args, **kw)
     p = tsolver.swap_best_fused_plain(*args)
+    assert all(torch.equal(x, y) for x, y in zip(k, p)), (k, p)
+    return k
+
+
+# the small path's last panel: SWAP_SMALL entries (``swap_best_plan_kind``)
+SWAP_SMALL = 2048
+
+
+# panel rows m = ceil(0.1 N), and the engine's own M where the quickstart
+# (N = 30, M = 6) and the N = 1024 scale run (M = 102) drive the kernel;
+# then panels of (m + 2)·N = SWAP_SMALL − 1, SWAP_SMALL, SWAP_SMALL + 1
+@pytest.mark.parametrize("n,m", [(30, 3), (30, 6), (130, 13), (1024, 103),
+                                 (1024, 102), (4096, 410), (89, 21),
+                                 (512, 2), (683, 1)])
+def test_swap_best_kernel_vs_plain(cuda, n, m):
+    args = _swap_args(np.random.default_rng(n + m), n, m, cuda)
+    k = _swap_same(args)
     assert float(k[0]) > NEG / 2
-    assert all(torch.equal(x, y) for x, y in zip(k, p))
+    entries = (m + 2) * n
+    want = "small" if entries <= SWAP_SMALL else "tiled"
+    assert tsolver.swap_best_fused_plan(m + 2, n) == want
+    if entries <= 4096:                     # the small path takes this many
+        _swap_same(args, plan="small")
+    _swap_same(args, plan="tiled")
+
+
+@pytest.mark.parametrize("n,m", [(30, 6), (1024, 102)])
+def test_swap_best_kernel_all_masked_and_all_equal(cuda, n, m):
+    """No column to swap in (b all −1e18): every delta is −1e18 and the
+    lowest flat index wins, (−1e18, 0, 0); equal deltas everywhere: rank 0,
+    column 0.  On each path the panel fits."""
+    rng = np.random.default_rng(n)
+    masked = _swap_args(rng, n, m, cuda)
+    masked[6] = torch.full((n,), NEG, device=cuda)
+    equal = _swap_args(rng, n, m, cuda)
+    equal[0] = torch.full((n, n), 0.25, device=cuda)
+    equal[1] = torch.zeros(n, device=cuda)
+    equal[4] = torch.ones(m + 2, dtype=torch.bool, device=cuda)
+    equal[5] = torch.full((m + 2,), 1.5, device=cuda)
+    equal[6] = torch.full((n,), -0.5, device=cuda)
+    for plan in ("small", "tiled") if (m + 2) * n <= 4096 else ("tiled",):
+        k = _swap_same(masked, plan=plan)
+        assert (float(k[0]), int(k[1]), int(k[2])) == \
+            (float(np.float32(NEG)), 0, 0)
+        k = _swap_same(equal, plan=plan)
+        assert (int(k[1]), int(k[2])) == (0, 0)
+
+
+@pytest.mark.parametrize("n,m", [(30, 6), (4096, 410)])
+def test_swap_best_kernel_back_to_back_without_memset(cuda, n, m):
+    """Calls in a row on one stream, with no memset and no sync between
+    them: the tiled path's state for the stream is zero again for each."""
+    args = [_swap_args(np.random.default_rng(seed), n, m, cuda)
+            for seed in range(4)]
+    outs = [tsolver.swap_best_fused_cuda(*a, plan="tiled") for a in args]
+    outs += [tsolver.swap_best_fused_cuda(*a) for a in args]
+    for a, k in zip(args + args, outs):
+        p = tsolver.swap_best_fused_plain(*a)
+        assert all(torch.equal(x, y) for x, y in zip(k, p))
+
+
+@pytest.mark.parametrize("n,m", [(30, 6), (130, 13), (4096, 410)])
+def test_swap_best_kernel_replays_from_a_cuda_graph(cuda, n, m):
+    """One call captured in a CUDA graph, replayed on new inputs copied
+    into its buffers: bitwise the plain version each time."""
+    static = _swap_args(np.random.default_rng(0), n, m, cuda)
+    tsolver.swap_best_fused_cuda(*static)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = tsolver.swap_best_fused_cuda(*static)
+    for seed in (1, 2, 3):
+        for dst, src in zip(static, _swap_args(np.random.default_rng(seed), n,
+                                               m, cuda)):
+            if isinstance(dst, torch.Tensor):
+                dst.copy_(src)
+        graph.replay()
+        torch.cuda.synchronize()
+        want = tsolver.swap_best_fused_plain(*static)
+        assert all(torch.equal(x, y) for x, y in zip(out, want))
+
+
+@pytest.mark.parametrize("mode", ["eager", "graphs"])
+def test_swap_best_kernel_on_two_streams_at_once(cuda, mode):
+    """Tiled calls on two streams with no sync between them, as calls or
+    as two captured graphs replayed: each stream (each graph) has its own
+    cross-block state, so every result is the plain version's."""
+    n, m = 4096, 410
+    args = [_swap_args(np.random.default_rng(seed), n, m, cuda)
+            for seed in (5, 6)]
+    streams = [torch.cuda.Stream() for _ in args]
+    if mode == "graphs":
+        graphs, outs = [], []
+        for a in args:
+            tsolver.swap_best_fused_cuda(*a, plan="tiled")
+            torch.cuda.synchronize()
+            g = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(g):
+                outs.append(tsolver.swap_best_fused_cuda(*a, plan="tiled"))
+            graphs.append(g)
+        torch.cuda.synchronize()
+        for _ in range(16):
+            for g, st in zip(graphs, streams):
+                with torch.cuda.stream(st):
+                    g.replay()
+        results = [[o] for o in outs]
+    else:
+        torch.cuda.synchronize()
+        results = [[], []]
+        for _ in range(16):
+            for r, a, st in zip(results, args, streams):
+                with torch.cuda.stream(st):
+                    r.append(tsolver.swap_best_fused_cuda(*a, plan="tiled"))
+    torch.cuda.synchronize()
+    for a, r in zip(args, results):
+        want = tsolver.swap_best_fused_plain(*a)
+        for k in r:
+            assert all(torch.equal(x, y) for x, y in zip(k, want))
 
 
 @pytest.mark.parametrize("n", [7, 100, 130, 1024])
@@ -251,24 +372,75 @@ def krum_panel_bound(x: torch.Tensor) -> torch.Tensor:
     return 8.0 * np.sqrt(x.shape[1]) * 2.0 ** -24 * (n2[:, None] + n2[None, :])
 
 
+def _krum_crossover(p: int) -> int:
+    """The last m the small plan takes at P = p (krum_plan_kind)."""
+    return next(m for m in range(1, 1 << 14)
+                if tkr.krum_plan(m + 1, p) != "small")
+
+
 # the main path's (M, P) = (6, 610), then the robustness bench's tiers on
-# its own data recipe (default_rng(0), normal rows, valid < 0.95)
+# its own data recipe (default_rng(0), normal rows, valid < 0.95); then one
+# and two rows, P below 32 and no multiple of 4 (4-byte loads), just past
+# 32, the two plans' crossover at P = 610 (its last small m, ± 1), and the
+# small plan's longest rows (P = 8192) and one column past them
 @pytest.mark.parametrize("m,p", [(6, 610), (64, 512), (128, 2048),
-                                 (256, 4096), (512, 16384)])
+                                 (256, 4096), (512, 16384), (1, 1), (1, 31),
+                                 (2, 33), (2, 610), (6, 1), (6, 31),
+                                 ("crossover-1", 610), ("crossover", 610),
+                                 ("crossover+1", 610), (8, 8192),
+                                 (8, 8193)])
 def test_krum_kernel_vs_plain(cuda, m, p):
+    if isinstance(m, str):
+        m = _krum_crossover(p) + {"crossover-1": -1, "crossover": 0,
+                                  "crossover+1": 1}[m]
     rng = np.random.default_rng(0)
     x = torch.as_tensor(rng.normal(size=(m, p)).astype(np.float32),
                         device=cuda)
     valid = torch.as_tensor(rng.random(m) < 0.95, device=cuda)
-    dk = tkr.krum_distances_cuda(x)
     dp = tkr.krum_pairwise_ref(x)
-    assert torch.equal(dk, dk.T)
-    err = (dk.double() - dp.double()).abs()
-    assert bool((err <= krum_panel_bound(x)).all()), float(err.max())
+    for plan in (None, "small", "split"):
+        dk = tkr.krum_distances_cuda(x, plan=plan)
+        assert torch.equal(dk, dk.T)
+        assert torch.equal(torch.diagonal(dk), torch.zeros_like(dk[0]))
+        err = (dk.double() - dp.double()).abs()
+        assert bool((err <= krum_panel_bound(x)).all()), (plan, float(err.max()))
     f = max(1, m // 5)
     chosen_k, _ = tad.krum_select(x, valid, f, 3)
     chosen_p, _ = tad.krum_select(x.cpu(), valid.cpu(), f, 3)
     assert torch.equal(chosen_k.cpu(), chosen_p)
+
+
+@pytest.mark.parametrize("m,p", [(6, 610), (300, 610), (8, 8193)])
+def test_krum_kernel_is_bitwise_call_to_call(cuda, m, p):
+    """No float atomics: the same panel twice gives the same D, bit for
+    bit, in either plan."""
+    x = torch.as_tensor(np.random.default_rng(m).normal(size=(m, p)),
+                        dtype=torch.float32, device=cuda)
+    for plan in ("small", "split"):
+        assert torch.equal(tkr.krum_distances_cuda(x, plan=plan),
+                           tkr.krum_distances_cuda(x, plan=plan))
+
+
+@pytest.mark.parametrize("plan", ["small", "split"])
+def test_krum_select_nan_and_inf_rows_card_equals_cpu(cuda, plan,
+                                                       monkeypatch):
+    """A row of NaN and a row holding inf: krum_select's clamps (NaN ->
+    inf, at least 0) give the card's panel the CPU's selection and the
+    same non-finite scores."""
+    rng = np.random.default_rng(3)
+    x = torch.as_tensor(rng.normal(size=(9, 610)), dtype=torch.float32)
+    x[2] = float("nan")
+    x[5, 7] = float("inf")
+    valid = torch.ones(9, dtype=torch.bool)
+    forced = tkr.krum_distances_cuda
+    monkeypatch.setattr(tkr, "krum_distances_cuda",
+                        lambda t: forced(t, plan=plan))
+    for multi in (1, 3):
+        ck, sk = tad.krum_select(x.to(cuda), valid.to(cuda), 1, multi)
+        cp, sp = tad.krum_select(x, valid, 1, multi)
+        assert torch.equal(ck.cpu(), cp)
+        assert not bool(ck[2]) and not bool(ck[5])
+        assert torch.equal(torch.isfinite(sk.cpu()), torch.isfinite(sp))
 
 
 @pytest.mark.parametrize("agg", ["memory", "multikrum"])

@@ -6,7 +6,9 @@ Contracts:
 * ``q_diag`` / ``q_row`` and ``greedy_argmax``: bitwise (value and index),
   including exact ties, NaN and the all-masked lane;
 * ``swap_best_fused`` and the dense ``swap_best``: (best, rank, j) bitwise
-  whenever best > −1e18/2, NaN entries included.
+  whenever best > −1e18/2, NaN entries included; ``swap_best_fused`` also
+  on a panel with no column to swap in ((−1e18, 0, 0)) and on one of equal
+  deltas (rank 0, column 0), the edges its CUDA kernel is held to.
   The fixtures use H with a zero diagonal, as every H from
   ``cap_and_normalize`` has: XLA:CPU contracts a·H_kk − z_k into an FMA
   under jit (DESIGN assumption #23), so a nonzero diagonal can differ by
@@ -124,12 +126,26 @@ def _swap_inputs(rng, n, m, *, integer=False, pad=0):
     return h, z, sel, valid, a, b
 
 
-@pytest.mark.parametrize("n,m,integer,pad", [(7, 2, False, 0),
-                                             (100, 10, False, 0),
-                                             (130, 13, False, 3),
-                                             (52, 9, True, 0)])
-def test_swap_best_fused_bitwise_vs_pallas(rng, n, m, integer, pad):
+# the last two cases pin the contract the CUDA kernel is held to on its
+# edges: no column to swap in (b all −1e18: every delta is −1e18, the lowest
+# flat index wins) and equal deltas everywhere (rank 0, column 0)
+@pytest.mark.parametrize("n,m,integer,pad,case", [
+    pytest.param(7, 2, False, 0, "random", id="7-2-False-0"),
+    pytest.param(100, 10, False, 0, "random", id="100-10-False-0"),
+    pytest.param(130, 13, False, 3, "random", id="130-13-False-3"),
+    pytest.param(52, 9, True, 0, "random", id="52-9-True-0"),
+    pytest.param(30, 6, False, 2, "all_masked", id="30-6-all_masked"),
+    pytest.param(30, 6, False, 2, "all_equal", id="30-6-all_equal")])
+def test_swap_best_fused_bitwise_vs_pallas(rng, n, m, integer, pad, case):
     h, z, sel, valid, a, b = _swap_inputs(rng, n, m, integer=integer, pad=pad)
+    if case == "all_masked":
+        b = np.full(n, NEG, np.float32)
+    elif case == "all_equal":
+        h = np.full((n, n), 0.25, np.float32)
+        z = np.zeros(n, np.float32)
+        valid = np.ones(len(sel), bool)
+        a = np.full(len(sel), 1.5, np.float32)
+        b = np.full(n, -0.5, np.float32)
     al = 1.0 if integer else float(np.float32(1.3) / np.float32(n))
     jb, jr, jj = jops.swap_best_fused(jnp.asarray(h), jnp.asarray(z),
                                       jnp.float32(al), jnp.asarray(sel),
@@ -137,7 +153,12 @@ def test_swap_best_fused_bitwise_vs_pallas(rng, n, m, integer, pad):
                                       jnp.asarray(b))
     tb, tr, tj = tops.swap_best_fused(_t(h), _t(z), al, _t(sel), _t(valid),
                                       _t(a), _t(b))
-    assert float(jb) > NEG / 2
+    if case == "all_masked":
+        assert (float(tb), int(tr), int(tj)) == (float(np.float32(NEG)), 0, 0)
+    else:
+        assert float(jb) > NEG / 2
+    if case == "all_equal":
+        assert (int(tr), int(tj)) == (0, 0)
     assert np.asarray(tb).tobytes() == np.asarray(jb, np.float32).tobytes()
     assert (int(tr), int(tj)) == (int(jr), int(jj))
 
