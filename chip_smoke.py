@@ -197,7 +197,7 @@ LM_ATOL, LM_RTOL = 5e-2, 2e-2
 # substrings of the port's kernel names (and of the memsets) in a profile
 PORT_KERNEL_KEYS = ("swap_best", "masked_argmax", "swap_gain", "memagg",
                     "krum", "similarity", "adjacency", "stats_kernel",
-                    "fw_pivot", "emset")
+                    "fw_", "emset")
 
 KERNEL_INFO = {
     "pairwise_similarity": (
@@ -353,18 +353,20 @@ def kernel_checks(np, torch, n: int, dev) -> dict:
         library="none: no single PyTorch call computes the thresholded "
                 "min-max adjacency")
 
-    # Floyd–Warshall on the plain R: bitwise
-    h_k = fw.floyd_warshall_cuda(r_p)
+    # Floyd–Warshall on the plain R: bitwise in the plan it takes and in
+    # every other plan that takes N (held before it is timed)
     h_p = fw.floyd_warshall_plain(r_p)
-    if not torch.equal(h_k, h_p):
-        raise AssertionError(f"floyd_warshall N={n}: not bitwise")
+    others = fw_same_on_every_plan(torch, r_p, h_p, f"N={n}")
     b, by = bound(2 * 4 * n * n, 2 * n ** 3)
     rows["floyd_warshall"] = dict(
-        max_abs_err=0.0, tolerance="bitwise",
+        max_abs_err=0.0, tolerance="bitwise", plan=fw.floyd_warshall_plan(n),
         ms=cuda_ms(torch, lambda: fw.floyd_warshall_cuda(r_p), budget_s=0.5,
                    max_reps=50),
         device_ms=device_ms(torch, lambda: fw.floyd_warshall_cuda(r_p),
                             reps=5),
+        other_plans_device_ms={q: device_ms(
+            torch, lambda: fw.floyd_warshall_cuda(r_p, plan=q), reps=5)
+            for q in others},
         plain_ms=cuda_ms(torch, lambda: fw.floyd_warshall_plain(r_p),
                          budget_s=0.5, max_reps=20),
         bound_ms=b, bound_by=by, library_ms=None,
@@ -437,6 +439,56 @@ def kernel_checks(np, torch, n: int, dev) -> dict:
             plain_ms=cuda_ms(torch, lambda: sv.swap_best_fused_plain(*kargs)),
             bound_ms=b, bound_by=by, library_ms=None,
             library="none: no single PyTorch call rebuilds Q and arg-maxes it")
+    return rows
+
+
+def fw_same_on_every_plan(torch, r, want, what: str) -> list[str]:
+    """Floyd–Warshall on r in the plan it takes and in every other plan that
+    takes its N, each bitwise ``want``.  Returns the other plans."""
+    from repro_torch.kernels import floyd_warshall as fw
+
+    n = r.shape[0]
+    plan = fw.floyd_warshall_plan(n)
+    others = [q for q in fw.PLANS if q != plan and
+              (q != "single" or n <= fw.SINGLE_MOST)]
+    for q in [None, *others]:
+        if not torch.equal(fw.floyd_warshall_cuda(r, plan=q), want):
+            raise AssertionError(f"floyd_warshall {what} ({q or plan} "
+                                 "plan): not bitwise")
+    return others
+
+
+def fw_edge_checks(np, torch, dev) -> dict:
+    """Floyd–Warshall on every plan that takes N, bitwise its plain version
+    and then timed (``device_ms`` per plan): at the pivot blocks' edges (1,
+    T − 1, T, T + 1, 2T + 1 for T = 32 and 64), at 238, 239 and the single
+    plan's largest N and one past, at 2048 and 2560 (around the switch from
+    T = 32 to 64), on directed adjacencies (40% inf, weights in [0, 10)),
+    and on the N = 130 fixture on which the blocked order that reads the
+    final pivot panels (the TPU kernel's) parts from the per-pivot order.
+    Returns name -> row."""
+    from repro_torch.kernels import floyd_warshall as fw
+
+    def adjacency(n, seed):
+        rng = np.random.default_rng(seed)
+        r = (rng.random((n, n)) * 10).astype(np.float32)
+        r[rng.random((n, n)) < 0.4] = np.inf
+        np.fill_diagonal(r, 0)
+        return torch.from_numpy(r).to(dev)
+
+    rows = {}
+    cases = [(n, n) for n in (1, 31, 32, 33, 63, 64, 65, 129, 238, 239,
+                              fw.SINGLE_MOST, fw.SINGLE_MOST + 1, 2048,
+                              2560)]
+    for n, seed in cases + [(130, 0)]:
+        r = adjacency(n, seed)
+        plan = fw.floyd_warshall_plan(n)
+        others = fw_same_on_every_plan(torch, r, fw.floyd_warshall_plain(r),
+                                       f"N={n} seed={seed}")
+        rows[f"floyd_warshall/n={n}/seed={seed}"] = dict(
+            plan=plan, tolerance="bitwise", plans_device_ms={
+                q: device_ms(torch, lambda: fw.floyd_warshall_cuda(
+                    r, plan=q), reps=5) for q in [plan, *others]})
     return rows
 
 
@@ -663,21 +715,119 @@ def swap_gain_checks(np, torch, dev) -> dict:
         a = (-2.0 * r + diag)[sel]
         bb = torch.where(~s & avail, 2.0 * r + diag, torch.full_like(r, NEG))
         args = (q, sel, a, bb)
-        k3, p3 = sv.swap_gain_cuda(*args), sv.swap_gain_plain(*args)
-        if not all(torch.equal(x, y) for x, y in zip(k3, p3)) \
-                or float(k3[0]) <= NEG / 2 or int(k3[2]) == 3:
-            raise AssertionError(f"swap_best {m, n}: {k3} != {p3}")
+        k3 = swap_gain_same(torch, args)
+        if float(k3[0]) <= NEG / 2 or int(k3[2]) == 3:
+            raise AssertionError(f"swap_best {m, n}: {k3}")
+        # the other path, where it takes the panel, held before it is timed
+        plan = sv.swap_gain_plan(m, n)
+        other = next(q for q in sv.SWAP_GAIN_PLANS if q != plan)
+        if other == "small" and m * n > sv.SWAP_GAIN_SMALL_MOST:
+            other = None
+        else:
+            swap_gain_same(torch, args, plan=other)
         # read the m selected rows of Q, a, b and sel; write three scalars;
         # add, multiply, subtract and a NaN test per panel entry
         b, by = bound(4 * m * n + 4 * m + 4 * n + 8 * m + 20, 4 * m * n)
         rows[f"swap_best/m={m}/n={n}"] = dict(
             n=n, m=m, max_abs_err=0.0, tolerance="bitwise (best, rank, j)",
+            plan=plan,
             ms=cuda_ms(torch, lambda: sv.swap_gain_cuda(*args)),
             device_ms=device_ms(torch, lambda: sv.swap_gain_cuda(*args)),
+            other_plan=other, other_plan_device_ms=None if other is None
+            else device_ms(torch, lambda: sv.swap_gain_cuda(*args,
+                                                            plan=other)),
             plain_ms=cuda_ms(torch, lambda: sv.swap_gain_plain(*args)),
             bound_ms=b, bound_by=by, library_ms=None,
             library="none: no single PyTorch call arg-maxes the swap gain "
                     "over Q's selected rows")
+    return rows
+
+
+def swap_gain_same(torch, args, **kw):
+    """The dense swap kernel against its plain version: bitwise (best,
+    rank, j), or raise.  Returns the kernel's result."""
+    from repro_torch.kernels import solver as sv
+
+    k = sv.swap_gain_cuda(*args, **kw)
+    p = sv.swap_gain_plain(*args)
+    if not all(torch.equal(x, y) for x, y in zip(k, p)):
+        raise AssertionError(f"swap_best {kw}: {k} != {p}")
+    return k
+
+
+def swap_gain_edge_checks(np, torch, dev) -> dict:
+    """The dense swap at its small path's threshold ± 1 entry, each timed
+    on both paths, and on an all-masked panel ((-1e18, 0, 0)), an all-equal
+    panel (rank 0, column 0) and after a CUDA graph's replays with new
+    inputs, on each path the panel fits: bitwise against its plain version
+    everywhere.  Returns name -> row."""
+    from repro_torch.kernels import solver as sv
+
+    last = next(t for t in range(1, 1 << 16)
+                if sv.swap_gain_plan(1, t + 1) != "small")
+
+    def inputs(m, n, seed):
+        rng = np.random.default_rng(seed)
+        h = rng.random((n, n)).astype(np.float32)
+        q = torch.as_tensor(0.5 * (h + h.T), device=dev)
+        q[:, min(3, n - 1)] = float("nan")
+        sel = torch.as_tensor(np.sort(rng.choice(n, m, replace=False)),
+                              device=dev)
+        r = torch.as_tensor(rng.normal(size=n), dtype=torch.float32,
+                            device=dev)
+        free = torch.as_tensor(rng.random(n) < 0.7, device=dev)
+        free[sel] = False
+        return [q, sel, (-2.0 * r)[sel],
+                torch.where(free, 2.0 * r, torch.full_like(r, NEG))]
+
+    rows = {}
+    rows_at = next(d for d in (4, 3, 2, 1) if last % d == 0)
+    for m, n in ((1, last - 1), (rows_at, last // rows_at), (1, last + 1)):
+        args = inputs(m, n, m * n)
+        swap_gain_same(torch, args)
+        row = dict(m=m, n=n, entries=m * n, plan=sv.swap_gain_plan(m, n),
+                   tolerance="bitwise (best, rank, j)",
+                   device_ms=device_ms(torch,
+                                       lambda: sv.swap_gain_cuda(*args)))
+        for path in sv.SWAP_GAIN_PLANS:
+            swap_gain_same(torch, args, plan=path)
+            row[f"{path}_device_ms"] = device_ms(
+                torch, lambda: sv.swap_gain_cuda(*args, plan=path))
+        rows[f"swap_best/m={m}/n={n}"] = row
+    for m, n in (SWAP_GAIN_SHAPES[-1], (410, 4096)):
+        masked = inputs(m, n, 7)
+        masked[3] = torch.full((n,), NEG, device=dev)
+        equal = inputs(m, n, 8)
+        equal[0] = torch.full((n, n), 0.25, device=dev)
+        equal[2] = torch.full((m,), 1.5, device=dev)
+        equal[3] = torch.full((n,), -0.5, device=dev)
+        for path in sv.SWAP_GAIN_PLANS:
+            if path == "small" and m * n > sv.SWAP_GAIN_SMALL_MOST:
+                continue
+            k = swap_gain_same(torch, masked, plan=path)
+            if (float(k[0]), int(k[1]), int(k[2])) != (float(np.float32(NEG)),
+                                                       0, 0):
+                raise AssertionError(f"swap_best all-masked: {k}")
+            k = swap_gain_same(torch, equal, plan=path)
+            if (int(k[1]), int(k[2])) != (0, 0):
+                raise AssertionError(f"swap_best all-equal: {k}")
+        static = inputs(m, n, 9)
+        sv.swap_gain_cuda(*static)
+        torch.cuda.synchronize()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            out = sv.swap_gain_cuda(*static)
+        for seed in (10, 11, 12):
+            for dst, src in zip(static, inputs(m, n, seed)):
+                dst.copy_(src)
+            graph.replay()
+            torch.cuda.synchronize()
+            want = sv.swap_gain_plain(*static)
+            if not all(torch.equal(x, y) for x, y in zip(out, want)):
+                raise AssertionError(f"swap_best {m, n}: graph replay "
+                                     f"{out} != {want}")
+        rows[f"swap_best/m={m}/n={n}/cases"] = dict(
+            all_masked=True, all_equal=True, graph_replays=3)
     return rows
 
 
@@ -1275,6 +1425,23 @@ def vision_run(np, torch, dev) -> tuple[dict, dict]:
                   "pairwise_similarity/vision": launches["f_update_cosine"]}
 
 
+def profiled_device_ms(torch, fn) -> dict:
+    """``fn`` once under torch.profiler (warm): the device time of all its
+    device-side events (kernels, memsets, copies) and of Floyd–Warshall's
+    kernels alone, in ms."""
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU,
+                        torch.profiler.ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    on_dev = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    return {"all": sum(e.self_device_time_total for e in on_dev) / 1e3,
+            "floyd_warshall": sum(e.self_device_time_total for e in on_dev
+                                  if "fw_" in e.key) / 1e3}
+
+
 def scale_run(np, torch, dev, *, n_clients: int, frac: float,
               rounds: int = 5, aggregator: str = "fedavg") -> dict:
     """FedGS on the card with the solve, the training and the aggregation
@@ -1337,6 +1504,13 @@ def scale_run(np, torch, dev, *, n_clients: int, frac: float,
             fused_launches["fused_adjacency"] != 1:
         raise AssertionError(f"N={n_clients}: build_h H differs from the "
                              f"engine's, or launches {fused_launches}")
+    # each build again under the profiler: the device time of its kernels,
+    # memsets and copies, and Floyd–Warshall's share of it
+    builds_dev = {
+        "staged": profiled_device_ms(
+            torch, lambda: eng.install_oracle_graph(ds.opt_params)),
+        "fused": profiled_device_ms(torch, lambda: build_h(torch.as_tensor(
+            ds.opt_params, dtype=torch.float32, device=dev), GraphConfig()))}
     sample = sampler.sample
     sampler.sample = timed(sample, "solve")
     eng._trainer = timed(eng._trainer, "train")
@@ -1375,6 +1549,8 @@ def scale_run(np, torch, dev, *, n_clients: int, frac: float,
             "aggregator": aggregator,
             "x_bytes": int(ds.x.nbytes), "data_gen_s": data_s,
             "graph_build_ms": graph_ms, "fused_graph_build_ms": fused_ms,
+            "graph_build_device_ms": builds_dev["staged"],
+            "fused_graph_build_device_ms": builds_dev["fused"],
             "fused_launches": fused_launches["fused_adjacency"],
             "solve_ms_per_round": times["solve"],
             "train_ms_per_round": times["train"],
@@ -1726,6 +1902,10 @@ def main() -> int:
         "device_ms": launch_floor_ms(torch)}})
     emit({"phase": "kernels", "swap_best_fused_edges": True, "card": smi,
           "rows": swap_fused_edge_checks(np, torch, dev)})
+    emit({"phase": "kernels", "swap_best_edges": True, "card": smi,
+          "rows": swap_gain_edge_checks(np, torch, dev)})
+    emit({"phase": "kernels", "floyd_warshall_edges": True, "card": smi,
+          "rows": fw_edge_checks(np, torch, dev)})
     staged_rows = {**staged_kernel_checks(np, torch, dev),
                    **swap_gain_checks(np, torch, dev)}
     emit({"phase": "kernels", "staged": True, "card": smi,
@@ -1784,8 +1964,10 @@ def main() -> int:
                         "library_ms": row["library_ms"],
                         "device_ms": row["device_ms"],
                         "library_device_ms": row.get("library_device_ms"),
+                        "plan": row.get("plan") or row.get("body") or
+                        "only",
                         **{k: row[k] for k in ("n", "d", "m", "p", "shape",
-                                               "dtype", "window", "plan")
+                                               "dtype", "window")
                            if k in row},
                         **({} if "n" in row or "shape" in row
                            else {"n": MAIN_N}),

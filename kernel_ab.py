@@ -1,11 +1,12 @@
 #!/usr/bin/env python3
 """Device times of the port's kernel rows in two checkouts, on one GPU.
 
-    python3 kernel_ab.py PARENT_DIR CHANGE_DIR [--pairs 10]
+    python3 kernel_ab.py PARENT_DIR CHANGE_DIR [--pairs 10] [--sizes 30]
 
-Runs the kernel checks of ``chip_smoke.py`` phase 2 (the rows at N = 30,
-the staged similarity and adjacency rows, the dense-swap rows, and the
-memagg and krum rows) of each checkout in a process of its own, in the
+Runs the kernel checks of ``chip_smoke.py`` phase 2 (the rows at each N of
+``--sizes``, 30 by default, the staged similarity and adjacency rows, the
+dense-swap rows, and the memagg and krum rows) of each checkout in a
+process of its own, in the
 order A B, B A, A B, ... for ``--pairs`` pairs.  Each process builds its
 checkout's kernels (into that checkout's ``build/``), runs that checkout's
 own checks, which hold every kernel against its plain version and fail on
@@ -29,7 +30,7 @@ ROOT = Path(__file__).resolve().parent
 OUT = ROOT / "chiprun_out"
 
 
-def worker(tree: Path) -> dict:
+def worker(tree: Path, sizes: list[int]) -> dict:
     """Every kernel row of the checkout at ``tree``: name -> device_ms."""
     sys.path[:0] = [str(tree / "src"), str(tree)]
     import numpy as np
@@ -39,8 +40,8 @@ def worker(tree: Path) -> dict:
     if Path(cs.__file__).resolve().parent != tree:
         raise RuntimeError(f"imported {cs.__file__}, not {tree}'s")
     dev = torch.device("cuda")
-    rows = {f"n=30/{k}": v
-            for k, v in cs.kernel_checks(np, torch, 30, dev).items()}
+    rows = {f"n={n}/{k}": v for n in sizes
+            for k, v in cs.kernel_checks(np, torch, n, dev).items()}
     rows.update(cs.staged_kernel_checks(np, torch, dev))
     rows.update(cs.swap_gain_checks(np, torch, dev))
     rows.update(cs.robust_kernel_checks(np, torch, dev))
@@ -51,6 +52,8 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("trees", nargs="*", type=Path)
     ap.add_argument("--pairs", type=int, default=10)
+    ap.add_argument("--sizes", default="30",
+                    help="comma-separated N of the per-N kernel rows")
     ap.add_argument("--worker", type=Path)
     args = ap.parse_args()
     import torch
@@ -58,7 +61,8 @@ def main() -> int:
         print("kernel_ab: no CUDA device", file=sys.stderr)
         return 2
     if args.worker:
-        print(json.dumps(worker(args.worker.resolve())), flush=True)
+        sizes = [int(n) for n in args.sizes.split(",")]
+        print(json.dumps(worker(args.worker.resolve(), sizes)), flush=True)
         return 0
     if len(args.trees) != 2:
         ap.error("give PARENT_DIR and CHANGE_DIR")
@@ -74,8 +78,8 @@ def main() -> int:
         for side in ((0, 1) if i % 2 == 0 else (1, 0)):
             run = subprocess.run(
                 [sys.executable, str(Path(__file__).resolve()), "--worker",
-                 str(trees[side])], cwd=trees[side], capture_output=True,
-                text=True, timeout=600)
+                 str(trees[side]), "--sizes", args.sizes], cwd=trees[side],
+                capture_output=True, text=True, timeout=600)
             if run.returncode != 0:
                 print(run.stdout[-4000:], run.stderr[-4000:], file=sys.stderr)
                 return 1

@@ -34,12 +34,25 @@
 // Q[sel_s, :] in place instead of a gathered (m, N) panel; it needs no
 // padding, and its keys carry the global flat index s·N + j, so the lowest
 // one wins ties as in the JAX wrapper (which pads Q with 0 and a, b with
-// -1e18).  It still zeroes its scratch with a memset before each launch.
+// -1e18).  Its rows are contiguous, so its lanes run along j on both of its
+// paths (swap_gain_plan_kind):
+//   * small (m·N <= kGainSmall = 4,096: the vision solve's 10 x 100, and
+//     up to where the grid path overtakes it on an H100): one block,
+//     thread slot t = flat index; every load of every entry is issued
+//     before one is used, and thread 0 writes the result: one launch, no
+//     scratch, no memset, no atomics;
+//   * grid: at most kGainBlocks blocks (four per SM on 132 SMs) stride
+//     over the panel, each thread with kGainLoads 16-byte loads of a row in
+//     flight where N % 4 == 0 (scalar loads otherwise), and meet in the
+//     same kind of 16-byte (key, arrival count) state as the tiled Q-free
+//     swap, which the last block re-zeroes.
 //
 // Numerics: Q = 0.5·((a·H_sj − δz) + (a·H_js − δz)) and delta =
 // (a_s + b_j) − 2Q are written with __fmul_rn / __fadd_rn / __fsub_rn so
 // nvcc's default --fmad=true cannot contract a·H − δz into an FMA: the
 // result is bitwise the plain version's.
+#include <type_traits>
+
 #include "common.cuh"
 
 namespace {
@@ -63,28 +76,6 @@ __global__ void masked_argmax_kernel(const float* __restrict__ diag,
         if (n == 0) best = fedgs::pack(NEG, 0u);
         *out_val = fedgs::unpack_val(best);
         *out_idx = static_cast<int64_t>(fedgs::unpack_idx(best));
-    }
-}
-
-// Fold each block's best key into scratch; the last block to arrive writes
-// (value, rank, j) of the winning flat index s·n + j.  scratch: [0] = uint64
-// best key, [1] (low half) = uint32 arrival count; zeroed by the launcher.
-__device__ __forceinline__ void finish_best(uint64_t best, int n,
-                                            unsigned long long* scratch,
-                                            float* out_val, int64_t* out_rank,
-                                            int64_t* out_j) {
-    best = fedgs::block_max_u64(best);
-    if (threadIdx.x == 0) {
-        atomicMax(&scratch[0], static_cast<unsigned long long>(best));
-        __threadfence();
-        unsigned int* count = reinterpret_cast<unsigned int*>(&scratch[1]);
-        if (atomicAdd(count, 1u) == gridDim.x - 1) {       // last block
-            const uint64_t key = atomicMax(&scratch[0], 0ull);
-            const uint32_t flat = fedgs::unpack_idx(key);
-            *out_val = fedgs::unpack_val(key);
-            *out_rank = static_cast<int64_t>(flat / n);
-            *out_j = static_cast<int64_t>(flat % n);
-        }
     }
 }
 
@@ -116,6 +107,25 @@ __device__ __forceinline__ void write_best(uint64_t key, int n,
     *out_val = fedgs::unpack_val(key);
     *out_rank = static_cast<int64_t>(flat / n);
     *out_j = static_cast<int64_t>(flat % n);
+}
+
+// Fold a block's best key into the (key, arrival count) state; the last
+// block to arrive writes the result and zeroes the state again.
+__device__ __forceinline__ void grid_finish(uint64_t best, int n,
+                                            unsigned long long* state,
+                                            float* out_val, int64_t* out_rank,
+                                            int64_t* out_j) {
+    best = fedgs::block_max_u64(best);
+    if (threadIdx.x == 0) {
+        unsigned int* arrived = reinterpret_cast<unsigned int*>(&state[1]);
+        atomicMax(&state[0], static_cast<unsigned long long>(best));
+        __threadfence();
+        if (atomicAdd(arrived, 1u) == gridDim.x * gridDim.y - 1) {
+            write_best(atomicExch(&state[0], 0ull), n, out_val, out_rank,
+                       out_j);
+            atomicExch(arrived, 0u);
+        }
+    }
 }
 
 // Small path: the whole m x n panel in one block of up to 1024 threads;
@@ -233,54 +243,113 @@ swap_best_tiled_kernel(const float* __restrict__ h, const float* __restrict__ z,
             static_cast<uint32_t>(s) * static_cast<uint32_t>(n) + j);
         best = key > best ? key : best;
     }
-    best = fedgs::block_max_u64(best);
-    if (threadIdx.x == 0) {
-        unsigned int* arrived = reinterpret_cast<unsigned int*>(&state[1]);
-        atomicMax(&state[0], static_cast<unsigned long long>(best));
-        __threadfence();
-        if (atomicAdd(arrived, 1u) == gridDim.x * gridDim.y - 1) {
-            write_best(atomicExch(&state[0], 0ull), n, out_val, out_rank,
-                       out_j);
-            atomicExch(arrived, 0u);
-        }
-    }
+    grid_finish(best, n, state, out_val, out_rank, out_j);
 }
 
-__global__ void swap_gain_kernel(const float* __restrict__ q,
-                                 const int64_t* __restrict__ sel,
-                                 const float* __restrict__ a,
-                                 const float* __restrict__ b, int m, int n,
-                                 unsigned long long* __restrict__ scratch,
-                                 float* __restrict__ out_val,
-                                 int64_t* __restrict__ out_rank,
-                                 int64_t* __restrict__ out_j) {
+// delta of one dense-Q panel entry (the plain version's op order), NaN ->
+// NEG, packed with its flat index f = s·n + j
+__device__ __forceinline__ uint64_t swap_gain_key(float as, float bj, float qv,
+                                                  uint32_t f) {
+    float delta = __fsub_rn(__fadd_rn(as, bj), __fmul_rn(2.0f, qv));
+    if (isnan(delta)) delta = NEG;
+    return fedgs::pack(delta, f);
+}
+
+// Dense swap, small path: one block of up to 1024 threads; thread slot t =
+// threadIdx.x + e·blockDim.x (e < E) is the flat index s·n + j itself, so a
+// warp reads consecutive entries of a row of Q.  The row's sel, a and b are
+// loaded for all E entries, then the Q values, then all are used.
+template <int E>
+__global__ void __launch_bounds__(1024)
+swap_gain_small_kernel(const float* __restrict__ q,
+                       const int64_t* __restrict__ sel,
+                       const float* __restrict__ a, const float* __restrict__ b,
+                       int m, int n, float* __restrict__ out_val,
+                       int64_t* __restrict__ out_rank,
+                       int64_t* __restrict__ out_j) {
     const uint32_t total = static_cast<uint32_t>(m) * static_cast<uint32_t>(n);
+    int64_t at[E];
+    float as[E], bj[E], qv[E];
+#pragma unroll
+    for (int e = 0; e < E; ++e) {
+        const uint32_t t = threadIdx.x + e * blockDim.x;
+        const uint32_t tc = t < total ? t : 0u, s = tc / n, j = tc - s * n;
+        at[e] = sel[s] * n + j;
+        as[e] = a[s];
+        bj[e] = b[j];
+    }
+#pragma unroll
+    for (int e = 0; e < E; ++e) qv[e] = q[at[e]];
     uint64_t best = 0ull;
-    for (uint32_t f = blockIdx.x * blockDim.x + threadIdx.x; f < total;
-         f += gridDim.x * blockDim.x) {
-        const uint32_t s = f / n, j = f % n;
-        const float qv = q[sel[s] * n + j];
-        float delta = __fsub_rn(__fadd_rn(a[s], b[j]), __fmul_rn(2.0f, qv));
-        if (isnan(delta)) delta = NEG;
-        const uint64_t key = fedgs::pack(delta, f);
+#pragma unroll
+    for (int e = 0; e < E; ++e) {
+        const uint32_t t = threadIdx.x + e * blockDim.x;
+        if (t >= total) continue;
+        const uint64_t key = swap_gain_key(as[e], bj[e], qv[e], t);
         best = key > best ? key : best;
     }
-    finish_best(best, n, scratch, out_val, out_rank, out_j);
+    best = fedgs::block_max_u64(best);
+    if (threadIdx.x == 0) write_best(best, n, out_val, out_rank, out_j);
+}
+
+constexpr int kGainThreads = 256;
+constexpr int kGainLoads = 4;        // loads in flight per thread and pass
+constexpr int kGainBlocks = 4 * 132;
+
+// Dense swap, grid path: the panel as m rows of n / W items of W floats (W
+// = 4, 16-byte loads, where n % 4 == 0 and q, b are 16-byte aligned; W = 1
+// otherwise), item it = s·(n / W) + c.  Each pass a thread loads the sel,
+// a and b of kGainLoads items, then their Q values, then folds their keys.
+template <int W>
+__global__ void __launch_bounds__(kGainThreads)
+swap_gain_grid_kernel(const float* __restrict__ q,
+                      const int64_t* __restrict__ sel,
+                      const float* __restrict__ a, const float* __restrict__ b,
+                      int m, int n, unsigned long long* __restrict__ state,
+                      float* __restrict__ out_val,
+                      int64_t* __restrict__ out_rank,
+                      int64_t* __restrict__ out_j) {
+    using V = typename std::conditional<W == 4, float4, float>::type;
+    const uint32_t per_row = static_cast<uint32_t>(n) / W;
+    const uint32_t items = static_cast<uint32_t>(m) * per_row;
+    const uint32_t step = gridDim.x * kGainThreads * kGainLoads;
+    uint64_t best = 0ull;
+    for (uint32_t base = blockIdx.x * kGainThreads * kGainLoads; base < items;
+         base += step) {
+        uint32_t f[kGainLoads];
+        int64_t at[kGainLoads];
+        float as[kGainLoads];
+        V bv[kGainLoads], qv[kGainLoads];
+#pragma unroll
+        for (int u = 0; u < kGainLoads; ++u) {
+            const uint32_t it = base + threadIdx.x + u * kGainThreads;
+            const uint32_t ic = it < items ? it : 0u;
+            const uint32_t s = ic / per_row, j = (ic - s * per_row) * W;
+            f[u] = it < items ? s * static_cast<uint32_t>(n) + j : 0xffffffffu;
+            at[u] = sel[s] * n + j;
+            as[u] = a[s];
+            bv[u] = *reinterpret_cast<const V*>(b + j);
+        }
+#pragma unroll
+        for (int u = 0; u < kGainLoads; ++u)
+            qv[u] = *reinterpret_cast<const V*>(q + at[u]);
+#pragma unroll
+        for (int u = 0; u < kGainLoads; ++u) {
+            if (f[u] == 0xffffffffu) continue;
+            const float* bb = reinterpret_cast<const float*>(&bv[u]);
+            const float* qq = reinterpret_cast<const float*>(&qv[u]);
+#pragma unroll
+            for (int l = 0; l < W; ++l) {
+                const uint64_t key = swap_gain_key(as[u], bb[l], qq[l],
+                                                   f[u] + l);
+                best = key > best ? key : best;
+            }
+        }
+    }
+    grid_finish(best, n, state, out_val, out_rank, out_j);
 }
 
 __global__ void empty_kernel() {}
-
-constexpr int kSwapThreads = 256;
-
-// Grid of a swap reduction over an m x n panel: one thread per entry, at
-// most 8 blocks per SM on 132 SMs (the rest grid-stride).
-int swap_blocks(int m, int n) {
-    const long long total = static_cast<long long>(m) * n;
-    long long blocks = (total + kSwapThreads - 1) / kSwapThreads;
-    if (blocks > 1056) blocks = 1056;
-    if (blocks < 1) blocks = 1;
-    return static_cast<int>(blocks);
-}
 
 }  // namespace
 
@@ -350,18 +419,78 @@ extern "C" int swap_best_launch(const float* h, const float* z, float scale,
     return static_cast<int>(cudaGetLastError());
 }
 
+// The dense swap's small path serves panels of up to kGainSmall entries;
+// forced, it takes at most kGainSmallMost (E <= 8).
+constexpr long long kGainSmall = 4096;
+constexpr int kGainSmallMost = 8192;
+
+// The path swap_gain_launch takes for an m x n panel: 0 small, 1 grid.
+extern "C" int swap_gain_plan_kind(int m, int n) {
+    return static_cast<long long>(m) * n <= kGainSmall ? 0 : 1;
+}
+
+namespace {
+
+template <int E>
+void launch_gain_small(int threads, cudaStream_t s, const float* q,
+                       const int64_t* sel, const float* a, const float* b,
+                       int m, int n, float* out_val, int64_t* out_rank,
+                       int64_t* out_j) {
+    swap_gain_small_kernel<E><<<1, threads, 0, s>>>(q, sel, a, b, m, n,
+                                                    out_val, out_rank, out_j);
+}
+
+}  // namespace
+
 // q (n, n) f32 dense Q; sel (m,) int64 row indices in range; a (m,), b (n,)
-// f32 with the -1e18 sentinel on invalid entries; scratch 2 x uint64;
-// outputs () f32, () int64, () int64.  m·n < 2^32.
+// f32 with the -1e18 sentinel on invalid entries; outputs () f32, ()
+// int64, () int64; kind: 0 small or 1 grid (swap_gain_plan_kind's path, or
+// the other one to time the two; the small one takes at most 8,192
+// entries); state: the grid path's 2 x uint64, zero, used on `stream` alone
+// (null for the small path).  0 < m·n < 2^31.
 extern "C" int swap_gain_launch(const float* q, const int64_t* sel,
                                 const float* a, const float* b, int m, int n,
-                                unsigned long long* scratch, float* out_val,
-                                int64_t* out_rank, int64_t* out_j,
-                                void* stream) {
+                                int kind, unsigned long long* state,
+                                float* out_val, int64_t* out_rank,
+                                int64_t* out_j, void* stream) {
     cudaStream_t s = static_cast<cudaStream_t>(stream);
-    cudaMemsetAsync(scratch, 0, 2 * sizeof(unsigned long long), s);
-    swap_gain_kernel<<<swap_blocks(m, n), kSwapThreads, 0, s>>>(
-        q, sel, a, b, m, n, scratch, out_val, out_rank, out_j);
+    const long long total = static_cast<long long>(m) * n;
+    if (kind == 0) {
+        if (total > kGainSmallMost)
+            return static_cast<int>(cudaErrorInvalidValue);
+        const int threads = total < 1024 ? (static_cast<int>(total) + 31) / 32 * 32
+                                         : 1024;
+        const int e = static_cast<int>((total + threads - 1) / threads);
+        if (e <= 1)
+            launch_gain_small<1>(threads, s, q, sel, a, b, m, n, out_val,
+                                 out_rank, out_j);
+        else if (e <= 2)
+            launch_gain_small<2>(threads, s, q, sel, a, b, m, n, out_val,
+                                 out_rank, out_j);
+        else if (e <= 4)
+            launch_gain_small<4>(threads, s, q, sel, a, b, m, n, out_val,
+                                 out_rank, out_j);
+        else
+            launch_gain_small<8>(threads, s, q, sel, a, b, m, n, out_val,
+                                 out_rank, out_j);
+    } else {
+        if (state == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+        const bool vec = n % 4 == 0 &&
+            (reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(b)) %
+                16 == 0;
+        const long long items = vec ? total / 4 : total;
+        long long blocks = (items + kGainThreads * kGainLoads - 1) /
+                           (kGainThreads * kGainLoads);
+        if (blocks > kGainBlocks) blocks = kGainBlocks;
+        if (vec)
+            swap_gain_grid_kernel<4><<<static_cast<int>(blocks), kGainThreads,
+                                       0, s>>>(q, sel, a, b, m, n, state,
+                                               out_val, out_rank, out_j);
+        else
+            swap_gain_grid_kernel<1><<<static_cast<int>(blocks), kGainThreads,
+                                       0, s>>>(q, sel, a, b, m, n, state,
+                                               out_val, out_rank, out_j);
+    }
     return static_cast<int>(cudaGetLastError());
 }
 

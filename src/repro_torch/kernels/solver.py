@@ -16,6 +16,10 @@ quickstart's 6 × 30) in one block with no scratch and no atomics, and a
 larger one in 32 × 64 tiles that meet through a 16-byte state kept per
 stream (and per CUDA-graph capture), zeroed once when made and again by the
 kernel's last block, so no call needs a memset (``swap_best_fused_plan``).
+The dense swap has the same two kinds of path (``swap_gain_plan``): one
+block for a small panel (the vision solve's 10 × 100), else a grid of at
+most four blocks per SM reading Q's rows with 16-byte loads, meeting in the
+same per-stream state.
 Q = sym(a·H) − diag(z) is never built: ``q_diag``/``q_row``
 rebuild what the greedy pass needs, and the swap kernel rebuilds each Q
 entry from H where it is consumed, with no FMA contraction (the op order
@@ -42,7 +46,9 @@ SWAP_FUSED_KERNEL = Kernel("solver", "swap_best_launch",
                            [P, P, F, P, P, P, P, I, I, I, P, P, P, P, P])
 SWAP_FUSED_PLANS = ("small", "tiled")
 SWAP_GAIN_KERNEL = Kernel("solver", "swap_gain_launch",
-                          [P, P, P, P, I, I, P, P, P, P, P])
+                          [P, P, P, P, I, I, I, P, P, P, P, P])
+SWAP_GAIN_PLANS = ("small", "grid")
+SWAP_GAIN_SMALL_MOST = 8192    # entries the small path takes when forced
 
 
 # ----------------------------------------------------- factored-Q providers
@@ -131,7 +137,7 @@ def swap_best_fused_cuda(h, z, scale: float, sel, valid, a, b, *,
     """The CUDA kernel; ``plan`` forces the ``"small"`` (at most 4,096
     entries) or the ``"tiled"`` path, to time the two against each other;
     None takes :func:`swap_best_fused_plan`'s.  The tiled path's blocks meet
-    in the state :func:`_tiled_state` keeps for the current stream."""
+    in the state :func:`_grid_state` keeps for the current stream."""
     n, m = h.shape[0], sel.shape[0]
     if not all(t.is_cuda for t in (h, z, sel, valid, a, b)):
         raise ValueError("swap_best_fused_cuda takes CUDA tensors")
@@ -154,7 +160,7 @@ def swap_best_fused_cuda(h, z, scale: float, sel, valid, a, b, *,
     kind = SWAP_FUSED_PLANS.index(plan or swap_best_fused_plan(m, n))
     with torch.cuda.device(h.device):
         stream = stream_of(hh)
-        state = _tiled_state(h.device, stream) if kind else None
+        state = _grid_state(h.device, stream) if kind else None
         SWAP_FUSED_KERNEL(hh.data_ptr(), zz.data_ptr(), scale, ss.data_ptr(),
                           vv.data_ptr(), aa.data_ptr(), bb.data_ptr(), m, n,
                           kind, None if state is None else state.data_ptr(),
@@ -163,21 +169,32 @@ def swap_best_fused_cuda(h, z, scale: float, sel, valid, a, b, *,
     return best, rank, j
 
 
-_swap_plans: dict[tuple[int, int], str] = {}
+# (C function, m, n) -> plan name
+_plans: dict[tuple[str, int, int], str] = {}
+
+
+def _plan(symbol: str, names: tuple[str, ...], m: int, n: int) -> str:
+    if (symbol, m, n) not in _plans:
+        fn = getattr(library("solver"), symbol)
+        fn.argtypes, fn.restype = [I, I], ctypes.c_int
+        _plans[symbol, m, n] = names[fn(m, n)]
+    return _plans[symbol, m, n]
 
 
 def swap_best_fused_plan(m: int, n: int) -> str:
     """The path swap_best_fused_cuda takes for an (m, N) panel: ``small``
     (one block, one launch) or ``tiled``."""
-    if (m, n) not in _swap_plans:
-        fn = library("solver").swap_best_plan_kind
-        fn.argtypes, fn.restype = [I, I], ctypes.c_int
-        _swap_plans[m, n] = SWAP_FUSED_PLANS[fn(m, n)]
-    return _swap_plans[m, n]
+    return _plan("swap_best_plan_kind", SWAP_FUSED_PLANS, m, n)
 
 
-# (device index, stream, capture id or 0) -> the tiled path's state
-_tiled_states: dict[tuple[int, int, int], torch.Tensor] = {}
+def swap_gain_plan(m: int, n: int) -> str:
+    """The path swap_gain_cuda takes for an (m, N) panel: ``small`` (one
+    block, one launch) or ``grid``."""
+    return _plan("swap_gain_plan_kind", SWAP_GAIN_PLANS, m, n)
+
+
+# (device index, stream, capture id or 0) -> the grid paths' state
+_grid_states: dict[tuple[int, int, int], torch.Tensor] = {}
 
 
 def _capture_id(stream: int) -> int:
@@ -189,23 +206,26 @@ def _capture_id(stream: int) -> int:
     return int(fn(stream))
 
 
-def _tiled_state(device: torch.device, stream: int) -> torch.Tensor:
-    """The tiled swap's 16-byte (key, arrival count) state for this
-    stream: zeroed once when made, on the stream, and left zero by every
-    launch's last block, so calls in stream order share it with no memset,
-    while calls on other streams, which may overlap, each have their own.
-    A CUDA-graph capture gets a state of its own, made in the graph's
-    memory (its one zeroing is a node of that graph), so two graphs
-    replayed at once never share one.  A stream holds one capture at a
-    time: a new capture on it drops the entry of the one before, whose
-    graph keeps its memory."""
+def _grid_state(device: torch.device, stream: int) -> torch.Tensor:
+    """The 16-byte (key, arrival count) state in which the blocks of the
+    Q-free swap's tiled path and of the dense swap's grid path meet, for
+    this stream: zeroed once when made, on the stream, and left zero by
+    every launch's last block, so calls in stream order share it with no
+    memset, while calls on other streams, which may overlap, each have
+    their own.  The two kernels share it safely for the same reason: two
+    launches on one stream never overlap, and each leaves it zero.  A
+    CUDA-graph capture gets a state of its own, made in the graph's memory
+    (its one zeroing is a node of that graph), so two graphs replayed at
+    once never share one.  A stream holds one capture at a time: a new
+    capture on it drops the entry of the one before, whose graph keeps its
+    memory."""
     key = (device.index, stream, _capture_id(stream))
-    state = _tiled_states.get(key)
+    state = _grid_states.get(key)
     if state is None:
-        for k in [k for k in _tiled_states if k[:2] == key[:2] and k[2]]:
-            del _tiled_states[k]
+        for k in [k for k in _grid_states if k[:2] == key[:2] and k[2]]:
+            del _grid_states[k]
         state = torch.zeros(2, dtype=torch.int64, device=device)
-        _tiled_states[key] = state
+        _grid_states[key] = state
     return state
 
 
@@ -235,7 +255,12 @@ def swap_gain_plain(q, sel, a, b):
     return delta.reshape(-1)[flat], flat // n, flat % n
 
 
-def swap_gain_cuda(q, sel, a, b):
+def swap_gain_cuda(q, sel, a, b, *, plan: str | None = None):
+    """The CUDA kernel; ``plan`` forces the ``"small"`` (at most
+    :data:`SWAP_GAIN_SMALL_MOST` entries) or the ``"grid"`` path, to time
+    the two against each other; None takes :func:`swap_gain_plan`'s.  The
+    grid path's blocks meet in the state :func:`_grid_state` keeps for the
+    current stream."""
     n, m = q.shape[0], sel.shape[0]
     if not all(t.is_cuda for t in (q, sel, a, b)):
         raise ValueError("swap_gain_cuda takes CUDA tensors")
@@ -248,15 +273,18 @@ def swap_gain_cuda(q, sel, a, b):
     ss = sel.to(torch.int64).contiguous()
     aa = a.to(torch.float32).contiguous()
     bb = b.to(torch.float32).contiguous()
-    scratch = torch.empty(2, dtype=torch.int64, device=q.device)
     best = torch.empty((), dtype=torch.float32, device=q.device)
     rank = torch.empty((), dtype=torch.int64, device=q.device)
     j = torch.empty((), dtype=torch.int64, device=q.device)
+    kind = SWAP_GAIN_PLANS.index(plan or swap_gain_plan(m, n))
     with torch.cuda.device(q.device):
+        stream = stream_of(qq)
+        state = _grid_state(q.device, stream) if kind else None
         SWAP_GAIN_KERNEL(qq.data_ptr(), ss.data_ptr(), aa.data_ptr(),
-                         bb.data_ptr(), m, n, scratch.data_ptr(),
+                         bb.data_ptr(), m, n, kind,
+                         None if state is None else state.data_ptr(),
                          best.data_ptr(), rank.data_ptr(), j.data_ptr(),
-                         stream_of(qq))
+                         stream)
     return best, rank, j
 
 

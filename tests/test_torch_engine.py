@@ -69,7 +69,8 @@ _FORBIDDEN = re.compile(
     r"from\s+repro(\.|\s)|.*\bimport\s+repro(\.|\s|$))")
 
 
-@pytest.mark.parametrize("target", ["src/repro_torch", "chip_smoke.py"])
+@pytest.mark.parametrize("target", ["src/repro_torch", "chip_smoke.py",
+                                    "kernel_ab.py"])
 def test_port_imports_no_jax_and_no_repro(target):
     path = ROOT / target
     files = sorted(path.rglob("*.py")) if path.is_dir() else [path]

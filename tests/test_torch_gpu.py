@@ -107,11 +107,55 @@ def test_fused_adjacency_kernel_vs_plain(cuda, n):
     np.testing.assert_allclose(r_k[fin], r_p[fin], rtol=1e-4, atol=TINY)
 
 
+def _fw_same_on_every_plan(r):
+    """The kernel on its own plan and on every plan that takes N: bitwise
+    the plain version."""
+    n = r.shape[0]
+    want = tfw.floyd_warshall_plain(r)
+    assert torch.equal(tfw.floyd_warshall_cuda(r), want)
+    for plan in tfw.PLANS:
+        if plan != "single" or n <= tfw.SINGLE_MOST:
+            assert torch.equal(tfw.floyd_warshall_cuda(r, plan=plan), want), \
+                (n, plan)
+
+
 @pytest.mark.parametrize("n", SIZES[:3])
 def test_floyd_warshall_kernel_vs_plain(cuda, n):
     u = _features(np.random.default_rng(n), n).to(cuda)
     r, _ = tgf.fused_adjacency_plain(u, eps=0.1, sigma2=0.01)
     assert torch.equal(tfw.floyd_warshall_cuda(r), tfw.floyd_warshall_plain(r))
+    _fw_same_on_every_plan(r)
+
+
+def _fw_adjacency(n, seed, inf_frac=0.4):
+    """A directed adjacency, ``inf_frac`` of entries inf, weights in [0, 10);
+    at (130, 0) the fixture on which the blocked order that reads the final
+    pivot panels (the TPU kernel's) parts from the per-pivot order
+    (test_torch_graph.py holds a plain model of both)."""
+    rng = np.random.default_rng(seed)
+    r = (rng.random((n, n)) * 10).astype(np.float32)
+    r[rng.random((n, n)) < inf_frac] = np.inf
+    np.fill_diagonal(r, 0)
+    return torch.from_numpy(r)
+
+
+# 1, the pivot blocks' edges T - 1, T, T + 1, 2T + 1 (T = 32 and 64), and
+# 238 and 239 (where one block's shared memory would run out), and the
+# single plan's largest N (8 x 8 cells per thread) and one past
+@pytest.mark.parametrize("n", [1, 31, 32, 33, 63, 64, 65, 129, 238, 239, 256,
+                               257])
+def test_floyd_warshall_plans_at_tile_edges(cuda, n):
+    _fw_same_on_every_plan(_fw_adjacency(n, n).to(cuda))
+
+
+def test_floyd_warshall_on_the_sensitive_fixture(cuda):
+    _fw_same_on_every_plan(_fw_adjacency(130, 0).to(cuda))
+
+
+def test_floyd_warshall_single_plan_rejects_a_large_matrix(cuda):
+    with pytest.raises(ValueError):
+        tfw.floyd_warshall_cuda(torch.zeros(257, 257, device=cuda),
+                                plan="single")
 
 
 @pytest.mark.parametrize("n", SIZES)
@@ -589,13 +633,12 @@ def test_precomputed_build_on_card_equals_cpu(cuda):
         np.testing.assert_allclose(g[fin], w[fin], rtol=1e-4, atol=40 * TINY)
 
 
-@pytest.mark.parametrize("n,m", [(100, 10), (30, 3), (1024, 103),
-                                 (4096, 410)])
-def test_swap_gain_kernel_vs_plain(cuda, n, m):
-    rng = np.random.default_rng(n + m)
+def _gain_args(rng, n, m, dev):
+    """A dense-Q swap panel of m selected rows plus two pad rows (clamped to
+    N − 1, a = −1e18), with a NaN-poisoned column 3."""
     q = _h(rng, n) - torch.diag(torch.as_tensor(rng.normal(size=n),
                                                 dtype=torch.float32))
-    q[:, 3] = float("nan")
+    q[:, 3 % n] = float("nan")
     s = np.zeros(n, bool)
     s[rng.choice(n, m, replace=False)] = True
     sel = torch.as_tensor(np.concatenate([np.flatnonzero(s), [n - 1, n - 1]]))
@@ -604,11 +647,147 @@ def test_swap_gain_kernel_vs_plain(cuda, n, m):
     a = torch.where(valid, (-2.0 * rr)[sel], torch.tensor(NEG))
     b = torch.where(torch.as_tensor(~s & (rng.random(n) < 0.7)), 2.0 * rr,
                     torch.tensor(NEG))
-    args = [x.to(cuda) for x in (q, sel, a, b)]
-    k = tsolver.swap_gain_cuda(*args)
+    return [x.to(dev) for x in (q, sel, a, b)]
+
+
+def _gain_same(args, **kw):
+    k = tsolver.swap_gain_cuda(*args, **kw)
     p = tsolver.swap_gain_plain(*args)
+    assert all(torch.equal(x, y) for x, y in zip(k, p)), (k, p)
+    return k
+
+
+# the dense swap's small path's last panel (``swap_gain_plan_kind``)
+GAIN_SMALL = 4096
+
+
+def _gain_paths(entries):
+    """The paths that take a panel of this many entries."""
+    return tsolver.SWAP_GAIN_PLANS \
+        if entries <= tsolver.SWAP_GAIN_SMALL_MOST else ("grid",)
+
+
+@pytest.mark.parametrize("n,m", [(100, 10), (30, 3), (1024, 103),
+                                 (4096, 410)])
+def test_swap_gain_kernel_vs_plain(cuda, n, m):
+    args = _gain_args(np.random.default_rng(n + m), n, m, cuda)
+    k = _gain_same(args)
     assert float(k[0]) > NEG / 2 and int(k[2]) != 3
-    assert all(torch.equal(x, y) for x, y in zip(k, p))
+    entries = (m + 2) * n
+    want = "small" if entries <= GAIN_SMALL else "grid"
+    assert tsolver.swap_gain_plan(m + 2, n) == want
+    for plan in _gain_paths(entries):
+        _gain_same(args, plan=plan)
+
+
+# panels of (m + 2)·N = GAIN_SMALL − 1, GAIN_SMALL, GAIN_SMALL + 1 entries,
+# and an N that is no multiple of 4 (the grid path's scalar loads)
+@pytest.mark.parametrize("n,m", [(585, 5), (1024, 2), (241, 15), (1001, 48)])
+def test_swap_gain_kernel_at_its_threshold(cuda, n, m):
+    args = _gain_args(np.random.default_rng(n), n, m, cuda)
+    entries = (m + 2) * n
+    if n != 1001:
+        assert tsolver.swap_gain_plan(m + 2, n) == \
+            ("small" if entries <= GAIN_SMALL else "grid")
+    _gain_same(args)
+    for plan in _gain_paths(entries):
+        _gain_same(args, plan=plan)
+
+
+@pytest.mark.parametrize("n,m", [(100, 10), (1024, 102)])
+def test_swap_gain_kernel_all_masked_and_all_equal(cuda, n, m):
+    """No column to swap in (b all −1e18): (−1e18, 0, 0); equal deltas
+    everywhere: rank 0, column 0.  On each path the panel fits."""
+    rng = np.random.default_rng(n)
+    masked = _gain_args(rng, n, m, cuda)
+    masked[3] = torch.full((n,), NEG, device=cuda)
+    equal = _gain_args(rng, n, m, cuda)
+    equal[0] = torch.full((n, n), 0.25, device=cuda)
+    equal[2] = torch.full((m + 2,), 1.5, device=cuda)
+    equal[3] = torch.full((n,), -0.5, device=cuda)
+    for plan in _gain_paths((m + 2) * n):
+        k = _gain_same(masked, plan=plan)
+        assert (float(k[0]), int(k[1]), int(k[2])) == \
+            (float(np.float32(NEG)), 0, 0)
+        k = _gain_same(equal, plan=plan)
+        assert (int(k[1]), int(k[2])) == (0, 0)
+
+
+@pytest.mark.parametrize("n,m", [(100, 10), (4096, 410)])
+def test_swap_gain_kernel_back_to_back_without_memset(cuda, n, m):
+    """Calls in a row on one stream, with no memset and no sync between
+    them, the Q-free swap's tiled calls between them (the two share the
+    stream's state): the state is zero again for each."""
+    args = [_gain_args(np.random.default_rng(seed), n, m, cuda)
+            for seed in range(4)]
+    fused = _swap_args(np.random.default_rng(9), n, m, cuda)
+    outs = []
+    for a in args:
+        outs.append(tsolver.swap_gain_cuda(*a, plan="grid"))
+        tsolver.swap_best_fused_cuda(*fused, plan="tiled")
+    outs += [tsolver.swap_gain_cuda(*a) for a in args]
+    for a, k in zip(args + args, outs):
+        p = tsolver.swap_gain_plain(*a)
+        assert all(torch.equal(x, y) for x, y in zip(k, p))
+    _swap_same(fused, plan="tiled")
+
+
+@pytest.mark.parametrize("n,m", [(100, 10), (130, 13), (4096, 410)])
+def test_swap_gain_kernel_replays_from_a_cuda_graph(cuda, n, m):
+    """One call captured in a CUDA graph, replayed on new inputs copied
+    into its buffers: bitwise the plain version each time."""
+    static = _gain_args(np.random.default_rng(0), n, m, cuda)
+    tsolver.swap_gain_cuda(*static)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = tsolver.swap_gain_cuda(*static)
+    for seed in (1, 2, 3):
+        for dst, src in zip(static, _gain_args(np.random.default_rng(seed), n,
+                                               m, cuda)):
+            dst.copy_(src)
+        graph.replay()
+        torch.cuda.synchronize()
+        want = tsolver.swap_gain_plain(*static)
+        assert all(torch.equal(x, y) for x, y in zip(out, want))
+
+
+@pytest.mark.parametrize("mode", ["eager", "graphs"])
+def test_swap_gain_kernel_on_two_streams_at_once(cuda, mode):
+    """Grid-path calls on two streams with no sync between them, as calls
+    or as two captured graphs replayed: each stream (each graph) has its
+    own cross-block state, so every result is the plain version's."""
+    n, m = 4096, 410
+    args = [_gain_args(np.random.default_rng(seed), n, m, cuda)
+            for seed in (5, 6)]
+    streams = [torch.cuda.Stream() for _ in args]
+    if mode == "graphs":
+        graphs, outs = [], []
+        for a in args:
+            tsolver.swap_gain_cuda(*a, plan="grid")
+            torch.cuda.synchronize()
+            g = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(g):
+                outs.append(tsolver.swap_gain_cuda(*a, plan="grid"))
+            graphs.append(g)
+        torch.cuda.synchronize()
+        for _ in range(16):
+            for g, st in zip(graphs, streams):
+                with torch.cuda.stream(st):
+                    g.replay()
+        results = [[o] for o in outs]
+    else:
+        torch.cuda.synchronize()
+        results = [[], []]
+        for _ in range(16):
+            for r, a, st in zip(results, args, streams):
+                with torch.cuda.stream(st):
+                    r.append(tsolver.swap_gain_cuda(*a, plan="grid"))
+    torch.cuda.synchronize()
+    for a, r in zip(args, results):
+        want = tsolver.swap_gain_plain(*a)
+        for k in r:
+            assert all(torch.equal(x, y) for x, y in zip(k, want))
 
 
 @pytest.mark.parametrize("n", [7, 100, 1024])

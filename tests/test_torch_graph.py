@@ -148,6 +148,66 @@ def test_floyd_warshall_bitwise_on_oracle_adjacency(n):
     assert np.array_equal(tops.floyd_warshall(_t(r)).numpy(), h)
 
 
+@pytest.mark.parametrize("n", [31, 32, 33, 65, 129])
+def test_floyd_warshall_bitwise_at_tile_edges(rng, n):
+    """Around the blocked plan's pivot blocks of 32 and 64."""
+    r = _adjacency(rng, n)
+    want = np.asarray(jax_fw_ref(jnp.asarray(r)))
+    assert np.array_equal(tops.floyd_warshall(_t(r)).numpy(), want)
+
+
+def _sensitive_adjacency(n=130, seed=0):
+    """A directed adjacency, 40% of entries inf, weights in [0, 10): the
+    fixture on which the two blocked orders below part."""
+    rng = np.random.default_rng(seed)
+    r = (rng.random((n, n)) * 10).astype(np.float32)
+    r[rng.random((n, n)) < 0.4] = np.inf
+    np.fill_diagonal(r, 0)
+    return torch.from_numpy(r)
+
+
+def _blocked_order(h, t, *, snapshots):
+    """A plain model of the CUDA kernel's blocked plan with pivot blocks of
+    t: per block, the pivot rows and columns step through the block's
+    pivots k ascending, then every other cell steps through them with h_ik
+    and h_kj read from the snapshots (their values at step k) or, with
+    ``snapshots=False``, from the final pivot panels (the TPU kernel's
+    order)."""
+    h = h.clone()
+    n = h.shape[0]
+    for k0 in range(0, n, t):
+        ks = range(k0, min(n, k0 + t))
+        inb = torch.zeros(n, dtype=torch.bool)
+        inb[k0:k0 + t] = True
+        snaps = []
+        for k in ks:
+            col, row = h[:, k].clone(), h[k, :].clone()
+            snaps.append((col, row))
+            h[inb, :] = torch.minimum(h[inb, :], col[inb, None] + row[None, :])
+            h[:, inb] = torch.minimum(h[:, inb], col[:, None] + row[None, inb])
+        rest = torch.nonzero(~inb)[:, 0]
+        sub = h[rest[:, None], rest[None, :]]
+        for k, (col, row) in zip(ks, snaps):
+            if not snapshots:
+                col, row = h[:, k], h[k, :]
+            sub = torch.minimum(sub, col[rest, None] + row[None, rest])
+        h[rest[:, None], rest[None, :]] = sub
+    return h
+
+
+@pytest.mark.parametrize("t", [32, 64])
+def test_blocked_order_with_snapshots_is_the_per_pivot_order(t):
+    """The kernel's blocked order is bitwise the per-pivot reference (the
+    port's and repro's); the final-panel order is not, on this fixture, so
+    the bitwise gate on the card can tell the two apart."""
+    r = _sensitive_adjacency()
+    want = floyd_warshall_ref(r)
+    assert np.array_equal(want.numpy(), np.asarray(jax_fw_ref(jnp.asarray(
+        r.numpy()))))
+    assert torch.equal(_blocked_order(r, t, snapshots=True), want)
+    assert not torch.equal(_blocked_order(r, t, snapshots=False), want)
+
+
 def test_floyd_warshall_disconnected_stays_inf():
     r = np.full((8, 8), np.inf, np.float32)
     np.fill_diagonal(r, 0)
