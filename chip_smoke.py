@@ -26,6 +26,16 @@ Phases, each printing one JSON line (any failure exits non-zero):
               dense-Q swap at (m, N) = (ceil(0.1 N), N) and (10, 100); the
               graph routes: fused R == staged R and build_h's H ==
               cap(staged H), bitwise, at (30, 610) and (100, 10).
+     The fused adjacency at every SIZES entry and at FUSED_EDGE_SHAPES:
+              every plan that takes the shape (small, split, serial, big)
+              with either epilogue (its own launch, or the tile pass's last
+              block) held bitwise the staged kernels' R, lo/hi bitwise the
+              plain version's, then each timed beside the plan the call
+              takes.  The greedy argmax on both its plans (warp, block),
+              with and without the taken set S, at every SIZES entry and at
+              the warp plan's threshold ± 1, bitwise, then timed; beside
+              them the host time of its two 0-dim outputs against one
+              buffer viewed as both.
      The launch floor: an empty one-warp kernel's device_ms, the floor of
               every tiny kernel's row (a reading, not a gate).
      The Q-free swap at its small path's threshold ± 1 entry (the path
@@ -145,6 +155,12 @@ STAGED_SHAPES = tuple((n, 610) for n in SIZES) + ((100, 10), (100, 13946))
 # where the similarity's big plan (128x128 tiles) takes over on an H100 and
 # the largest size above: each is timed beside the serial plan (32x32)
 SIM_PLAN_SHAPES = ((2900, 300), (4096, 610))
+# the fused adjacency's other shapes: the 32-tile edges, N = 100 at the
+# quickstart's width, the vision oracle's label distributions and the
+# CNN's flat updates (each plan and epilogue timed: where the small plan
+# and the last block's epilogue stop paying is read from these rows)
+FUSED_EDGE_SHAPES = ((31, 610), (32, 610), (33, 610), (63, 610), (64, 610),
+                     (65, 610), (100, 610), (100, 10), (100, 13946))
 # the dense-Q swap's (m, N); the last is the vision solve's (phase 5 (c))
 SWAP_GAIN_SHAPES = tuple((math.ceil(0.1 * n), n) for n in SIZES) + ((10, 100),)
 FEDGS_KERNELS = ("pairwise_similarity", "adjacency", "floyd_warshall",
@@ -196,8 +212,8 @@ LM_ATOL, LM_RTOL = 5e-2, 2e-2
 
 # substrings of the port's kernel names (and of the memsets) in a profile
 PORT_KERNEL_KEYS = ("swap_best", "masked_argmax", "swap_gain", "memagg",
-                    "krum", "similarity", "adjacency", "stats_kernel",
-                    "fw_", "emset")
+                    "krum", "similarity", "adjacency", "fused_", "fw_",
+                    "emset")
 
 KERNEL_INFO = {
     "pairwise_similarity": (
@@ -326,11 +342,13 @@ def kernel_checks(np, torch, n: int, dev) -> dict:
     u = features(np, torch, n, seed=n, d=d).to(dev)
     tiny = float(np.finfo(np.float32).tiny)
 
-    # fused adjacency: lo/hi bitwise, same inf pattern, finite R rtol 1e-4
+    # fused adjacency: lo/hi bitwise the plain version's, R bitwise the
+    # staged kernels' R on every plan that takes N with either epilogue
+    # (held before any is timed), and the same inf pattern and finite R
+    # within rtol 1e-4 of the plain version
     r_k, s_k = gf.fused_adjacency_cuda(u, eps=0.1, sigma2=0.01)
     r_p, s_p = gf.fused_adjacency_plain(u, eps=0.1, sigma2=0.01)
-    if not torch.equal(s_k, s_p):
-        raise AssertionError(f"fused_adjacency N={n}: lo/hi {s_k} != {s_p}")
+    plans = fused_same_on_every_plan(torch, u, s_p, f"N={n}")
     if not torch.equal(torch.isinf(r_k), torch.isinf(r_p)):
         raise AssertionError(f"fused_adjacency N={n}: inf pattern differs")
     fin = torch.isfinite(r_p)
@@ -342,7 +360,11 @@ def kernel_checks(np, torch, n: int, dev) -> dict:
     b, by = bound(4 * n * d + 4 * n * n + 8, n * (n + 1) * d + 5 * n * n)
     rows["fused_adjacency"] = dict(
         max_abs_err=float(err.max()) if err.numel() else 0.0,
-        tolerance="lo/hi bitwise, inf pattern identical, finite R rtol 1e-4",
+        tolerance="lo/hi bitwise; R bitwise the staged kernels' R on every "
+                  "plan; against the plain version inf pattern identical, "
+                  "finite R rtol 1e-4",
+        plan=gf.fused_adjacency_plan(n, d),
+        epilogue=gf.fused_adjacency_epilogue(n),
         ms=cuda_ms(torch, lambda: gf.fused_adjacency_cuda(u, eps=0.1,
                                                           sigma2=0.01)),
         device_ms=device_ms(torch, lambda: gf.fused_adjacency_cuda(
@@ -352,6 +374,7 @@ def kernel_checks(np, torch, n: int, dev) -> dict:
         bound_ms=b, bound_by=by, library_ms=None,
         library="none: no single PyTorch call computes the thresholded "
                 "min-max adjacency")
+    rows.update(fused_plan_rows(torch, u, plans))
 
     # Floyd–Warshall on the plain R: bitwise in the plan it takes and in
     # every other plan that takes N (held before it is timed)
@@ -395,18 +418,21 @@ def kernel_checks(np, torch, n: int, dev) -> dict:
 
     s, sel, r = selection(m)
     mask = avail & ~s
-    kv, ki = sv.masked_argmax_cuda(diag, r, mask)
-    pv, pi = sv.masked_argmax_plain(diag, r, mask)
+    # the greedy step hands the kernel A_t and S (taken): both forms, both
+    # plans, and the all-masked lane, bitwise (held before any is timed)
     none = torch.zeros(n, dtype=torch.bool, device=dev)
+    argmax_same_on_every_plan(torch, diag, r, [(mask, None), (avail, s),
+                                               (none, None), (avail, avail)],
+                              f"N={n}")
     ev, ei = sv.masked_argmax_cuda(diag, r, none)
-    if not (torch.equal(kv, pv) and torch.equal(ki, pi)):
-        raise AssertionError(f"greedy_argmax N={n}: ({kv}, {ki}) != ({pv}, {pi})")
     if float(ev) != float(np.float32(NEG)) or int(ei) != 0:
         raise AssertionError(f"greedy_argmax N={n}: all-masked gave ({ev}, {ei})")
     gain = torch.where(mask, diag + 2.0 * r, torch.full_like(r, NEG))
     b, by = bound(n * (4 + 4 + 1) + 12, 4 * n)
+    b_taken, _ = bound(n * (4 + 4 + 1 + 1) + 12, 4 * n)
     rows["greedy_argmax"] = dict(
         max_abs_err=0.0, tolerance="bitwise (value and index)",
+        plan=sv.masked_argmax_plan(n),
         ms=cuda_ms(torch, lambda: sv.masked_argmax_cuda(diag, r, mask)),
         device_ms=device_ms(torch, lambda: sv.masked_argmax_cuda(diag, r,
                                                                  mask)),
@@ -414,7 +440,28 @@ def kernel_checks(np, torch, n: int, dev) -> dict:
         bound_ms=b, bound_by=by,
         library_ms=cuda_ms(torch, lambda: torch.argmax(gain)),
         library_device_ms=device_ms(torch, lambda: torch.argmax(gain)),
-        library="torch.argmax over the masked gain")
+        library="torch.argmax over the masked gain",
+        # host time of the wrapper's two 0-dim outputs against one buffer
+        # viewed as both (ms per call, host clock, 2,000 calls each)
+        alloc_two_ms=host_ms(lambda: (
+            torch.empty((), dtype=torch.float32, device=dev),
+            torch.empty((), dtype=torch.int64, device=dev))),
+        alloc_one_viewed_ms=host_ms(lambda: one_buffer(torch, dev)))
+    # the main path's call: A_t and S read in the kernel
+    rows["greedy_argmax/taken"] = dict(
+        rows["greedy_argmax"],
+        ms=cuda_ms(torch, lambda: sv.masked_argmax_cuda(diag, r, avail, s)),
+        device_ms=device_ms(torch, lambda: sv.masked_argmax_cuda(
+            diag, r, avail, s)),
+        plain_ms=cuda_ms(torch, lambda: sv.masked_argmax_plain(diag, r,
+                                                               avail, s)),
+        bound_ms=b_taken)
+    for q in sv.ARGMAX_PLANS:
+        rows[f"greedy_argmax/plan={q}"] = dict(
+            plan=q, ms=cuda_ms(torch, lambda: sv.masked_argmax_cuda(
+                diag, r, mask, plan=q)),
+            device_ms=device_ms(torch, lambda: sv.masked_argmax_cuda(
+                diag, r, mask, plan=q)))
 
     for m in swap_panels(n):
         s, sel, r = selection(m)
@@ -440,6 +487,127 @@ def kernel_checks(np, torch, n: int, dev) -> dict:
             bound_ms=b, bound_by=by, library_ms=None,
             library="none: no single PyTorch call rebuilds Q and arg-maxes it")
     return rows
+
+
+def fused_same_on_every_plan(torch, u, want_stats, what: str) -> list[str]:
+    """The fused adjacency on u in every plan that takes its (N, d), with
+    either epilogue: lo/hi bitwise ``want_stats`` and R bitwise the staged
+    kernels' R.  Returns those plans."""
+    from repro_torch.kernels import graph_fused as gf
+    from repro_torch.kernels import pairwise_similarity as ps
+
+    v = ps.similarity_cuda(u)
+    want = ps.adjacency_cuda(v, torch.stack([torch.min(v), torch.max(v)]),
+                             eps=0.1, sigma2=0.01)
+    plans = gf.fused_adjacency_plans(*u.shape)
+    for q in [None, *plans]:
+        for e in (None, *gf.EPILOGUES):
+            r, stats = gf.fused_adjacency_cuda(u, eps=0.1, sigma2=0.01,
+                                               plan=q, epilogue=e)
+            if not (torch.equal(stats, want_stats) and torch.equal(r, want)):
+                raise AssertionError(f"fused_adjacency {what} ({q}, {e}): "
+                                     "not bitwise the staged R")
+    return plans
+
+
+def fused_plan_rows(torch, u, plans) -> dict:
+    """Each plan's and epilogue's time on u (the last block's epilogue only
+    up to 2^20 entries of R: one block over more is not a plan)."""
+    from repro_torch.kernels import graph_fused as gf
+
+    n = u.shape[0]
+    rows = {}
+    for q in plans:
+        for e in gf.EPILOGUES:
+            if e == "last_block" and n * n > 1 << 20:
+                continue
+
+            def call(q=q, e=e):
+                return gf.fused_adjacency_cuda(u, eps=0.1, sigma2=0.01,
+                                               plan=q, epilogue=e)
+            rows[f"fused_adjacency/plan={q}/epilogue={e}"] = dict(
+                plan=q, epilogue=e, ms=cuda_ms(torch, call),
+                device_ms=device_ms(torch, call))
+    return rows
+
+
+def fused_edge_checks(np, torch, dev) -> dict:
+    """The fused adjacency at FUSED_EDGE_SHAPES: every plan that takes the
+    shape held bitwise (fused_same_on_every_plan), then timed with either
+    epilogue.  Returns shape -> rows; the planned ones are named."""
+    from repro_torch.kernels import graph_fused as gf
+
+    out = {}
+    for n, d in FUSED_EDGE_SHAPES:
+        u = features(np, torch, n, seed=n + d, d=d).to(dev)
+        _, s_p = gf.fused_adjacency_plain(u, eps=0.1, sigma2=0.01)
+        plans = fused_same_on_every_plan(torch, u, s_p, f"{n, d}")
+        out[f"fused_adjacency/{n}x{d}"] = dict(
+            n=n, d=d, plan=gf.fused_adjacency_plan(n, d),
+            epilogue=gf.fused_adjacency_epilogue(n),
+            rows=fused_plan_rows(torch, u, plans))
+    return out
+
+
+def argmax_same_on_every_plan(torch, diag, r, masks, what: str) -> None:
+    """The greedy argmax on (diag, r) with each (mask, taken) of ``masks``,
+    in both plans and the planned one: bitwise the plain version."""
+    from repro_torch.kernels import solver as sv
+
+    for mask, taken in masks:
+        want = sv.masked_argmax_plain(diag, r, mask, taken)
+        for q in (None, *sv.ARGMAX_PLANS):
+            got = sv.masked_argmax_cuda(diag, r, mask, taken, plan=q)
+            if not all(torch.equal(x, y) for x, y in zip(got, want)):
+                raise AssertionError(f"greedy_argmax {what} ({q}): {got} != "
+                                     f"{want}")
+
+
+def argmax_edge_checks(np, torch, dev) -> dict:
+    """The greedy argmax at its warp path's threshold T ± 1: both plans held
+    bitwise (with and without a taken set, all-masked and all-equal), then
+    timed.  Returns n -> rows."""
+    from repro_torch.kernels import solver as sv
+
+    t = sv.masked_argmax_warp_most()
+    out = {}
+    for n in (t - 1, t, t + 1):
+        rng = np.random.default_rng(n)
+        diag = torch.as_tensor(rng.normal(size=n), dtype=torch.float32,
+                               device=dev)
+        r = torch.as_tensor(rng.normal(size=n), dtype=torch.float32,
+                            device=dev)
+        mask = torch.as_tensor(rng.random(n) < 0.6, device=dev)
+        taken = torch.as_tensor(rng.random(n) < 0.3, device=dev)
+        ones = torch.ones(n, dtype=torch.float32, device=dev)
+        argmax_same_on_every_plan(torch, diag, r, [
+            (mask, None), (mask, taken), (mask, mask)], f"n={n}")
+        argmax_same_on_every_plan(torch, ones, 0 * ones, [(mask, taken)],
+                                  f"n={n} all-equal")
+        out[f"greedy_argmax/n={n}"] = dict(
+            n=n, plan=sv.masked_argmax_plan(n), threshold=t, rows={
+                q: {"device_ms": device_ms(torch, lambda q=q: sv.masked_argmax_cuda(
+                        diag, r, mask, taken, plan=q)),
+                    "ms": cuda_ms(torch, lambda q=q: sv.masked_argmax_cuda(
+                        diag, r, mask, taken, plan=q))}
+                for q in sv.ARGMAX_PLANS})
+    return out
+
+
+def host_ms(fn, reps: int = 2000) -> float:
+    """Mean host ms of fn over reps calls (host clock; fn enqueues no
+    device work worth waiting for)."""
+    fn()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    return (time.perf_counter() - t0) * 1e3 / reps
+
+
+def one_buffer(torch, dev):
+    """One 16-byte allocation viewed as a 0-dim int64 and a 0-dim float32."""
+    buf = torch.empty(2, dtype=torch.int64, device=dev)
+    return buf.view(torch.float32)[2], buf[0]
 
 
 def fw_same_on_every_plan(torch, r, want, what: str) -> list[str]:
@@ -1906,6 +2074,10 @@ def main() -> int:
           "rows": swap_gain_edge_checks(np, torch, dev)})
     emit({"phase": "kernels", "floyd_warshall_edges": True, "card": smi,
           "rows": fw_edge_checks(np, torch, dev)})
+    emit({"phase": "kernels", "fused_adjacency_edges": True, "card": smi,
+          "rows": fused_edge_checks(np, torch, dev)})
+    emit({"phase": "kernels", "greedy_argmax_threshold": True, "card": smi,
+          "rows": argmax_edge_checks(np, torch, dev)})
     staged_rows = {**staged_kernel_checks(np, torch, dev),
                    **swap_gain_checks(np, torch, dev)}
     emit({"phase": "kernels", "staged": True, "card": smi,
@@ -1944,6 +2116,8 @@ def main() -> int:
         "pairwise_similarity/vision": staged_rows[
             "pairwise_similarity/{}x{}".format(*STAGED_SHAPES[-1])],
         "adjacency": staged_rows["adjacency/{}x{}".format(*STAGED_SHAPES[0])],
+        # the greedy step's call: A_t and S read in the kernel
+        "greedy_argmax": per_n[MAIN_N]["greedy_argmax/taken"],
         "swap_best": staged_rows[
             "swap_best/m={}/n={}".format(*SWAP_GAIN_SHAPES[-1])],
         "memagg": robust_rows["memagg/{}x{}/m={}".format(*MEMAGG_SHAPES[0])],

@@ -2,20 +2,31 @@
 """Device times of the port's kernel rows in two checkouts, on one GPU.
 
     python3 kernel_ab.py PARENT_DIR CHANGE_DIR [--pairs 10] [--sizes 30]
+                         [--groups per_n,staged,swap,robust,edges]
 
-Runs the kernel checks of ``chip_smoke.py`` phase 2 (the rows at each N of
-``--sizes``, 30 by default, the staged similarity and adjacency rows, the
-dense-swap rows, and the memagg and krum rows) of each checkout in a
-process of its own, in the
-order A B, B A, A B, ... for ``--pairs`` pairs.  Each process builds its
-checkout's kernels (into that checkout's ``build/``), runs that checkout's
-own checks, which hold every kernel against its plain version and fail on
-a mismatch, and hands back each row's ``device_ms`` (20 calls replayed from
-a CUDA graph).  Prints the card's name and power limit, then one JSON line
-per row that both checkouts have: the median, least and largest
-``device_ms`` of each, and the change's median over the parent's.  Every
-line also goes to ``chiprun_out/kernel_ab.jsonl``.  Exits non-zero if any
-process fails or there is no CUDA device.
+Runs the kernel checks of ``chip_smoke.py`` phase 2 of each checkout in a
+process of its own, in the order A B, B A, A B, ... for ``--pairs`` pairs.
+``--groups`` picks them: ``per_n`` the rows at each N of ``--sizes`` (30
+by default), ``staged`` the staged similarity and adjacency rows, ``swap``
+the dense-swap rows, ``robust`` the memagg and krum rows, ``edges`` the
+fused adjacency's edge shapes and the greedy argmax's threshold rows
+(where the checkout's ``chip_smoke.py`` has them); all by default.
+``argmax`` times the greedy argmax's wrapper, ``masked_argmax_cuda(diag,
+r, mask)``, with this script's own harness on both checkouts: its inputs
+at each N of ``--sizes`` are the process's first allocations (so both
+checkouts' kernels read the same addresses, which a tiny kernel's time
+depends on), ``device_ms`` by CUDA-graph replay, ``ms`` by CUDA events
+over 20,000 calls with Python's garbage collector paused.  Each
+process builds its checkout's kernels (into that checkout's ``build/``),
+runs that checkout's own checks, which hold every kernel against its plain
+version and fail on a mismatch, and hands back each row's ``device_ms``
+(20 calls replayed from a CUDA graph) and ``ms`` (CUDA events over a loop
+of calls: a short call reads its host time).  Prints the card's name and
+power limit, then one JSON line per row that both checkouts have: the
+median, least and largest ``device_ms`` and the median ``ms`` of each,
+and the change's medians over the parent's.  Every line also goes to
+``kernel_ab.jsonl`` in the output directory (``OUT``).  Exits non-zero if any process fails or
+there is no CUDA device.
 """
 from __future__ import annotations
 
@@ -30,8 +41,51 @@ ROOT = Path(__file__).resolve().parent
 OUT = ROOT / "chiprun_out"
 
 
-def worker(tree: Path, sizes: list[int]) -> dict:
-    """Every kernel row of the checkout at ``tree``: name -> device_ms."""
+GROUPS = ("per_n", "staged", "swap", "robust", "edges")
+
+
+def argmax_rows(torch, np, cs, sizes: list[int]) -> dict:
+    """The greedy argmax wrapper of the checkout, timed by one harness."""
+    import gc
+
+    from repro_torch.kernels import solver as sv
+    dev = torch.device("cuda")
+    inputs = {}
+    for n in sizes:                       # the process's first allocations
+        rng = np.random.default_rng(n)
+        inputs[n] = (
+            torch.as_tensor(rng.normal(size=n), dtype=torch.float32, device=dev),
+            torch.as_tensor(rng.normal(size=n), dtype=torch.float32, device=dev),
+            torch.as_tensor(rng.random(n) < 0.6, device=dev))
+    rows = {}
+    for n, args in inputs.items():
+        want = sv.masked_argmax_plain(*args)
+        if not all(torch.equal(x, y)
+                   for x, y in zip(sv.masked_argmax_cuda(*args), want)):
+            raise AssertionError(f"greedy argmax n={n}: not bitwise")
+        dev_ms = cs.device_ms(torch, lambda: sv.masked_argmax_cuda(*args))
+        reps = 20000
+        gc.disable()
+        try:
+            sv.masked_argmax_cuda(*args)
+            torch.cuda.synchronize()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            for _ in range(reps):
+                sv.masked_argmax_cuda(*args)
+            end.record()
+            end.synchronize()
+        finally:
+            gc.enable()
+        rows[f"argmax/n={n}"] = {"device_ms": dev_ms,
+                                 "ms": start.elapsed_time(end) / reps}
+    return rows
+
+
+def worker(tree: Path, sizes: list[int], groups: list[str]) -> dict:
+    """Every kernel row of the checkout at ``tree``: name -> {device_ms,
+    ms}."""
     sys.path[:0] = [str(tree / "src"), str(tree)]
     import numpy as np
     import torch
@@ -40,12 +94,26 @@ def worker(tree: Path, sizes: list[int]) -> dict:
     if Path(cs.__file__).resolve().parent != tree:
         raise RuntimeError(f"imported {cs.__file__}, not {tree}'s")
     dev = torch.device("cuda")
-    rows = {f"n={n}/{k}": v for n in sizes
-            for k, v in cs.kernel_checks(np, torch, n, dev).items()}
-    rows.update(cs.staged_kernel_checks(np, torch, dev))
-    rows.update(cs.swap_gain_checks(np, torch, dev))
-    rows.update(cs.robust_kernel_checks(np, torch, dev))
-    return {k: v["device_ms"] for k, v in rows.items() if "device_ms" in v}
+    rows = {}
+    if "argmax" in groups:                # first: its inputs' addresses
+        rows.update(argmax_rows(torch, np, cs, sizes))
+    if "per_n" in groups:
+        rows.update({f"n={n}/{k}": v for n in sizes
+                     for k, v in cs.kernel_checks(np, torch, n, dev).items()})
+    if "staged" in groups:
+        rows.update(cs.staged_kernel_checks(np, torch, dev))
+    if "swap" in groups:
+        rows.update(cs.swap_gain_checks(np, torch, dev))
+    if "robust" in groups:
+        rows.update(cs.robust_kernel_checks(np, torch, dev))
+    if "edges" in groups:
+        for fn in ("fused_edge_checks", "argmax_edge_checks"):
+            if hasattr(cs, fn):
+                for name, blob in getattr(cs, fn)(np, torch, dev).items():
+                    rows.update({f"{name}/{k}": v
+                                 for k, v in blob["rows"].items()})
+    return {k: {"device_ms": v["device_ms"], "ms": v.get("ms")}
+            for k, v in rows.items() if "device_ms" in v}
 
 
 def main() -> int:
@@ -54,6 +122,9 @@ def main() -> int:
     ap.add_argument("--pairs", type=int, default=10)
     ap.add_argument("--sizes", default="30",
                     help="comma-separated N of the per-N kernel rows")
+    ap.add_argument("--groups", default=",".join(GROUPS),
+                    help="comma-separated row groups: argmax, " +
+                    ", ".join(GROUPS))
     ap.add_argument("--worker", type=Path)
     args = ap.parse_args()
     import torch
@@ -62,7 +133,8 @@ def main() -> int:
         return 2
     if args.worker:
         sizes = [int(n) for n in args.sizes.split(",")]
-        print(json.dumps(worker(args.worker.resolve(), sizes)), flush=True)
+        print(json.dumps(worker(args.worker.resolve(), sizes,
+                                args.groups.split(","))), flush=True)
         return 0
     if len(args.trees) != 2:
         ap.error("give PARENT_DIR and CHANGE_DIR")
@@ -78,7 +150,8 @@ def main() -> int:
         for side in ((0, 1) if i % 2 == 0 else (1, 0)):
             run = subprocess.run(
                 [sys.executable, str(Path(__file__).resolve()), "--worker",
-                 str(trees[side]), "--sizes", args.sizes], cwd=trees[side],
+                 str(trees[side]), "--sizes", args.sizes, "--groups",
+                 args.groups], cwd=trees[side],
                 capture_output=True, text=True, timeout=600)
             if run.returncode != 0:
                 print(run.stdout[-4000:], run.stderr[-4000:], file=sys.stderr)
@@ -87,14 +160,21 @@ def main() -> int:
     for name in times[0][0]:
         if name not in times[1][0]:
             continue
-        a = [t[name] for t in times[0]]
-        b = [t[name] for t in times[1]]
+        a = [t[name]["device_ms"] for t in times[0]]
+        b = [t[name]["device_ms"] for t in times[1]]
         row = {"row": name, "card": smi, "pairs": args.pairs,
                "parent_median": statistics.median(a), "parent_min": min(a),
                "parent_max": max(a), "change_median": statistics.median(b),
                "change_min": min(b), "change_max": max(b),
                "change_over_parent":
                    statistics.median(b) / statistics.median(a)}
+        ha = [t[name]["ms"] for t in times[0] if t[name]["ms"] is not None]
+        hb = [t[name]["ms"] for t in times[1] if t[name]["ms"] is not None]
+        if ha and hb:
+            row.update(parent_ms_median=statistics.median(ha),
+                       change_ms_median=statistics.median(hb),
+                       change_over_parent_ms=statistics.median(hb) /
+                       statistics.median(ha))
         lines.append(json.dumps(row))
         print(lines[-1], flush=True)
     OUT.mkdir(exist_ok=True)

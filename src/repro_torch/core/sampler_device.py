@@ -147,9 +147,10 @@ def _solve_kernel(diag: torch.Tensor, row_fn: Callable, swap_fn: Callable,
              reduction over the |S| ≤ m selected rows (``sel`` ascending,
              clamped; ``valid`` marks real rows).
 
-    The greedy step is ``kernels/ops.greedy_argmax``; the sweep restricts
-    delta to the selected rows (ascending, which keeps the dense path's
-    row-major tie-break)."""
+    The greedy step is ``kernels/ops.greedy_argmax``, handed A_t and S: it
+    masks ``avail & ~s`` itself, so the step launches no mask op; the sweep
+    restricts delta to the selected rows (ascending, which keeps the dense
+    path's row-major tie-break)."""
     from repro_torch.kernels.ops import greedy_argmax
     n = diag.shape[0]
     dev = diag.device
@@ -162,7 +163,7 @@ def _solve_kernel(diag: torch.Tensor, row_fn: Callable, swap_fn: Callable,
     r = torch.zeros(n, dtype=torch.float32, device=dev)
 
     for _ in range(m):
-        val, k = greedy_argmax(diag, r, avail & ~s)
+        val, k = greedy_argmax(diag, r, avail, s)
         ok = val > NEG / 2
         s = s | ((iota == k) & ok)
         r = r + torch.where(ok, row_fn(k), zero)

@@ -64,65 +64,18 @@ __device__ __forceinline__ uint64_t block_max_u64(uint64_t v) {
     return v;
 }
 
-// ----------------------------------------------- the 3DG tile product
+// ----------------------------------------------- the 3DG summation order
 // The summation order of every similarity V = U·Uᵀ in the port: the d
 // columns of U fall into chunks of KS consecutive columns; a chunk's
 // partial P_c is summed in ascending k as p = p + u_ik·u_jk with two IEEE
 // roundings (__fmul_rn, __fadd_rn: no FMA contraction, no TF32), starting
 // from 0; V = Σ_c P_c adds the partials in ascending c into an accumulator
 // that starts from 0.  `kernels/ref.similarity_ref` (SIM_CHUNK there, held
-// equal to KS by a test) sums in this order, the staged similarity kernel
-// splits the chunks over blocks and adds their partials in this order, and
-// the fused kernel runs them in series through tile_dot, so all three V
+// equal to KS by a test) sums in this order, and so does every plan of the
+// similarity's tile kernels (similarity.cuh: the staged similarity and the
+// fused adjacency) and the fused adjacency's small plan, so all their V
 // are bitwise equal.  For d <= KS the order is one ascending-k sum.
 constexpr int KS = 256;      // columns of U per partial sum
-constexpr int TILE = 64;     // tile_dot's output tile edge
-constexpr int TD = 16;       // threads per tile edge (16x16 = 256 threads)
-constexpr int KC = 16;       // columns of U per shared-memory step
-constexpr int RT = TILE / TD;
-static_assert(KS % KC == 0, "a chunk of KS columns is whole steps of KC");
-
-// One 64 x 64 tile of V per 16 x 16 block, each thread a 4 x 4 register
-// tile, U read through shared memory KC columns at a time, the chunks of KS
-// columns in series inside the block (a fresh partial per chunk).
-// acc[a][b] = V[i0 + ty + TD*a][j0 + tx + TD*b]
-__device__ __forceinline__ void tile_dot(const float* __restrict__ u, int n,
-                                         int d, int i0, int j0,
-                                         float acc[RT][RT]) {
-    __shared__ float as[KC][TILE + 1];
-    __shared__ float bs[KC][TILE + 1];
-    const int tx = threadIdx.x, ty = threadIdx.y;
-    const int tid = ty * TD + tx;
-    float part[RT][RT];
-    for (int a = 0; a < RT; ++a)
-        for (int b = 0; b < RT; ++b) acc[a][b] = part[a][b] = 0.0f;
-    for (int k0 = 0; k0 < d; k0 += KC) {
-        for (int e = tid; e < TILE * KC; e += TD * TD) {
-            const int r = e / KC, k = e % KC;
-            const bool kin = k0 + k < d;
-            as[k][r] = (i0 + r < n && kin) ? u[(size_t)(i0 + r) * d + k0 + k] : 0.0f;
-            bs[k][r] = (j0 + r < n && kin) ? u[(size_t)(j0 + r) * d + k0 + k] : 0.0f;
-        }
-        __syncthreads();
-        const int kmax = min(KC, d - k0);   // no pad terms
-        for (int k = 0; k < kmax; ++k) {
-            float av[RT], bv[RT];
-            for (int a = 0; a < RT; ++a) av[a] = as[k][ty + TD * a];
-            for (int b = 0; b < RT; ++b) bv[b] = bs[k][tx + TD * b];
-            for (int a = 0; a < RT; ++a)
-                for (int b = 0; b < RT; ++b)
-                    part[a][b] = __fadd_rn(part[a][b], __fmul_rn(av[a], bv[b]));
-        }
-        if ((k0 + KC) % KS == 0 || k0 + KC >= d) {   // a chunk ends here
-            for (int a = 0; a < RT; ++a)
-                for (int b = 0; b < RT; ++b) {
-                    acc[a][b] = __fadd_rn(acc[a][b], part[a][b]);
-                    part[a][b] = 0.0f;
-                }
-        }
-        __syncthreads();
-    }
-}
 
 // One entry of the 3DG adjacency from a raw similarity v: Vn = (v − lo) /
 // range with range = max(hi − lo, 1e-12), then exp(−Vn/σ²) where Vn ≥ eps,

@@ -12,13 +12,18 @@
 // What bounds them on the card: both are tiny per call (N floats for the
 // greedy step, an m x N panel for the swap), so at the main path's sizes
 // they are bound by launch latency, and at large N by reading the H row
-// and column panels (bytes).  The greedy step is one block with no padding
-// of N.  The Q-free swap reads H[sel_s, j] and H[j, sel_s] straight from H
-// (no gathered panels; H need not be symmetric), on one of two paths
+// and column panels (bytes).  The greedy step needs no padding of N: one
+// warp with shuffles only up to kArgmaxWarpMost = 128 entries (one round of
+// loads a lane), one block beyond;
+// it reads the availability mask A_t and the selected set S itself (a lane
+// is addable where mask && !taken), so its caller launches no mask op.
+// The Q-free swap reads H[sel_s, j] and H[j, sel_s] straight from H (no
+// gathered panels; H need not be symmetric), on one of two paths
 // (swap_best_plan_kind):
 //   * small (m·N <= 2,048 entries: the quickstart's 6 x 30, N = 130's
 //     13 x 130): one block folds every key and thread 0 writes the result,
-//     as the greedy step does: one launch, no scratch, no atomics;
+//     as the greedy step's block plan does: one launch, no scratch, no
+//     atomics;
 //   * tiled: one block per 32 x 64 tile of the panel.  The column term
 //     H[j, sel_s] is read with the lanes along s (sel ascending, so a
 //     warp's loads lie in one row of H and share sectors where the
@@ -59,24 +64,96 @@ namespace {
 
 using fedgs::NEG;
 
+// The greedy step's key of entry i: gain = diag + 2r, NEG where the lane is
+// not addable (`out`: mask false, or taken true) or the gain is NaN, packed
+// with i.
+__device__ __forceinline__ uint64_t argmax_key(float dv, float rv, bool out,
+                                               int i) {
+    float g = __fadd_rn(dv, __fmul_rn(2.0f, rv));
+    if (out || isnan(g)) g = NEG;
+    return fedgs::pack(g, static_cast<uint32_t>(i));
+}
+
+__device__ __forceinline__ void write_argmax(uint64_t best, int n,
+                                             float* out_val,
+                                             int64_t* out_idx) {
+    if (n == 0) best = fedgs::pack(NEG, 0u);
+    *out_val = fedgs::unpack_val(best);
+    *out_idx = static_cast<int64_t>(fedgs::unpack_idx(best));
+}
+
+// The greedy argmax's plans (masked_argmax_plan_kind): `warp` up to
+// kArgmaxWarpMost entries, one warp and shuffles only (no shared memory, no
+// barrier), each lane with the loads of up to kArgmaxLoads entries in
+// flight at a time (only those in range: a load at a clamped index costs
+// time too); `block` beyond, 1,024 threads and a shared-memory block
+// reduction.  TAKEN: the kernel also reads the selected set S and masks
+// mask && !taken, both loaded at once (a short-circuit && would wait for
+// the first load before it starts the second); without it the code is the
+// single-mask step's.
+constexpr int kArgmaxWarpMost = 128;
+constexpr int kArgmaxLoads = 4;
+
+template <bool TAKEN>
+__global__ void __launch_bounds__(32)
+masked_argmax_warp_kernel(const float* __restrict__ diag,
+                          const float* __restrict__ r,
+                          const uint8_t* __restrict__ mask,
+                          const uint8_t* __restrict__ taken, int n,
+                          float* __restrict__ out_val,
+                          int64_t* __restrict__ out_idx) {
+    constexpr int L = kArgmaxLoads;
+    uint64_t best = 0ull;
+    for (int base = threadIdx.x; base < n; base += 32 * L) {
+        float dv[L], rv[L];
+        uint8_t mv[L], tv[L];
+#pragma unroll
+        for (int e = 0; e < L; ++e) {
+            const int i = base + 32 * e;
+            if (i < n) {
+                dv[e] = diag[i];
+                rv[e] = r[i];
+                mv[e] = mask[i];
+                tv[e] = TAKEN ? taken[i] : 0;
+            }
+        }
+#pragma unroll
+        for (int e = 0; e < L; ++e) {
+            const int i = base + 32 * e;
+            if (i < n) {
+                const uint64_t key = argmax_key(dv[e], rv[e],
+                                                !mv[e] || tv[e], i);
+                best = key > best ? key : best;
+            }
+        }
+    }
+    best = fedgs::warp_max_u64(best);
+    if (threadIdx.x == 0) write_argmax(best, n, out_val, out_idx);
+}
+
+template <bool TAKEN>
 __global__ void masked_argmax_kernel(const float* __restrict__ diag,
                                      const float* __restrict__ r,
-                                     const uint8_t* __restrict__ mask, int n,
+                                     const uint8_t* __restrict__ mask,
+                                     const uint8_t* __restrict__ taken, int n,
                                      float* __restrict__ out_val,
                                      int64_t* __restrict__ out_idx) {
     uint64_t best = 0ull;
     for (int i = threadIdx.x; i < n; i += blockDim.x) {
         float g = __fadd_rn(diag[i], __fmul_rn(2.0f, r[i]));
-        if (!mask[i] || isnan(g)) g = NEG;
+        bool out;
+        if constexpr (TAKEN) {
+            const uint8_t m = mask[i], t = taken[i];
+            out = !m || t;
+        } else {
+            out = !mask[i];
+        }
+        if (out || isnan(g)) g = NEG;
         const uint64_t key = fedgs::pack(g, static_cast<uint32_t>(i));
         best = key > best ? key : best;
     }
     best = fedgs::block_max_u64(best);
-    if (threadIdx.x == 0) {
-        if (n == 0) best = fedgs::pack(NEG, 0u);
-        *out_val = fedgs::unpack_val(best);
-        *out_idx = static_cast<int64_t>(fedgs::unpack_idx(best));
-    }
+    if (threadIdx.x == 0) write_argmax(best, n, out_val, out_idx);
 }
 
 // The small path serves panels of up to kSwapSmall entries: on an H100 it
@@ -353,12 +430,37 @@ __global__ void empty_kernel() {}
 
 }  // namespace
 
-// diag, r (n,) f32; mask (n,) bool; out_val () f32; out_idx () int64.
+// The plan masked_argmax_launch takes for n entries: 0 warp, 1 block.
+extern "C" int masked_argmax_plan_kind(int n) {
+    return n <= kArgmaxWarpMost ? 0 : 1;
+}
+
+// The most entries the warp plan is taken for.
+extern "C" int masked_argmax_warp_most() { return kArgmaxWarpMost; }
+
+// diag, r (n,) f32; mask (n,) bool (true: addable); taken (n,) bool (true:
+// already selected, not addable) or null; out_val () f32; out_idx () int64;
+// kind: -1 the planned path, 0 warp, 1 block.
 extern "C" int masked_argmax_launch(const float* diag, const float* r,
-                                    const uint8_t* mask, int n, float* out_val,
+                                    const uint8_t* mask, const uint8_t* taken,
+                                    int n, int kind, float* out_val,
                                     int64_t* out_idx, void* stream) {
-    masked_argmax_kernel<<<1, 1024, 0, static_cast<cudaStream_t>(stream)>>>(
-        diag, r, mask, n, out_val, out_idx);
+    cudaStream_t s = static_cast<cudaStream_t>(stream);
+    if (kind < 0) kind = masked_argmax_plan_kind(n);
+    if (kind == 0 && taken != nullptr)
+        masked_argmax_warp_kernel<true><<<1, 32, 0, s>>>(
+            diag, r, mask, taken, n, out_val, out_idx);
+    else if (kind == 0)
+        masked_argmax_warp_kernel<false><<<1, 32, 0, s>>>(
+            diag, r, mask, nullptr, n, out_val, out_idx);
+    else if (kind == 1 && taken != nullptr)
+        masked_argmax_kernel<true><<<1, 1024, 0, s>>>(
+            diag, r, mask, taken, n, out_val, out_idx);
+    else if (kind == 1)
+        masked_argmax_kernel<false><<<1, 1024, 0, s>>>(
+            diag, r, mask, nullptr, n, out_val, out_idx);
+    else
+        return static_cast<int>(cudaErrorInvalidValue);
     return static_cast<int>(cudaGetLastError());
 }
 

@@ -1,6 +1,7 @@
 // The 32x32 tile of a Gram product G = U·Uᵀ over chunks of KS columns,
-// shared by the similarity's split and serial plans
-// (pairwise_similarity.cu) and Krum's split plan (krum.cu).
+// shared by the similarity's split and serial plans (similarity.cuh: the
+// staged similarity and the fused adjacency) and Krum's split plan
+// (krum.cu).
 //
 // A block of S_THREADS threads computes one tile (rows i0.., columns j0..)
 // of the upper triangle.  tile32_chunks sums chunks [c_lo, c_hi) of U's

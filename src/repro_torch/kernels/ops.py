@@ -92,10 +92,13 @@ def build_3dg_fused(u: torch.Tensor, *, eps: float = 0.1,
 
 
 # ------------------------------------------------------------ FedGS solver
-def greedy_argmax(diag: torch.Tensor, r: torch.Tensor, mask: torch.Tensor):
-    """Masked argmax of the greedy gain ``diag + 2r`` over (N,) (mask True =
-    addable).  Returns 0-dim (best gain, index); all masked -> (−1e18, 0)."""
-    return _sv.masked_argmax(diag, r, mask)
+def greedy_argmax(diag: torch.Tensor, r: torch.Tensor, mask: torch.Tensor,
+                  taken: torch.Tensor | None = None):
+    """Masked argmax of the greedy gain ``diag + 2r`` over (N,): a lane is
+    addable where ``mask`` is True and ``taken`` (when given: the clients
+    already selected) is False, read by the kernel itself.  Returns 0-dim
+    (best gain, index); all masked -> (−1e18, 0)."""
+    return _sv.masked_argmax(diag, r, mask, taken)
 
 
 def swap_best_fused(h: torch.Tensor, z: torch.Tensor, scale: float,

@@ -11,15 +11,19 @@ fold packed (value, ~index) keys by max instead, which keeps the largest
 value and its LOWEST index in any block order — the reference's first-max
 tie-break.  Both are tiny per call, so at the main path's sizes they are
 bound by launch latency, and at large N by the bytes of the H panels the
-swap reads.  The Q-free swap runs a panel of at most 2,048 entries (the
-quickstart's 6 × 30) in one block with no scratch and no atomics, and a
-larger one in 32 × 64 tiles that meet through a 16-byte state kept per
+swap reads.  The greedy argmax runs one warp with shuffles only up to
+128 entries and one block beyond (``masked_argmax_plan``), and masks
+``mask & ~taken`` itself, so the greedy step hands it A_t and S and
+launches no mask op of its own.  The Q-free swap runs a panel of at most
+2,048 entries (the quickstart's 6 × 30) in one block with no scratch and
+no atomics, and a larger one in 32 × 64 tiles that meet through a 16-byte state kept per
 stream (and per CUDA-graph capture), zeroed once when made and again by the
 kernel's last block, so no call needs a memset (``swap_best_fused_plan``).
 The dense swap has the same two kinds of path (``swap_gain_plan``): one
 block for a small panel (the vision solve's 10 × 100), else a grid of at
 most four blocks per SM reading Q's rows with 16-byte loads, meeting in the
-same per-stream state.
+same per-stream state, which the fused 3DG adjacency shares
+(:func:`grid_state`).
 Q = sym(a·H) − diag(z) is never built: ``q_diag``/``q_row``
 rebuild what the greedy pass needs, and the swap kernel rebuilds each Q
 entry from H where it is consumed, with no FMA contraction (the op order
@@ -41,7 +45,9 @@ from repro_torch.kernels._build import F, I, P, Kernel, library, stream_of
 
 NEG = -1e18         # the solver's masked-entry sentinel
 
-ARGMAX_KERNEL = Kernel("solver", "masked_argmax_launch", [P, P, P, I, P, P, P])
+ARGMAX_KERNEL = Kernel("solver", "masked_argmax_launch",
+                       [P, P, P, P, I, I, P, P, P])
+ARGMAX_PLANS = ("warp", "block")
 SWAP_FUSED_KERNEL = Kernel("solver", "swap_best_launch",
                            [P, P, F, P, P, P, P, I, I, I, P, P, P, P, P])
 SWAP_FUSED_PLANS = ("small", "tiled")
@@ -75,7 +81,9 @@ def q_row(h: torch.Tensor, z: torch.Tensor, a: float,
 
 
 # ----------------------------------------------------------- masked argmax
-def masked_argmax_plain(diag, r, mask):
+def masked_argmax_plain(diag, r, mask, taken=None):
+    if taken is not None:
+        mask = mask & ~taken
     gain = diag + 2.0 * r
     gain = torch.where(mask, gain, torch.full_like(gain, NEG))
     gain = torch.where(torch.isnan(gain), torch.full_like(gain, NEG), gain)
@@ -83,33 +91,82 @@ def masked_argmax_plain(diag, r, mask):
     return gain[idx], idx
 
 
-def masked_argmax_cuda(diag, r, mask):
-    n = diag.shape[0]
-    if not (diag.is_cuda and r.is_cuda and mask.is_cuda):
-        raise ValueError("masked_argmax_cuda takes CUDA tensors")
-    if r.shape != (n,) or mask.shape != (n,):
+def masked_argmax_cuda(diag, r, mask, taken=None, *, plan: str | None = None):
+    """The CUDA kernel; ``plan`` forces the ``"warp"`` or the ``"block"``
+    path, to time the two against each other; None takes
+    :func:`masked_argmax_plan`'s (chosen in C, with no lookup here).  The
+    inputs must already be contiguous (N,) tensors on one CUDA device,
+    diag and r float32, mask and taken bool.  The greedy step calls it m
+    times a solve, so its host path is short: it converts nothing, asks for
+    the stream by device index, allocates its outputs with ``new_empty``,
+    and enters the device's context only when that device is not the
+    current one."""
+    dev = diag.get_device()
+    if dev < 0 or r.get_device() != dev or mask.get_device() != dev or \
+            (taken is not None and taken.get_device() != dev):
+        raise ValueError("masked_argmax_cuda takes CUDA tensors on one "
+                         "device")
+    if diag.dtype != torch.float32 or r.dtype != torch.float32 or \
+            mask.dtype != torch.bool or \
+            (taken is not None and taken.dtype != torch.bool):
+        raise TypeError("masked_argmax_cuda takes float32 diag and r, bool "
+                        "mask and taken")
+    n = diag.numel()
+    if diag.dim() != 1 or r.dim() != 1 or mask.dim() != 1 or \
+            r.numel() != n or mask.numel() != n or \
+            (taken is not None and (taken.dim() != 1 or taken.numel() != n)):
         raise ValueError(f"shapes {tuple(diag.shape)}, {tuple(r.shape)}, "
                          f"{tuple(mask.shape)} are not all (N,)")
-    d = diag.to(torch.float32).contiguous()
-    rr = r.to(torch.float32).contiguous()
-    mk = mask.to(torch.bool).contiguous()
-    val = torch.empty((), dtype=torch.float32, device=d.device)
-    idx = torch.empty((), dtype=torch.int64, device=d.device)
-    with torch.cuda.device(d.device):
-        ARGMAX_KERNEL(d.data_ptr(), rr.data_ptr(), mk.data_ptr(), n,
-                      val.data_ptr(), idx.data_ptr(), stream_of(d))
+    if not (diag.is_contiguous() and r.is_contiguous() and
+            mask.is_contiguous() and (taken is None or taken.is_contiguous())):
+        raise ValueError("masked_argmax_cuda takes contiguous tensors")
+    val = diag.new_empty(())
+    idx = diag.new_empty((), dtype=torch.int64)
+    args = (diag.data_ptr(), r.data_ptr(), mask.data_ptr(),
+            None if taken is None else taken.data_ptr(), n,
+            -1 if plan is None else ARGMAX_PLANS.index(plan),
+            val.data_ptr(), idx.data_ptr())
+    if dev == torch.cuda.current_device():
+        ARGMAX_KERNEL(*args, torch.cuda.current_stream(dev).cuda_stream)
+    else:
+        with torch.cuda.device(dev):
+            ARGMAX_KERNEL(*args, torch.cuda.current_stream(dev).cuda_stream)
     return val, idx
 
 
-def masked_argmax(diag: torch.Tensor, r: torch.Tensor, mask: torch.Tensor):
-    """Greedy gain ``diag + 2r`` masked (mask False or NaN -> −1e18) and
-    arg-maxed over (N,): returns (best gain, first index reaching it).  With
-    every lane masked: (−1e18, 0), as the reference."""
+# n -> the greedy argmax's plan
+_argmax_plans: dict[int, str] = {}
+
+
+def masked_argmax_plan(n: int) -> str:
+    """The path masked_argmax_cuda takes for n entries: ``warp`` (one warp,
+    shuffles only) or ``block``."""
+    if n not in _argmax_plans:
+        fn = library("solver").masked_argmax_plan_kind
+        fn.argtypes, fn.restype = [I], ctypes.c_int
+        _argmax_plans[n] = ARGMAX_PLANS[fn(n)]
+    return _argmax_plans[n]
+
+
+def masked_argmax_warp_most() -> int:
+    """The most entries for which masked_argmax_cuda takes the warp path."""
+    fn = library("solver").masked_argmax_warp_most
+    fn.argtypes, fn.restype = [], ctypes.c_int
+    return int(fn())
+
+
+def masked_argmax(diag: torch.Tensor, r: torch.Tensor, mask: torch.Tensor,
+                  taken: torch.Tensor | None = None):
+    """Greedy gain ``diag + 2r`` masked (lane not addable, or NaN -> −1e18)
+    and arg-maxed over (N,): returns (best gain, first index reaching it).
+    A lane is addable where ``mask`` is True and ``taken`` (when given) is
+    False: the greedy step passes A_t and S, and the kernel reads both.
+    With every lane masked: (−1e18, 0), as the reference."""
     if diag.is_cuda:
-        return masked_argmax_cuda(diag, r, mask)
+        return masked_argmax_cuda(diag, r, mask, taken)
     if diag.device.type != "cpu":
         raise ValueError(f"masked_argmax: no kernel for {diag.device}")
-    return masked_argmax_plain(diag, r, mask)
+    return masked_argmax_plain(diag, r, mask, taken)
 
 
 # -------------------------------------------------------- Q-free swap sweep
@@ -137,7 +194,7 @@ def swap_best_fused_cuda(h, z, scale: float, sel, valid, a, b, *,
     """The CUDA kernel; ``plan`` forces the ``"small"`` (at most 4,096
     entries) or the ``"tiled"`` path, to time the two against each other;
     None takes :func:`swap_best_fused_plan`'s.  The tiled path's blocks meet
-    in the state :func:`_grid_state` keeps for the current stream."""
+    in the state :func:`grid_state` keeps for the current stream."""
     n, m = h.shape[0], sel.shape[0]
     if not all(t.is_cuda for t in (h, z, sel, valid, a, b)):
         raise ValueError("swap_best_fused_cuda takes CUDA tensors")
@@ -160,7 +217,7 @@ def swap_best_fused_cuda(h, z, scale: float, sel, valid, a, b, *,
     kind = SWAP_FUSED_PLANS.index(plan or swap_best_fused_plan(m, n))
     with torch.cuda.device(h.device):
         stream = stream_of(hh)
-        state = _grid_state(h.device, stream) if kind else None
+        state = grid_state(h.device, stream) if kind else None
         SWAP_FUSED_KERNEL(hh.data_ptr(), zz.data_ptr(), scale, ss.data_ptr(),
                           vv.data_ptr(), aa.data_ptr(), bb.data_ptr(), m, n,
                           kind, None if state is None else state.data_ptr(),
@@ -206,14 +263,16 @@ def _capture_id(stream: int) -> int:
     return int(fn(stream))
 
 
-def _grid_state(device: torch.device, stream: int) -> torch.Tensor:
-    """The 16-byte (key, arrival count) state in which the blocks of the
-    Q-free swap's tiled path and of the dense swap's grid path meet, for
-    this stream: zeroed once when made, on the stream, and left zero by
-    every launch's last block, so calls in stream order share it with no
-    memset, while calls on other streams, which may overlap, each have
-    their own.  The two kernels share it safely for the same reason: two
-    launches on one stream never overlap, and each leaves it zero.  A
+def grid_state(device: torch.device, stream: int) -> torch.Tensor:
+    """The 16-byte state in which the blocks of one launch meet, for this
+    stream: (key, arrival count) for the Q-free swap's tiled path and the
+    dense swap's grid path, (~lo key, hi key, arrival count) for the fused
+    3DG adjacency's tile pass (``graph_fused``).  It is zeroed once when
+    made, on the stream, and left zero by every launch's last block, so
+    calls in stream order share it with no memset, while calls on other
+    streams, which may overlap, each have their own.  The three kernels
+    share it safely for the same reason: two launches on one stream never
+    overlap, and each leaves it zero.  A
     CUDA-graph capture gets a state of its own, made in the graph's memory
     (its one zeroing is a node of that graph), so two graphs replayed at
     once never share one.  A stream holds one capture at a time: a new
@@ -259,7 +318,7 @@ def swap_gain_cuda(q, sel, a, b, *, plan: str | None = None):
     """The CUDA kernel; ``plan`` forces the ``"small"`` (at most
     :data:`SWAP_GAIN_SMALL_MOST` entries) or the ``"grid"`` path, to time
     the two against each other; None takes :func:`swap_gain_plan`'s.  The
-    grid path's blocks meet in the state :func:`_grid_state` keeps for the
+    grid path's blocks meet in the state :func:`grid_state` keeps for the
     current stream."""
     n, m = q.shape[0], sel.shape[0]
     if not all(t.is_cuda for t in (q, sel, a, b)):
@@ -279,7 +338,7 @@ def swap_gain_cuda(q, sel, a, b, *, plan: str | None = None):
     kind = SWAP_GAIN_PLANS.index(plan or swap_gain_plan(m, n))
     with torch.cuda.device(q.device):
         stream = stream_of(qq)
-        state = _grid_state(q.device, stream) if kind else None
+        state = grid_state(q.device, stream) if kind else None
         SWAP_GAIN_KERNEL(qq.data_ptr(), ss.data_ptr(), aa.data_ptr(),
                          bb.data_ptr(), m, n, kind,
                          None if state is None else state.data_ptr(),

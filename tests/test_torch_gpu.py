@@ -8,12 +8,17 @@ only, so it runs where the JAX package is not installed:
 
 Contracts, kernel against plain version on the same device:
 * Floyd–Warshall, the greedy masked argmax and the swap reduction: bitwise
-  (the Q-free swap on both its paths, at its small path's threshold ± 1
+  (the greedy argmax on both its paths, with and without a ``taken`` set,
+  at every SIZES entry and its warp path's threshold ± 1; the Q-free swap
+  on both its paths, at its small path's threshold ± 1
   entry, on all-masked and all-equal panels, in calls back to back with no
   memset, and replayed from a CUDA graph);
 * fused adjacency: lo/hi bitwise (V is summed in the same order), the same
   inf pattern, finite R within rtol 1e-4 (``expf`` in the kernel and
-  ``torch.exp`` may differ in the last bits);
+  ``torch.exp`` may differ in the last bits); on every plan that takes N
+  and both epilogues, R bitwise the staged kernels' R (N = 0 and 1, the
+  tile edges, clamp on and off), after CUDA-graph replays, on two streams
+  and back to back with the swap that shares its per-stream state;
 * the staged similarity: V bitwise in each of its plans (split over
   chunks, serial, big tiles) and exactly symmetric; the staged adjacency:
   as the fused;
@@ -107,6 +112,148 @@ def test_fused_adjacency_kernel_vs_plain(cuda, n):
     np.testing.assert_allclose(r_k[fin], r_p[fin], rtol=1e-4, atol=TINY)
 
 
+# d = 610 stages U's rows in 8-byte copies, 612 in 16-byte ones, 611 in
+# 4-byte ones (the small plan's three widths)
+FUSED_SHAPES = [(0, 610), (1, 610), (30, 610), (100, 10), (130, 610),
+                (1024, 610), (100, 13946), (31, 610), (32, 610), (33, 610),
+                (63, 610), (64, 610), (65, 610), (30, 612), (33, 611)]
+
+
+def _staged_r(u, clamp):
+    """The staged kernels' R and the plain version's [lo, hi] for u."""
+    v = tps.similarity_cuda(u)
+    if clamp:
+        v = torch.clamp_min(v, 0.0)
+    stats = torch.stack([torch.min(v), torch.max(v)])
+    return (tps.adjacency_cuda(v, stats, eps=0.1, sigma2=0.01),
+            tgf.fused_adjacency_plain(u, eps=0.1, sigma2=0.01, clamp=clamp)[1])
+
+
+def _fused_u(n, d, seed, dev):
+    u = _features(np.random.default_rng(seed), n, d)
+    return (u - u.mean(0)).contiguous().to(dev)   # some similarities below 0
+
+
+@pytest.mark.parametrize("clamp", [False, True])
+@pytest.mark.parametrize("n,d", FUSED_SHAPES)
+def test_fused_adjacency_every_plan_bitwise(cuda, n, d, clamp):
+    """Every plan that takes (N, d), forced, with either epilogue: lo/hi
+    bitwise the plain version's, R bitwise the staged kernels' R."""
+    u = _fused_u(n, d, n + d, cuda)
+    if n == 0:
+        tops.reset_launches()
+        r, stats = tgf.fused_adjacency_cuda(u, eps=0.1, sigma2=0.01)
+        assert r.shape == (0, 0) and tops.launches()["fused_adjacency"] == 0
+        return
+    want_r, want_s = _staged_r(u, clamp)
+    plans = tgf.fused_adjacency_plans(n, d)
+    assert tgf.fused_adjacency_plan(n, d) in plans and "serial" in plans
+    for plan in [None, *plans]:
+        for epi in (None, *tgf.EPILOGUES):
+            r, stats = tgf.fused_adjacency_cuda(u, eps=0.1, sigma2=0.01,
+                                                clamp=clamp, plan=plan,
+                                                epilogue=epi)
+            assert torch.equal(stats, want_s), (plan, epi)
+            assert torch.equal(r, want_r), (plan, epi)
+
+
+def test_fused_adjacency_is_one_launch_at_the_quickstart(cuda):
+    """At (30, 610) the small plan's last block does the epilogue."""
+    assert tgf.fused_adjacency_plan(30, 610) == "small"
+    assert tgf.fused_adjacency_epilogue(30) == "last_block"
+    with pytest.raises(ValueError):
+        tgf.fused_adjacency_cuda(_fused_u(130, 610, 0, cuda), eps=0.1,
+                                 sigma2=0.01, plan="small")
+    with pytest.raises(ValueError):
+        tgf.fused_adjacency_cuda(torch.zeros(4, 3, dtype=torch.float64,
+                                             device=cuda), eps=0.1,
+                                 sigma2=0.01)
+
+
+@pytest.mark.parametrize("n,d,plan", [(30, 610, "small"), (130, 610, "split"),
+                                      (1024, 610, "serial"),
+                                      (4096, 610, "big")])
+def test_fused_adjacency_replays_from_a_cuda_graph(cuda, n, d, plan):
+    """One call captured in a CUDA graph, replayed on new features copied
+    into its buffer: bitwise the staged R each time."""
+    static = _fused_u(n, d, 0, cuda)
+    tgf.fused_adjacency_cuda(static, eps=0.1, sigma2=0.01, plan=plan)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out, stats = tgf.fused_adjacency_cuda(static, eps=0.1, sigma2=0.01,
+                                              plan=plan)
+    for seed in (1, 2, 3):
+        static.copy_(_fused_u(n, d, seed, cuda))
+        graph.replay()
+        torch.cuda.synchronize()
+        want_r, want_s = _staged_r(static, False)
+        assert torch.equal(stats, want_s) and torch.equal(out, want_r)
+
+
+@pytest.mark.parametrize("mode", ["eager", "graphs"])
+def test_fused_adjacency_on_two_streams_at_once(cuda, mode):
+    """Calls on two streams with no sync between them, as calls or as two
+    captured graphs replayed: each stream (each graph) has its own
+    cross-block state, so every R is the staged R."""
+    shapes = [((30, 610), "small"), ((130, 610), "split"),
+              ((1024, 610), "serial")]
+    for (n, d), plan in shapes:
+        us = [_fused_u(n, d, seed, cuda) for seed in (5, 6)]
+        streams = [torch.cuda.Stream() for _ in us]
+        torch.cuda.synchronize()
+        if mode == "graphs":
+            graphs, outs = [], []
+            for u in us:
+                tgf.fused_adjacency_cuda(u, eps=0.1, sigma2=0.01, plan=plan)
+                torch.cuda.synchronize()
+                g = torch.cuda.CUDAGraph()
+                with torch.cuda.graph(g):
+                    outs.append(tgf.fused_adjacency_cuda(u, eps=0.1,
+                                                         sigma2=0.01,
+                                                         plan=plan))
+                graphs.append(g)
+            torch.cuda.synchronize()
+            for _ in range(8):
+                for g, st in zip(graphs, streams):
+                    with torch.cuda.stream(st):
+                        g.replay()
+            results = [[o] for o in outs]
+        else:
+            results = [[], []]
+            for _ in range(8):
+                for res, u, st in zip(results, us, streams):
+                    with torch.cuda.stream(st):
+                        res.append(tgf.fused_adjacency_cuda(
+                            u, eps=0.1, sigma2=0.01, plan=plan))
+        torch.cuda.synchronize()
+        for u, res in zip(us, results):
+            want_r, want_s = _staged_r(u, False)
+            for r, stats in res:
+                assert torch.equal(stats, want_s) and torch.equal(r, want_r)
+
+
+def test_fused_adjacency_back_to_back_with_the_swaps(cuda):
+    """The fused adjacency, the Q-free swap's tiled path and the dense
+    swap's grid path in turn on one stream, no sync between them: they
+    share the stream's state, which each leaves zero."""
+    u = _fused_u(130, 610, 7, cuda)
+    swap = _swap_args(np.random.default_rng(7), 4096, 410, cuda)
+    gain = _gain_args(np.random.default_rng(7), 4096, 410, cuda)
+    outs = []
+    for _ in range(4):
+        outs.append(("fused", tgf.fused_adjacency_cuda(u, eps=0.1,
+                                                        sigma2=0.01)))
+        outs.append(("swap", tsolver.swap_best_fused_cuda(*swap,
+                                                          plan="tiled")))
+        outs.append(("gain", tsolver.swap_gain_cuda(*gain, plan="grid")))
+    want = {"fused": _staged_r(u, False),
+            "swap": tsolver.swap_best_fused_plain(*swap),
+            "gain": tsolver.swap_gain_plain(*gain)}
+    for name, got in outs:
+        assert all(torch.equal(x, y) for x, y in zip(got, want[name])), name
+
+
 def _fw_same_on_every_plan(r):
     """The kernel on its own plan and on every plan that takes N: bitwise
     the plain version."""
@@ -174,6 +321,54 @@ def test_greedy_argmax_kernel_vs_plain(cuda, n):
         kv, ki = tsolver.masked_argmax_cuda(*args)
         pv, pi = tsolver.masked_argmax_plain(*args)
         assert torch.equal(kv, pv) and torch.equal(ki, pi)
+
+
+@pytest.mark.parametrize("at", ["30", "130", "1024", "4096", "T-1", "T",
+                                "T+1"])
+def test_greedy_argmax_both_plans(cuda, at):
+    """The warp and block paths at every SIZES entry and at the warp path's
+    threshold T ± 1, with and without a taken set, on random, all-masked,
+    all-equal and NaN gains: bitwise the plain version."""
+    t = tsolver.masked_argmax_warp_most()
+    n = t + {"T-1": -1, "T": 0, "T+1": 1}[at] if at.startswith("T") \
+        else int(at)
+    assert tsolver.masked_argmax_plan(n) == ("warp" if n <= t else "block")
+    rng = np.random.default_rng(n)
+    diag = torch.as_tensor(rng.normal(size=n), dtype=torch.float32)
+    r = torch.as_tensor(rng.normal(size=n), dtype=torch.float32)
+    mask = torch.as_tensor(rng.random(n) < 0.6)
+    taken = torch.as_tensor(rng.random(n) < 0.3)
+    nan_diag = diag.clone()
+    nan_diag[::7] = float("nan")
+    none = torch.zeros(n, dtype=torch.bool)
+    cases = [(diag, r, mask), (torch.ones(n), torch.zeros(n), mask),
+             (nan_diag, r, torch.ones(n, dtype=torch.bool)),
+             (diag, r, none)]
+    for args in cases:
+        args = [a.to(cuda) for a in args]
+        for tk in (None, taken.to(cuda), args[2]):
+            want = tsolver.masked_argmax_plain(*args, tk)
+            for plan in (None, *tsolver.ARGMAX_PLANS):
+                got = tsolver.masked_argmax_cuda(*args, tk, plan=plan)
+                assert all(torch.equal(x, y) for x, y in zip(got, want)), \
+                    (plan, tk is None)
+    allm = tsolver.masked_argmax_cuda(diag.to(cuda), r.to(cuda),
+                                      mask.to(cuda), mask.to(cuda))
+    assert float(allm[0]) == float(np.float32(NEG)) and int(allm[1]) == 0
+
+
+def test_greedy_argmax_rejects_what_it_does_not_take(cuda):
+    """The CUDA wrapper converts nothing: another dtype or a strided view
+    raises, as does a CPU tensor."""
+    d = torch.zeros(8, device=cuda)
+    m = torch.ones(8, dtype=torch.bool, device=cuda)
+    for bad in ((d.double(), d, m), (d, d, m.to(torch.uint8)),
+                (d, torch.zeros(16, device=cuda)[::2], m),
+                (d, d.cpu(), m), (d, d, m[:4])):
+        with pytest.raises((TypeError, ValueError)):
+            tsolver.masked_argmax_cuda(*bad)
+    with pytest.raises(TypeError):
+        tsolver.masked_argmax_cuda(d, d, m, torch.zeros(8, device=cuda))
 
 
 def _swap_args(rng, n, m, dev):

@@ -267,6 +267,68 @@ def test_fused_adjacency_plain_vs_pallas(rng, n):
                           got.numpy())
 
 
+def _fused_order(u, *, eps, sigma2, clamp, plan):
+    """A plain model of the fused kernel's order: V's upper triangle in the
+    chunked order (``plan="tiles"``: 32 x 32 tiles, each tile's partials
+    per chunk over its row blocks, as the tile kernels; ``"entries"``: one
+    chain per (upper entry, chunk), the partials then added in ascending
+    chunk order, as the small plan), each value (clamped) written raw
+    into R's own buffer at (i, j) and (j, i), lo/hi folded per tile or per
+    block of entries, then the epilogue turns R's V into R in place."""
+    n, d = u.shape
+    r = torch.empty((n, n), dtype=torch.float32)
+    lo, hi = torch.tensor(float("inf")), torch.tensor(float("-inf"))
+    chunks = range(0, max(d, 1), SIM_CHUNK)
+
+    def chained(a, b):
+        v = torch.zeros(torch.broadcast_shapes(a.shape[:-1], b.shape[:-1]))
+        for c0 in chunks:
+            p = torch.zeros_like(v)
+            for k in range(c0, min(d, c0 + SIM_CHUNK)):
+                p = p + a[..., k] * b[..., k]
+            v = v + p
+        return torch.clamp_min(v, 0.0) if clamp else v
+
+    if plan == "tiles":
+        for i0 in range(0, n, 32):
+            for j0 in range(i0, n, 32):
+                v = chained(u[i0:i0 + 32, None, :], u[None, j0:j0 + 32, :])
+                r[i0:i0 + 32, j0:j0 + 32] = v
+                r[j0:j0 + 32, i0:i0 + 32] = v.T
+                lo, hi = torch.minimum(lo, v.min()), torch.maximum(hi, v.max())
+    else:
+        iu, ju = torch.triu_indices(n, n)
+        for e0 in range(0, len(iu), 21):
+            i, j = iu[e0:e0 + 21], ju[e0:e0 + 21]
+            v = chained(u[i], u[j])
+            r[i, j] = v
+            r[j, i] = v
+            lo, hi = torch.minimum(lo, v.min()), torch.maximum(hi, v.max())
+    vn = (r - lo) / torch.clamp_min(hi - lo, 1e-12)
+    return tgd.to_adjacency(vn, eps=eps, sigma2=sigma2), torch.stack([lo, hi])
+
+
+@pytest.mark.parametrize("plan", ["tiles", "entries"])
+@pytest.mark.parametrize("clamp", [False, True])
+@pytest.mark.parametrize("n,d", [(30, 610), (100, 10), (130, 610)])
+def test_fused_order_model_is_the_plain_version(n, d, clamp, plan):
+    """Raw V written in place, lo/hi folded per tile (or block of entries),
+    then the epilogue: bitwise fused_adjacency_plain, R and stats, with the
+    functional similarity's clamp on and off."""
+    rng = np.random.default_rng(n + d)
+    mu = rng.normal(0.0, np.sqrt(0.5), (n, 1))
+    u = torch.as_tensor(rng.normal(mu, 1.0, (n, d)), dtype=torch.float32)
+    if clamp:
+        u = u - u.mean(0)                    # some similarities below 0
+    got_r, got_s = _fused_order(u, eps=0.1, sigma2=0.01, clamp=clamp,
+                                plan=plan)
+    want_r, want_s = tgf.fused_adjacency_plain(u, eps=0.1, sigma2=0.01,
+                                               clamp=clamp)
+    assert torch.equal(got_s, want_s)
+    assert torch.equal(got_r, want_r)
+    assert bool(torch.isinf(want_r).any()) and bool(torch.isfinite(want_r).any())
+
+
 @pytest.mark.parametrize("n", [7, 100, 130])
 def test_build_3dg_fused_vs_pallas(rng, n):
     u = rng.normal(size=(n, 16)).astype(np.float32)

@@ -4,7 +4,9 @@ kernels against their plain versions on the card are in
 
 Contracts:
 * ``q_diag`` / ``q_row`` and ``greedy_argmax``: bitwise (value and index),
-  including exact ties, NaN and the all-masked lane;
+  including exact ties, NaN and the all-masked lane; with a ``taken`` set
+  (the greedy step's S, which the kernel reads itself) bitwise the
+  reference's ``greedy_argmax`` on ``mask & ~taken``;
 * ``swap_best_fused`` and the dense ``swap_best``: (best, rank, j) bitwise
   whenever best > −1e18/2, NaN entries included; ``swap_best_fused`` also
   on a panel with no column to swap in ((−1e18, 0, 0)) and on one of equal
@@ -108,6 +110,52 @@ def test_greedy_argmax_bitwise_vs_pallas(rng, case):
     assert int(ti) == int(ji)
     if case == "all_masked":
         assert float(tv) == np.float32(NEG) and int(ti) == 0
+
+
+@pytest.mark.parametrize("case", ["random", "ties", "nan", "all_masked",
+                                  "ragged", "taken_covers_avail"])
+def test_greedy_argmax_with_taken_bitwise_vs_pallas(rng, case):
+    """greedy_argmax(diag, r, mask, taken) and its plain version against the
+    reference's greedy_argmax on mask & ~taken: the same (value, index)."""
+    if case == "taken_covers_avail":
+        _, diag, r, mask = next(c for c in _greedy_cases(rng)
+                                if c[0] == "random")
+        taken = mask.copy()
+    else:
+        _, diag, r, mask = next(c for c in _greedy_cases(rng) if c[0] == case)
+        taken = rng.random(len(diag)) < 0.3
+    jv, ji = jops.greedy_argmax(jnp.asarray(diag), jnp.asarray(r),
+                                jnp.asarray(mask & ~taken))
+    for tv, ti in (tops.greedy_argmax(_t(diag), _t(r), _t(mask), _t(taken)),
+                   tsolver.masked_argmax_plain(_t(diag), _t(r), _t(mask),
+                                               _t(taken))):
+        assert np.asarray(tv).tobytes() == np.asarray(jv, np.float32).tobytes()
+        assert int(ti) == int(ji)
+    if case in ("all_masked", "taken_covers_avail"):
+        assert float(jv) == np.float32(NEG) and int(ji) == 0
+
+
+@pytest.mark.parametrize("case", ["7", "fewer_than_m"])
+def test_solve_kernel_hands_avail_and_s_to_the_greedy_step(rng, monkeypatch,
+                                                           case):
+    """Each greedy step passes A_t and S to greedy_argmax (no mask op of its
+    own), and the Q-free solve still selects the reference's set."""
+    h, counts, avail, alpha, m, mt, sweeps = _fedgs_case(rng, case)
+    calls = []
+    real = tops.greedy_argmax
+
+    def spy(diag, r, mask, taken=None):
+        calls.append((mask.clone(), None if taken is None else taken.clone()))
+        return real(diag, r, mask, taken)
+
+    monkeypatch.setattr(tops, "greedy_argmax", spy)
+    got = _port_select(h, counts, avail, alpha, m, mt, sweeps)
+    want = _jax_select(h, counts, avail, alpha, m, mt, "ref", sweeps)
+    assert np.array_equal(got, want)
+    assert len(calls) == m
+    for step, (mask, taken) in enumerate(calls):
+        assert np.array_equal(mask.numpy(), avail)
+        assert taken is not None and int(taken.sum()) == step
 
 
 # -------------------------------------------------------------- swap sweep
