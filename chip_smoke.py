@@ -20,9 +20,13 @@ Phases, each printing one JSON line (any failure exits non-zero):
               card could take.
      The staged 3DG kernels (similarity, adjacency) at (N, d) in
               {30, 130, 1024, 4096} x 610 and the vision shapes (100, 10)
-              (label distributions) and (100, 13946) (CNN updates), and
-              the similarity's serial plan beside its planned one at
-              SIM_PLAN_SHAPES (bitwise the same V); the
+              (label distributions) and (100, 13946) (CNN updates), the
+              adjacency also either side of its switch to 16-byte vectors,
+              its grid rule held to the C one, and the fused adjacency at
+              N = 1024 and 4096 with its in-place epilogue launch's own
+              device time (torch.profiler); the similarity's serial plan
+              beside its planned one at SIM_PLAN_SHAPES (bitwise the same
+              V); the
               dense-Q swap at (m, N) = (ceil(0.1 N), N) and (10, 100); the
               graph routes: fused R == staged R and build_h's H ==
               cap(staged H), bitwise, at (30, 610) and (100, 10).
@@ -45,7 +49,10 @@ Phases, each printing one JSON line (any failure exits non-zero):
               floor beside the bound.
      The robust server update's two kernels likewise: memagg at (N, P, m)
               in {(30, 610, 6), (1024, 610, 102), (2000, 300, 700),
-              (4096, 2048, 410)}, krum at (m, P) in {(6, 610), (64, 512),
+              (4096, 2048, 410)} and at its plans' crossovers
+              (MEMAGG_EDGE_SHAPES), every plan (small, cluster) held
+              and timed, the crossover printed beside the library call
+              (``memagg/crossover``), krum at (m, P) in {(6, 610), (64, 512),
               (128, 2048), (256, 4096), (512, 16384)}, at its two plans'
               crossover at P = 610 (the last m of the small plan, ± 1), at
               (6, 31) and (1, 1), and at the small plan's longest rows, m =
@@ -66,7 +73,8 @@ Phases, each printing one JSON line (any failure exits non-zero):
               card, launch counts reset before and read after each run;
               the memory and multikrum runs again on the CPU with the
               card's H: the same sets and Krum rows every round, val_loss
-              within 1e-4.  Prints each defense's final val_acc.
+              within 1e-4 (each gap printed beside that gate).  Prints
+              each defense's final val_acc.
   5. vision   the CIFAR10 surrogate at full width: make_cifar_like(100,
               20000), small_cnn(8x8x3, width 16; P = 13946), LN(0.5), 30
               rounds of M = 10, E = 10, B = 32, lr 0.03 (examples/
@@ -144,6 +152,12 @@ ENGINE_RUNS = ((30, 0.2), (1024, 0.1))
 # path's (the quickstart's panel, P = 610 logistic params)
 MEMAGG_SHAPES = ((30, 610, 6), (1024, 610, 102), (2000, 300, 700),
                  (4096, 2048, 410))
+# memagg around its plans' crossover at the main path's P (m = 10% of N),
+# and slabs past one row map (8,192 rows) on both plans; each plan held and
+# timed (memagg_crossover)
+MEMAGG_EDGE_SHAPES = ((64, 610, 6), (65, 610, 7), (80, 610, 8),
+                      (128, 610, 13), (256, 610, 26), (512, 610, 51),
+                      (140000, 64, 100))
 KRUM_SHAPES = ((6, 610), (64, 512), (128, 2048), (256, 4096), (512, 16384))
 # krum at a P below 32 that is no multiple of 4 (one lane per column, 4-byte
 # loads), one row of one column, and the small plan's longest rows and one
@@ -152,6 +166,9 @@ KRUM_EDGE_SHAPES = ((6, 31), (1, 1), (8, 8192), (8, 8193))
 # the staged 3DG kernels' (N, d): the quickstart's local optima at every N,
 # then the vision oracle's label distributions and the CNN's flat updates
 STAGED_SHAPES = tuple((n, 610) for n in SIZES) + ((100, 10), (100, 13946))
+# the adjacency kernel timed either side of its switch from single entries
+# to 16-byte vectors (2^18 entries, N = 512)
+ADJ_GRID_SIZES = (30, 367, 512, 513, 724, 1024, 4096)
 # where the similarity's big plan (128x128 tiles) takes over on an H100 and
 # the largest size above: each is timed beside the serial plan (32x32)
 SIM_PLAN_SHAPES = ((2900, 300), (4096, 610))
@@ -830,7 +847,7 @@ def staged_kernel_checks(np, torch, dev) -> dict:
         # read V and lo/hi, write R; subtract, divide, compare, divide, exp
         b, by = bound(8 * n * n + 8, 5 * n * n)
         rows[f"adjacency/{n}x{d}"] = dict(
-            n=n, d=d, max_abs_err=err,
+            n=n, d=d, max_abs_err=err, grid=ps.adjacency_grid(n),
             tolerance="inf pattern identical, finite R rtol 1e-4",
             ms=cuda_ms(torch, lambda: ps.adjacency_cuda(v, stats, eps=0.1,
                                                         sigma2=0.01)),
@@ -841,6 +858,7 @@ def staged_kernel_checks(np, torch, dev) -> dict:
             bound_ms=b, bound_by=by, library_ms=None,
             library="none: no single PyTorch call computes the thresholded "
                     "min-max adjacency")
+    rows.update(fused_epilogue_rows(np, torch, dev))
     for n, d in SIM_PLAN_SHAPES:
         u = features(np, torch, n, seed=n + d, d=d).to(dev)
         if not torch.equal(ps.similarity_serial_cuda(u),
@@ -853,6 +871,64 @@ def staged_kernel_checks(np, torch, dev) -> dict:
             serial_ms=cuda_ms(torch, lambda: ps.similarity_serial_cuda(u)),
             serial_device_ms=device_ms(
                 torch, lambda: ps.similarity_serial_cuda(u)))
+    return rows
+
+
+def fused_epilogue_rows(np, torch, dev) -> dict:
+    """The adjacency kernel as planned at ADJ_GRID_SIZES (both sides of
+    the switch from single entries to 16-byte vectors), timed; then the
+    fused adjacency at (N, 610) for N = 1024 and 4096, where a launch of
+    the staged adjacency kernel turns V into R in place: the call's
+    device_ms (CUDA-graph replay) and, from torch.profiler over ten calls,
+    that launch's mean device time.  Also holds the Python mirror of the
+    kernel's grid (adjacency_grid) to the C function."""
+    import ctypes
+
+    from repro_torch.kernels import graph_fused as gf
+    from repro_torch.kernels import pairwise_similarity as ps
+    from repro_torch.kernels._build import library
+
+    fn = library("pairwise_similarity").adjacency_grid_code
+    fn.argtypes, fn.restype = [ctypes.c_int], ctypes.c_int
+    for n in (*range(0, 70), 100, 130, 512, 513, 1024, 4096, 8191, 8192,
+              46340):
+        c = divmod(fn(n), 8)[::-1]
+        if c != ps.adjacency_grid(n):
+            raise AssertionError(f"adjacency grid at N={n}: C {c}, "
+                                 f"Python {ps.adjacency_grid(n)}")
+    rows = {}
+    for n in ADJ_GRID_SIZES:
+        u = features(np, torch, n, seed=n + 1, d=610).to(dev)
+        v = ps.similarity_cuda(u)
+        stats = torch.stack([torch.min(v), torch.max(v)])
+        rows[f"adjacency_grid/{n}"] = dict(
+            n=n, grid=ps.adjacency_grid(n),
+            device_ms=device_ms(torch, lambda: ps.adjacency_cuda(
+                v, stats, eps=0.1, sigma2=0.01)))
+    for n in (1024, 4096):
+        u = features(np, torch, n, seed=n, d=610).to(dev)
+
+        def call():
+            return gf.fused_adjacency_cuda(u, eps=0.1, sigma2=0.01)
+        if gf.fused_adjacency_epilogue(n) != "launch":
+            raise AssertionError(f"fused N={n}: epilogue not a launch")
+        call()
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(10):
+                call()
+            torch.cuda.synchronize()
+        epi = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA and
+               "adjacency_kernel" in e.key]
+        rows[f"fused_adjacency/{n}x610/epilogue=launch"] = dict(
+            n=n, d=610, plan=gf.fused_adjacency_plan(n, 610),
+            ms=cuda_ms(torch, call), device_ms=device_ms(torch, call),
+            epilogue_device_ms=(sum(e.self_device_time_total for e in epi) /
+                                max(1, sum(e.count for e in epi)) / 1e3
+                                if epi else None),
+            epilogue_bound_ms=bound(8 * n * n + 8, 5 * n * n)[0])
     return rows
 
 
@@ -1043,7 +1119,7 @@ def robust_kernel_checks(np, torch, dev) -> dict:
     from repro_torch.kernels import krum as kr
 
     rows = {}
-    for n, p, m in MEMAGG_SHAPES:
+    for n, p, m in MEMAGG_SHAPES + MEMAGG_EDGE_SHAPES:
         rng = np.random.default_rng(n + p + m)
         mem = torch.as_tensor(rng.normal(size=(n, p)), dtype=torch.float32,
                               device=dev)
@@ -1055,17 +1131,37 @@ def robust_kernel_checks(np, torch, dev) -> dict:
         w = torch.as_tensor(rng.random(n), dtype=torch.float32, device=dev)
         w = w / w.sum()
         pm, pr = ag.memory_scatter_reduce_ref(mem.clone(), upd, sel, valid, w)
-        km, kr1 = ag.memory_aggregate_cuda(mem.clone(), upd, sel, valid, w)
-        _, kr2 = ag.memory_aggregate_cuda(mem.clone(), upd, sel, valid, w)
-        if not torch.equal(km, pm):
-            raise AssertionError(f"memagg {n, p, m}: panel not bitwise")
-        if not torch.equal(kr1, kr2):
-            raise AssertionError(f"memagg {n, p, m}: red not repeatable")
-        err = (kr1 - pr).abs()
-        if not bool((err <= 1e-5 + 1e-5 * pr.abs()).all()):
-            raise AssertionError(f"memagg {n, p, m}: red beyond 1e-5 "
-                                 f"({float(err.max())})")
+        # every plan that takes the shape, held before any is timed
+        plans, err = ag.memagg_plans(n, p, m), None
+        for q in plans:
+            km, kr1 = ag.memory_aggregate_cuda(mem.clone(), upd, sel, valid,
+                                               w, plan=q)
+            _, kr2 = ag.memory_aggregate_cuda(mem.clone(), upd, sel, valid,
+                                              w, plan=q)
+            if not torch.equal(km, pm):
+                raise AssertionError(f"memagg {n, p, m} {q}: panel not "
+                                     "bitwise")
+            if not torch.equal(kr1, kr2):
+                raise AssertionError(f"memagg {n, p, m} {q}: red not "
+                                     "repeatable")
+            e = (kr1 - pr).abs()
+            if not bool((e <= 1e-5 + 1e-5 * pr.abs()).all()):
+                raise AssertionError(f"memagg {n, p, m} {q}: red beyond "
+                                     f"1e-5 ({float(e.max())})")
+            if q == ag.memagg_plan(n, p, m):
+                err = e
         work = mem.clone()
+        per_plan = {}
+        for q in plans:
+            def call(q=q):
+                return ag.memory_aggregate_cuda(work, upd, sel, valid, w,
+                                                plan=q)
+            per_plan[q] = dict(ms=cuda_ms(torch, call),
+                               device_ms=device_ms(torch, call))
+            rows[f"memagg/{n}x{p}/m={m}/plan={q}"] = dict(
+                n=n, p=p, m=m, plan=q, **per_plan[q])
+        if (n, p, m) not in MEMAGG_SHAPES:
+            continue
         # read upd, the N - m untouched rows and w; write the m new rows
         # and red; read sel (int64) and valid (bool)
         b, by = bound(4 * (m * p + n * p + n + p) + 9 * m, 2 * n * p)
@@ -1076,16 +1172,20 @@ def robust_kernel_checks(np, torch, dev) -> dict:
         rows[f"memagg/{n}x{p}/m={m}"] = dict(
             n=n, p=p, m=m, max_abs_err=float(err.max()),
             tolerance="panel bitwise, red atol = rtol = 1e-5, red bitwise "
-                      "launch to launch",
+                      "launch to launch, on every plan",
+            plan=ag.memagg_plan(n, p, m),
+            slab=ag.memagg_slab(n, p, ag.memagg_plan(n, p, m)),
             ms=cuda_ms(torch, lambda: ag.memory_aggregate_cuda(
                 work, upd, sel, valid, w)),
             device_ms=device_ms(torch, lambda: ag.memory_aggregate_cuda(
                 work, upd, sel, valid, w)),
+            plans=per_plan,
             plain_ms=cuda_ms(torch, lambda: ag.memory_scatter_reduce_ref(
                 work, upd, sel, valid, w)),
             bound_ms=b, bound_by=by, library_ms=cuda_ms(torch, library),
             library_device_ms=device_ms(torch, library),
             library="two calls: index_copy_ of the rows + torch.mv")
+    rows["memagg/crossover"] = memagg_crossover(rows)
 
     rng = np.random.default_rng(0)            # the bench's recipe, in order
     for m, p in KRUM_SHAPES:
@@ -1105,6 +1205,28 @@ def robust_kernel_checks(np, torch, dev) -> dict:
         valid = torch.ones(m, dtype=torch.bool, device=dev)
         rows[f"krum/m={m}/p={p}"] = krum_row(np, torch, x, valid)
     return rows
+
+
+def memagg_crossover(rows: dict) -> dict:
+    """The memagg plans' device_ms at every MEMAGG_SHAPES and
+    MEMAGG_EDGE_SHAPES entry, beside the library call's where the row has
+    one, and the largest N at P = 610 at which the small plan is no slower
+    than the cluster plan (the plan function's ``SMALL_ROWS``)."""
+    from repro_torch.kernels import aggregate as ag
+
+    by_shape, small_wins = {}, []
+    for n, p, m in sorted(MEMAGG_SHAPES + MEMAGG_EDGE_SHAPES):
+        t = {q: rows[f"memagg/{n}x{p}/m={m}/plan={q}"]["device_ms"]
+             for q in ag.memagg_plans(n, p, m)}
+        lib = rows.get(f"memagg/{n}x{p}/m={m}", {})
+        if "library_device_ms" in lib:
+            t["library_ms"] = lib["library_ms"]
+            t["library_device_ms"] = lib["library_device_ms"]
+        by_shape[f"{n}x{p}"] = t
+        if p == 610 and t["small"] <= t["cluster"]:
+            small_wins.append(n)
+    return {"device_ms": by_shape, "small_rows": ag.SMALL_ROWS,
+            "small_no_slower_up_to_n_at_p610": max(small_wins, default=None)}
 
 
 def krum_row(np, torch, x, valid) -> dict:
@@ -1316,7 +1438,8 @@ def robust_run(np, torch, dev) -> tuple[dict, dict]:
             raise AssertionError(f"{key}: val_loss card vs CPU {dloss}")
         cpu_check[key] = {"sets_identical": True,
                           "krum_rounds_compared": len(hc.chosen),
-                          "val_loss_max_diff": dloss}
+                          "val_loss_max_diff": dloss,
+                          "val_loss_gate": 1e-4}
     acc = {k: h.val_acc[-1] for k, h in hists.items()}
     info = {"phase": "robust", "n": 30, "m": 6, "rounds": 40,
             "attack": {"sign_flip": SIGN_FLIP},
@@ -1595,8 +1718,9 @@ def vision_run(np, torch, dev) -> tuple[dict, dict]:
 
 def profiled_device_ms(torch, fn) -> dict:
     """``fn`` once under torch.profiler (warm): the device time of all its
-    device-side events (kernels, memsets, copies) and of Floyd–Warshall's
-    kernels alone, in ms."""
+    device-side events (kernels, memsets, copies), of Floyd–Warshall's
+    kernels alone and of the adjacency kernel (the staged build's, or the
+    fused build's in-place epilogue launch), in ms."""
     torch.cuda.synchronize()
     with torch.profiler.profile(
             activities=[torch.profiler.ProfilerActivity.CPU,
@@ -1607,7 +1731,9 @@ def profiled_device_ms(torch, fn) -> dict:
               if e.device_type == torch.autograd.DeviceType.CUDA]
     return {"all": sum(e.self_device_time_total for e in on_dev) / 1e3,
             "floyd_warshall": sum(e.self_device_time_total for e in on_dev
-                                  if "fw_" in e.key) / 1e3}
+                                  if "fw_" in e.key) / 1e3,
+            "adjacency": sum(e.self_device_time_total for e in on_dev
+                             if "adjacency_kernel" in e.key) / 1e3}
 
 
 def scale_run(np, torch, dev, *, n_clients: int, frac: float,

@@ -18,11 +18,13 @@
 //   tile kernels and their three plans (split, serial, big) live in
 //   similarity.cuh, which the fused kernel shares: the staged route runs
 //   their FUSED-false instances.
-// adjacency: one thread per entry, common.cuh's adjacency_entry, with lo/hi
-//   read from a device buffer (reduced by the caller, no host sync): the
-//   kernel of similarity.cuh that the fused kernel's epilogue launch runs
-//   in place, so given the same V and lo/hi, R is bitwise the fused
-//   kernel's.  What bounds it: the bytes, V in and R out.
+// adjacency: common.cuh's adjacency_entry over the flat N² array, a thread
+//   for every access (single entries at small N, 16-byte vectors beyond),
+//   with lo/hi read from a device buffer (reduced by the caller, no host
+//   sync) and the diagonal found as f % (N + 1) == 0: the kernel of
+//   similarity.cuh that the fused kernel's epilogue launch runs in place,
+//   so given the same V and lo/hi, R is bitwise the fused kernel's.  What
+//   bounds it: the bytes, V in and R out.
 #include "similarity.cuh"
 
 using namespace fedgs::sim;
@@ -57,10 +59,17 @@ extern "C" int similarity_serial_launch(const float* u, int n, int d,
 }
 
 // v (n, n) f32 raw similarity; stats (2,) f32 = [lo, hi] on the device;
-// r (n, n) f32 out.  Returns cudaGetLastError().
+// r (n, n) f32 out (r == v: in place).  Returns cudaGetLastError().
 extern "C" int adjacency_launch(const float* v, int n, const float* stats,
                                 float eps, float sigma2, float* r,
                                 void* stream) {
     return launch_adjacency(v, n, stats, eps, sigma2, r,
                             static_cast<cudaStream_t>(stream));
+}
+
+// The grid adjacency_launch takes for n on aligned storage: blocks * 8 +
+// width.
+extern "C" int adjacency_grid_code(int n) {
+    const AdjGrid g = adjacency_grid(n);
+    return g.blocks * 8 + g.width;
 }

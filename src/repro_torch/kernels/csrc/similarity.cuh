@@ -150,31 +150,95 @@ __device__ __forceinline__ void arrive(Keys k, const Fuse& fz, int n,
         epilogue_block(r, n, sstat[0], sstat[1], fz.eps, fz.sigma2);
 }
 
-// V -> R, one thread per entry, with common.cuh's adjacency_entry and lo/hi
-// read from stats (2,) on the device; rows stride over gridDim.y.  The
-// staged route reads V from its own buffer; the fused route passes r == v
-// and turns V into R in place (each thread reads its entry, then writes it,
-// so v and r carry no __restrict__).  What bounds it: the bytes, V in and R
-// out.
-__global__ void adjacency_kernel(const float* v, int n,
-                                 const float* __restrict__ stats, float eps,
-                                 float sigma2, float* r) {
+// V -> R with common.cuh's adjacency_entry and lo/hi read from stats (2,)
+// on the device, over the flat n x n array, a thread for every access and
+// no loop around it: single entries (W = 1) up to ADJ_ENTRIES_MOST
+// entries, 16-byte vectors (W = 4) beyond, with a scalar head up to v's
+// first 16-byte boundary and a scalar tail (W = 1 also where v and r are
+// not 16-byte aligned alike).  On an H100 one access a thread beats a
+// grid-stride loop on a few blocks per SM at every N timed, and single
+// entries beat vectors at small N (PERF.md §6): each
+// entry's two IEEE divisions branch to their slow path, so a thread's
+// entries run one after another.  Entry f is on the diagonal exactly when
+// f % (n + 1) == 0: one residue a thread (32-bit while f < 2^32), no
+// division per entry; the head's diagonal entry is f = 0, the tail's
+// f = n² − 1 (n² ≡ 1 mod n + 1).  The staged route reads V from its own
+// buffer; the fused route passes r == v and turns V into R in place (each
+// thread reads its access, then writes the same one, so v and r carry no
+// __restrict__).  What bounds it: the bytes, V in and R out.
+constexpr int ADJ_THREADS = 256;
+constexpr long long ADJ_ENTRIES_MOST = 1 << 18;   // single entries up to N = 512
+
+// The adjacency kernel's grid for n (kernels/pairwise_similarity.py
+// adjacency_grid mirrors it): (W, blocks), a thread for every access;
+// `width` 1 forces single entries.  Blocks fit an int for any n x n array
+// that fits in memory.
+struct AdjGrid {
+    int width, blocks;
+};
+
+inline AdjGrid adjacency_grid(int n, int width = 0) {
+    const long long nn = (long long)n * n;
+    if (width == 0) width = nn <= ADJ_ENTRIES_MOST ? 1 : 4;
+    const long long acc = (nn + width - 1) / width;
+    return {width, static_cast<int>(
+                       std::max(1ll, (acc + ADJ_THREADS - 1) / ADJ_THREADS))};
+}
+
+template <int W> struct AdjVec;
+template <> struct AdjVec<1> { using T = float; };
+template <> struct AdjVec<4> { using T = float4; };
+
+// head < 4 scalar entries, then nvec vectors of W, then the scalar tail;
+// the grid has a thread for every vector.
+template <int W>
+__global__ void __launch_bounds__(ADJ_THREADS)
+adjacency_kernel(const float* v, int n, int head, long long nvec,
+                 const float* __restrict__ stats, float eps, float sigma2,
+                 float* r) {
+    using V = typename AdjVec<W>::T;
     const float lo = stats[0], hi = stats[1];
     const float range = fmaxf(__fsub_rn(hi, lo), 1e-12f);
-    const int j = blockIdx.x * blockDim.x + threadIdx.x;
-    if (j >= n) return;
-    for (int i = blockIdx.y; i < n; i += gridDim.y) {
-        const size_t f = (size_t)i * n + j;
-        r[f] = adjacency_entry(v[f], lo, range, eps, sigma2, i == j);
+    const uint32_t np1 = static_cast<uint32_t>(n) + 1u;
+    const long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+    if constexpr (W == 4) {                      // (single entries: none)
+        const long long nn = (long long)n * n, tail = head + W * nvec;
+        if (t < head)
+            r[t] = adjacency_entry(v[t], lo, range, eps, sigma2, t == 0);
+        if (t < nn - tail) {
+            const long long f = tail + t;
+            r[f] = adjacency_entry(v[f], lo, range, eps, sigma2, f == nn - 1);
+        }
     }
+    if (t >= nvec) return;
+    V x = reinterpret_cast<const V*>(v + head)[t];
+    const unsigned long long f0 = head + (unsigned long long)W * t;
+    const uint32_t q = f0 >> 32 ? static_cast<uint32_t>(f0 % np1)
+                                : static_cast<uint32_t>(f0) % np1;
+    float* e = reinterpret_cast<float*>(&x);
+    e[0] = adjacency_entry(e[0], lo, range, eps, sigma2, q == 0);
+#pragma unroll
+    for (int k = 1; k < W; ++k)          // (q + k) % (n + 1) == 0, q <= n
+        e[k] = adjacency_entry(e[k], lo, range, eps, sigma2, q + k == np1);
+    reinterpret_cast<V*>(r + head)[t] = x;
 }
 
 inline int launch_adjacency(const float* v, int n, const float* stats,
                             float eps, float sigma2, float* r,
                             cudaStream_t s) {
-    const int threads = 256;
-    const dim3 grid((n + threads - 1) / threads, n < 65535 ? n : 65535);
-    adjacency_kernel<<<grid, threads, 0, s>>>(v, n, stats, eps, sigma2, r);
+    const long long nn = (long long)n * n;
+    const uintptr_t av = reinterpret_cast<uintptr_t>(v);
+    const uintptr_t ar = reinterpret_cast<uintptr_t>(r);
+    const AdjGrid g = adjacency_grid(n);
+    if (g.width == 4 && av % 4 == 0 && (av - ar) % 16 == 0) {
+        const int head = static_cast<int>(
+            std::min<long long>(nn, ((16 - av % 16) % 16) / 4));
+        adjacency_kernel<4><<<g.blocks, ADJ_THREADS, 0, s>>>(
+            v, n, head, (nn - head) / 4, stats, eps, sigma2, r);
+    } else {
+        adjacency_kernel<1><<<adjacency_grid(n, 1).blocks, ADJ_THREADS, 0,
+                              s>>>(v, n, 0, nn, stats, eps, sigma2, r);
+    }
     return static_cast<int>(cudaGetLastError());
 }
 

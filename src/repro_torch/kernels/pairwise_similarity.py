@@ -14,7 +14,9 @@ same features the staged R is bitwise the fused R.  What bounds them on the
 card: the similarity's N(N+1)/2·d multiply-adds (the kernel computes the
 upper triangle and mirrors it; where its tiles are too few to fill the card
 it splits the chunks over blocks and adds their partials in order), the
-adjacency's bytes (V in, R out).
+adjacency's bytes (V in, R out: a thread for every access of the flat N²
+array, single entries at small N, 16-byte vectors beyond,
+:func:`adjacency_grid`).
 
 lo/hi are reduced by the caller (``torch.min``/``torch.max``, as the JAX
 wrapper reduces them outside its kernel) and handed over as a (2,) device
@@ -39,6 +41,8 @@ SERIAL_KERNEL = Kernel("pairwise_similarity", "similarity_serial_launch",
                        [P, I, I, P, P])
 ADJ_KERNEL = Kernel("pairwise_similarity", "adjacency_launch",
                     [P, I, P, F, F, P, P])
+ADJ_THREADS = 256            # csrc/similarity.cuh ADJ_THREADS
+ADJ_ENTRIES_MOST = 1 << 18   # single entries up to this many (N = 512)
 
 
 # -------------------------------------------------------------- similarity
@@ -121,22 +125,41 @@ def adjacency_plain(v: torch.Tensor, stats: torch.Tensor, *, eps: float,
     return to_adjacency(vn, eps=eps, sigma2=sigma2)
 
 
+def adjacency_grid(n: int) -> tuple[int, int]:
+    """The adjacency kernel's (floats a thread's access, blocks) for n on
+    aligned storage (``csrc/similarity.cuh`` ``adjacency_grid``, which the
+    fused route's epilogue launch also takes): a thread for every access,
+    single entries up to :data:`ADJ_ENTRIES_MOST` entries of R, 16-byte
+    vectors beyond."""
+    width = 1 if n * n <= ADJ_ENTRIES_MOST else 4
+    return width, max(1, -(-(-(-n * n // width)) // ADJ_THREADS))
+
+
 def adjacency_cuda(v: torch.Tensor, stats: torch.Tensor, *, eps: float,
                    sigma2: float) -> torch.Tensor:
-    if not (v.is_cuda and stats.is_cuda):
-        raise ValueError("adjacency_cuda takes CUDA tensors")
+    """The CUDA kernel on :func:`adjacency_grid`'s grid.  v and stats are
+    taken as they come when they are contiguous float32 (else converted);
+    no device context when their device is the current one."""
+    dev = v.get_device()
+    if dev < 0 or stats.get_device() != dev:
+        raise ValueError("adjacency_cuda takes CUDA tensors on one device")
     n = v.shape[0]
     if v.shape != (n, n) or stats.shape != (2,):
         raise ValueError(f"adjacency_cuda: shapes {tuple(v.shape)}, "
                          f"{tuple(stats.shape)} are not (N, N), (2,)")
-    v = v.to(torch.float32).contiguous()
-    st = stats.to(torch.float32).contiguous()
-    r = torch.empty((n, n), dtype=torch.float32, device=v.device)
+    if v.dtype != torch.float32 or not v.is_contiguous():
+        v = v.to(torch.float32).contiguous()
+    if stats.dtype != torch.float32 or not stats.is_contiguous():
+        stats = stats.to(torch.float32).contiguous()
+    r = v.new_empty((n, n))
     if n == 0:
         return r
-    with torch.cuda.device(v.device):
-        ADJ_KERNEL(v.data_ptr(), n, st.data_ptr(), eps, sigma2, r.data_ptr(),
-                   stream_of(v))
+    args = (v.data_ptr(), n, stats.data_ptr(), eps, sigma2, r.data_ptr())
+    if dev == torch.cuda.current_device():
+        ADJ_KERNEL(*args, torch.cuda.current_stream(dev).cuda_stream)
+    else:
+        with torch.cuda.device(dev):
+            ADJ_KERNEL(*args, torch.cuda.current_stream(dev).cuda_stream)
     return r
 
 

@@ -25,6 +25,7 @@ from repro.fed.server import ServerAggregator as JaxServerAggregator
 
 from repro_torch.fed import aggregator_device as tad
 from repro_torch.fed.server import ServerAggregator
+from repro_torch.kernels import aggregate as tag
 
 N, M, DIM, CLS = 9, 4, 4, 3          # P = 4·3 + 3 = 15
 RTOL, ATOL = 1e-5, 1e-6
@@ -256,6 +257,104 @@ def test_memory_nan_containment_and_empty_selection(rng):
                                        torch.zeros(m, dtype=torch.bool), w)
         assert torch.equal(nm, mem)
         np.testing.assert_allclose(red.numpy(), (w @ mem).numpy(), atol=1e-6)
+
+
+# ------------------------------------------- memagg's plans, pure functions
+def _memagg_model(mem, upd, sel, valid, w, plan):
+    """The CUDA kernel's algorithm in numpy: the inverse map row -> slot of
+    the valid in-range slots, each row read once (from upd where it takes
+    an update), then the kernel's order of the sum — per slab, row group y
+    adds rows y, y + 8, ... ascending by fmaf from 0 (modelled in float64
+    then rounded), the 8 groups added from group 0; on the cluster plan
+    the slabs' sums added in ascending order from slab 0's.  A slab longer
+    than one row map (MAP_ROWS rows) is taken in windows of that many rows,
+    which leaves this order as it is.  Returns (panel, red)."""
+    n, p = mem.shape
+    slab = tag.memagg_slab(n, p, plan)
+    slabs = -(-n // slab) if n > slab else 1
+    slot = np.full(n, -1)
+    for k in range(len(sel)):
+        if valid[k] and 0 <= sel[k] < n:
+            slot[sel[k]] = k
+    x = np.where(slot[:, None] >= 0, upd[np.maximum(slot, 0)], mem) \
+        if len(sel) else mem.copy()
+    rows = np.minimum(slab, n - slab * np.arange(slabs))
+    acc = np.zeros((slabs, 8, p), np.float32)
+    y = np.arange(8)[None, :]
+    for k in range(-(-slab // 8)):
+        ok = y + 8 * k < rows[:, None]
+        r = np.where(ok, slab * np.arange(slabs)[:, None] + y + 8 * k, 0)
+        new = (w[r][..., None].astype(np.float64) * x[r] + acc) \
+            .astype(np.float32)
+        acc = np.where(ok[..., None], new, acc)
+    part = acc[:, 0]
+    for g in range(1, 8):
+        part = part + acc[:, g]
+    red = part[0]
+    for j in range(1, slabs):
+        red = red + part[j]
+    return x, red
+
+
+# the chip's memagg shapes (chip_smoke.py MEMAGG_SHAPES), the plans'
+# crossover ± 1 row, and slabs past one row map on both plans
+MEMAGG_SHAPES = [(30, 610, 6), (1024, 610, 102), (2000, 300, 700),
+                 (4096, 2048, 410), (tag.SMALL_ROWS, 610, 6),
+                 (tag.SMALL_ROWS + 1, 610, 7), (140000, 64, 100),
+                 (300000, 2048, 30)]
+
+
+@pytest.mark.parametrize("n,p,m", MEMAGG_SHAPES)
+def test_memagg_plan_and_grid(n, p, m):
+    """The plan is a pure function of the shape: the small plan (one
+    launch) up to SMALL_ROWS rows, the cluster plan beyond, both taking
+    any N.  The cluster plan cuts the rows into 2 to 16 slabs, as many as
+    give each thread one batch of rows in flight where 16 allow."""
+    assert tag.memagg_plan(n, p, m) == ("small" if n <= tag.SMALL_ROWS
+                                        else "cluster")
+    assert tag.memagg_plans(n, p, m) == ["small", "cluster"]
+    assert tag.memagg_slab(n, p, "small") == n
+    batch = tag.ROW_GROUPS * tag.ROWS_IN_FLIGHT
+    slab = tag.memagg_slab(n, p, "cluster")
+    assert 2 <= -(-n // slab) <= tag.CLUSTER_MOST
+    assert slab <= batch or -(-n // slab) == tag.CLUSTER_MOST
+
+
+def test_memagg_plans_at_their_limits():
+    assert tag.memagg_plans(0, 5, 0) == ["small"]
+    assert tag.memagg_plans(1, 5, 1) == ["small"]
+    assert tag.memagg_plans(2, 5, 2) == ["small", "cluster"]
+    assert tag.memagg_plan(tag.SMALL_ROWS, 5, 1) == "small"
+    assert tag.memagg_plan(tag.SMALL_ROWS + 1, 5, 1) == "cluster"
+    assert tag.memagg_slab(1 << 30, 2048, "cluster") == 1 << 26
+    assert tag.MAP_ROWS % (tag.ROW_GROUPS * tag.ROWS_IN_FLIGHT) == 0
+
+
+@pytest.mark.parametrize("plan", tag.PLANS)
+@pytest.mark.parametrize("n,p,m", MEMAGG_SHAPES[:4] + [(140000, 3, 100)])
+def test_memagg_kernel_order_model_vs_plain(rng, n, p, m, plan):
+    """The kernel's algorithm, modelled in numpy on each plan: the panel
+    bitwise the plain scatter's, red within the 1e-5 the card is held to
+    (atol = rtol), with slots that are invalid or point outside the panel
+    skipped."""
+    mem = rng.normal(size=(n, p)).astype(np.float32)
+    upd = rng.normal(size=(m, p)).astype(np.float32)
+    sel = np.sort(rng.choice(n, size=m, replace=False))
+    valid = rng.random(m) < 0.8
+    w = rng.random(n).astype(np.float32)
+    w = w / w.sum()
+    out = sel.copy()
+    out[:2] = (n, -1)                        # valid, outside the panel
+    keep = valid.copy()
+    keep[:2] = False
+    pm, pr = tad.memory_scatter_reduce_ref(
+        torch.as_tensor(mem.copy()), torch.as_tensor(upd),
+        torch.as_tensor(sel), torch.as_tensor(keep), torch.as_tensor(w))
+    vm = valid.copy()
+    vm[:2] = True
+    km, kr = _memagg_model(mem, upd, out, vm, w, plan)
+    np.testing.assert_array_equal(km, pm.numpy())
+    np.testing.assert_allclose(kr, pr.numpy(), atol=1e-5, rtol=1e-5)
 
 
 # ----------------------------------------------------- robust combine rules

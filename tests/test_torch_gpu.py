@@ -116,7 +116,8 @@ def test_fused_adjacency_kernel_vs_plain(cuda, n):
 # 4-byte ones (the small plan's three widths)
 FUSED_SHAPES = [(0, 610), (1, 610), (30, 610), (100, 10), (130, 610),
                 (1024, 610), (100, 13946), (31, 610), (32, 610), (33, 610),
-                (63, 610), (64, 610), (65, 610), (30, 612), (33, 611)]
+                (63, 610), (64, 610), (65, 610), (30, 612), (33, 611),
+                (34, 610), (4097, 610)]
 
 
 def _staged_r(u, clamp):
@@ -551,35 +552,66 @@ def test_engine_on_card_equals_cpu(cuda):
 
 
 # ------------------------------------------------- robust server update
+def _memagg_inputs(rng, n, p, m, dev):
+    """A panel, m updates (one NaN), m distinct sorted rows of which ~80%
+    valid (the first always), and normalized weights."""
+    mem = torch.as_tensor(rng.normal(size=(n, p)), dtype=torch.float32,
+                          device=dev)
+    upd = torch.as_tensor(rng.normal(size=(m, p)), dtype=torch.float32,
+                          device=dev)
+    if m and p > 1:
+        upd[0, 1] = float("nan")
+    sel = torch.as_tensor(np.sort(rng.choice(n, m, replace=False)),
+                          device=dev)
+    valid = torch.as_tensor(rng.random(m) < 0.8, device=dev)
+    if m:
+        valid[0] = True
+    w = torch.as_tensor(rng.random(n), dtype=torch.float32, device=dev)
+    return mem, upd, sel, valid, w / w.sum()
+
+
+def _memagg_close(kr, pr):
+    """red within atol = rtol = 1e-5 of the plain tensordot, NaN where it
+    is NaN."""
+    assert torch.equal(torch.isnan(kr), torch.isnan(pr))
+    fin = ~torch.isnan(pr)
+    np.testing.assert_allclose(kr[fin].cpu().numpy(), pr[fin].cpu().numpy(),
+                               atol=1e-5, rtol=1e-5)
+
+
 # memagg at the quickstart's memory panel (N = 30, P = 610, M = 6), the
 # N = 1024 scale run's (M = 102), a multi-chunk m and a large panel
-@pytest.mark.parametrize("n,p,m", [(30, 610, 6), (1024, 610, 102),
-                                   (2000, 300, 700), (4096, 2048, 410)])
+MEMAGG_SHAPES = [(30, 610, 6), (1024, 610, 102), (2000, 300, 700),
+                 (4096, 2048, 410)]
+# the small/cluster crossover ± 1 row, slabs past one row map (MAP_ROWS
+# rows) on both plans, 4-byte columns (P odd) with m past the 1,024 slots a
+# block loads before its row map, 8-byte columns (P % 4 == 2), two rows
+MEMAGG_EDGES = [(tag.SMALL_ROWS, 610, 6), (tag.SMALL_ROWS + 1, 610, 7),
+                (140000, 64, 100), (1500, 37, 1100),
+                (300, 302, 30), (2, 5, 2)]
+
+
+@pytest.mark.parametrize("n,p,m", MEMAGG_SHAPES + MEMAGG_EDGES)
 def test_memagg_kernel_vs_plain(cuda, n, p, m):
-    rng = np.random.default_rng(n + m)
-    mem = torch.as_tensor(rng.normal(size=(n, p)), dtype=torch.float32,
-                          device=cuda)
-    upd = torch.as_tensor(rng.normal(size=(m, p)), dtype=torch.float32,
-                          device=cuda)
-    upd[0, 1] = float("nan")
-    sel = torch.as_tensor(np.sort(rng.choice(n, m, replace=False)),
-                          device=cuda)
-    valid = torch.as_tensor(rng.random(m) < 0.8, device=cuda)
-    valid[0] = True
-    w = torch.as_tensor(rng.random(n), dtype=torch.float32, device=cuda)
-    w = w / w.sum()
+    """On every plan that takes the shape: the panel bitwise the plain
+    scatter's (the NaN in its own row), red within 1e-5 of the plain
+    tensordot and bitwise from one launch to the next."""
+    mem, upd, sel, valid, w = _memagg_inputs(np.random.default_rng(n + m),
+                                             n, p, m, cuda)
     pm, pr = tag.memory_scatter_reduce_ref(mem.clone(), upd, sel, valid, w)
-    kmem = mem.clone()
-    km, kr = tag.memory_aggregate_cuda(kmem, upd, sel, valid, w)
-    assert km is kmem
-    assert torch.equal(torch.isnan(km), torch.isnan(pm))
-    assert torch.equal(torch.nan_to_num(km), torch.nan_to_num(pm))
-    assert bool(torch.isnan(kr[1])) and bool(torch.isnan(pr[1]))
-    keep = torch.arange(p, device=cuda) != 1
-    np.testing.assert_allclose(kr[keep].cpu().numpy(), pr[keep].cpu().numpy(),
-                               atol=1e-5, rtol=1e-5)
-    _, kr2 = tag.memory_aggregate_cuda(mem.clone(), upd, sel, valid, w)
-    assert torch.equal(torch.nan_to_num(kr2), torch.nan_to_num(kr))
+    plans = tag.memagg_plans(n, p, m)
+    assert tag.memagg_plan(n, p, m) in plans
+    for plan in [None, *plans]:
+        kmem = mem.clone()
+        km, kr = tag.memory_aggregate_cuda(kmem, upd, sel, valid, w,
+                                           plan=plan)
+        assert km is kmem
+        assert torch.equal(torch.isnan(km), torch.isnan(pm))
+        assert torch.equal(torch.nan_to_num(km), torch.nan_to_num(pm))
+        _memagg_close(kr, pr)
+        _, kr2 = tag.memory_aggregate_cuda(mem.clone(), upd, sel, valid, w,
+                                           plan=plan)
+        assert torch.equal(torch.nan_to_num(kr2), torch.nan_to_num(kr))
 
 
 def test_memagg_kernel_empty_and_invalid(cuda):
@@ -591,16 +623,132 @@ def test_memagg_kernel_empty_and_invalid(cuda):
     for m in (0, 3):
         upd = torch.ones((m, p), device=cuda)
         sel = torch.arange(m, device=cuda)
-        km, kr = tag.memory_aggregate_cuda(mem.clone(), upd, sel,
-                                           torch.zeros(m, dtype=torch.bool,
-                                                       device=cuda), w)
-        assert torch.equal(km, mem)
-        np.testing.assert_allclose(kr.cpu().numpy(), (w @ mem).cpu().numpy(),
-                                   atol=1e-6)
+        for plan in tag.memagg_plans(n, p, m):
+            km, kr = tag.memory_aggregate_cuda(
+                mem.clone(), upd, sel, torch.zeros(m, dtype=torch.bool,
+                                                   device=cuda), w, plan=plan)
+            assert torch.equal(km, mem)
+            np.testing.assert_allclose(kr.cpu().numpy(),
+                                       (w @ mem).cpu().numpy(), atol=1e-6)
     with pytest.raises(ValueError, match="not CUDA"):
         tag.memory_aggregate_cuda(mem, torch.ones((1, p)), sel[:1],
                                   torch.ones(1, dtype=torch.bool,
                                              device=cuda), w)
+
+
+def test_memagg_kernel_skips_rows_outside_the_panel(cuda):
+    """Valid slots whose rows lie outside [0, N) are skipped on every plan:
+    the panel and red are the plain version's over the in-range slots; a
+    panel with P = 0 gives an empty red with no launch."""
+    n, p, m = 100, 64, 8
+    mem, upd, sel, valid, w = _memagg_inputs(np.random.default_rng(3), n, p,
+                                             m, cuda)
+    valid[:] = True
+    bad = sel.clone()
+    bad[2], bad[5] = n, -3
+    ok = torch.ones(m, dtype=torch.bool, device=cuda)
+    ok[2] = ok[5] = False
+    pm, pr = tag.memory_scatter_reduce_ref(mem.clone(), upd[ok], sel[ok],
+                                           valid[ok], w)
+    for plan in tag.memagg_plans(n, p, m):
+        km, kr = tag.memory_aggregate_cuda(mem.clone(), upd, bad, valid, w,
+                                           plan=plan)
+        assert torch.equal(torch.nan_to_num(km), torch.nan_to_num(pm))
+        _memagg_close(kr, pr)
+    tops.reset_launches()
+    empty = torch.zeros((n, 0), device=cuda)
+    _, red = tag.memory_aggregate_cuda(empty, torch.zeros((m, 0),
+                                                          device=cuda),
+                                       sel, valid, w)
+    assert red.shape == (0,) and tops.launches()["memagg"] == 0
+
+
+@pytest.mark.parametrize("offset", [1, 2])
+def test_memagg_kernel_on_offset_views(cuda, offset):
+    """A panel and updates that start 4 or 8 bytes into their storage: the
+    kernel moves 4- or 8-byte columns there, and gives the same panel and
+    red as on aligned storage."""
+    n, p, m = 300, 612, 30
+    mem, upd, sel, valid, w = _memagg_inputs(np.random.default_rng(4), n, p,
+                                             m, cuda)
+    for plan in tag.memagg_plans(n, p, m):
+        km, kr = tag.memory_aggregate_cuda(mem.clone(), upd, sel, valid, w,
+                                           plan=plan)
+        vm = torch.empty(n * p + offset, device=cuda)[offset:].view(n, p)
+        vu = torch.empty(m * p + offset, device=cuda)[offset:].view(m, p)
+        vm.copy_(mem)
+        vu.copy_(upd)
+        _, vr = tag.memory_aggregate_cuda(vm, vu, sel, valid, w, plan=plan)
+        assert torch.equal(torch.nan_to_num(vm), torch.nan_to_num(km))
+        assert torch.equal(torch.nan_to_num(vr), torch.nan_to_num(kr))
+
+
+@pytest.mark.parametrize("plan", tag.PLANS)
+@pytest.mark.parametrize("n,p,m", MEMAGG_SHAPES)
+def test_memagg_replays_from_a_cuda_graph(cuda, n, p, m, plan):
+    """One call captured in a CUDA graph and replayed 20 times on new
+    inputs copied into its buffers: each time the panel bitwise the plain
+    scatter's and red bitwise an eager call's on the same inputs."""
+    static = _memagg_inputs(np.random.default_rng(0), n, p, m, cuda)
+    tag.memory_aggregate_cuda(static[0].clone(), *static[1:], plan=plan)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        _, red = tag.memory_aggregate_cuda(*static, plan=plan)
+    for seed in range(1, 21):
+        fresh = _memagg_inputs(np.random.default_rng(seed), n, p, m, cuda)
+        for buf, x in zip(static, fresh):
+            buf.copy_(x)
+        graph.replay()
+        torch.cuda.synchronize()
+        pm, pr = tag.memory_scatter_reduce_ref(fresh[0].clone(), *fresh[1:])
+        assert torch.equal(torch.nan_to_num(static[0]), torch.nan_to_num(pm))
+        _, want = tag.memory_aggregate_cuda(fresh[0].clone(), *fresh[1:],
+                                            plan=plan)
+        assert torch.equal(torch.nan_to_num(red), torch.nan_to_num(want))
+        _memagg_close(red, pr)
+
+
+@pytest.mark.parametrize("plan", tag.PLANS)
+@pytest.mark.parametrize("mode", ["eager", "graphs"])
+def test_memagg_on_two_streams_at_once(cuda, mode, plan):
+    """Calls on two streams with no sync between them, as calls or as two
+    captured graphs replayed: no plan keeps anything outside its blocks,
+    so every red is the one call's red on one stream."""
+    for n, p, m in MEMAGG_SHAPES[1:]:
+        ins = [_memagg_inputs(np.random.default_rng(seed), n, p, m, cuda)
+               for seed in (5, 6)]
+        want = [tag.memory_aggregate_cuda(x[0].clone(), *x[1:],
+                                          plan=plan)[1] for x in ins]
+        streams = [torch.cuda.Stream() for _ in ins]
+        torch.cuda.synchronize()
+        if mode == "graphs":
+            graphs, outs = [], []
+            for x in ins:
+                tag.memory_aggregate_cuda(x[0].clone(), *x[1:], plan=plan)
+                torch.cuda.synchronize()
+                g = torch.cuda.CUDAGraph()
+                with torch.cuda.graph(g):
+                    outs.append(tag.memory_aggregate_cuda(*x, plan=plan)[1])
+                graphs.append(g)
+            torch.cuda.synchronize()
+            for _ in range(8):
+                for g, st in zip(graphs, streams):
+                    with torch.cuda.stream(st):
+                        g.replay()
+            results = [[o] for o in outs]
+        else:
+            results = [[], []]
+            for _ in range(8):
+                for res, x, st in zip(results, ins, streams):
+                    with torch.cuda.stream(st):
+                        res.append(tag.memory_aggregate_cuda(
+                            *x, plan=plan)[1])
+        torch.cuda.synchronize()
+        for w_red, res in zip(want, results):
+            for red in res:
+                assert torch.equal(torch.nan_to_num(red),
+                                   torch.nan_to_num(w_red))
 
 
 def krum_panel_bound(x: torch.Tensor) -> torch.Tensor:
@@ -740,6 +888,70 @@ def test_staged_kernels_vs_plain(cuda, n, d):
     assert np.array_equal(np.diag(r_k), np.zeros(n, np.float32))
     fin = np.isfinite(r_p)
     np.testing.assert_allclose(r_k[fin], r_p[fin], rtol=1e-4, atol=TINY)
+
+
+def _adjacency_formula(v, stats, eps, sigma2):
+    """R entry by entry in the kernel's operations: (v − lo) / max(hi − lo,
+    1e-12) and −Vn / σ² as IEEE divisions (σ² a device tensor, so no
+    multiply by a reciprocal), exp, the threshold, then 0 on the
+    diagonal."""
+    rng = torch.clamp_min(stats[1] - stats[0], 1e-12)
+    vn = (v - stats[0]) / rng
+    e = torch.exp(-vn / torch.tensor(sigma2, dtype=torch.float32,
+                                     device=v.device))
+    r = torch.where(vn >= eps, e, torch.full_like(e, float("inf")))
+    eye = torch.eye(v.shape[0], dtype=torch.bool, device=v.device)
+    return torch.where(eye, torch.zeros_like(r), r)
+
+
+# N² not a multiple of 4, odd pitches, the fused route's last-block
+# epilogue edge (33/34), and past one block's worth of vectors
+ADJ_SIZES = [1, 2, 3, 31, 33, 34, 130, 1024, 4097]
+
+
+@pytest.mark.parametrize("n", ADJ_SIZES)
+def test_adjacency_kernel_bitwise_out_of_place_and_in_place(cuda, n):
+    """The staged adjacency out of place and the same kernel in place (the
+    fused route's epilogue launch): both bitwise the fused route's
+    last-block epilogue (the per-entry loop of similarity.cuh) on the same
+    V and the formula on the card (IEEE divisions, expf), with the
+    diagonal 0."""
+    u = _fused_u(n, 610, n + 1, cuda)
+    v = tps.similarity_cuda(u)
+    stats = torch.stack([v.min(), v.max()])
+    want, want_s = tgf.fused_adjacency_cuda(u, eps=0.1, sigma2=0.01,
+                                            epilogue="last_block")
+    assert torch.equal(want_s, stats)
+    r = tps.adjacency_cuda(v, stats, eps=0.1, sigma2=0.01)
+    assert torch.equal(r, want)
+    in_place, _ = tgf.fused_adjacency_cuda(u, eps=0.1, sigma2=0.01,
+                                           epilogue="launch")
+    assert torch.equal(in_place, want)
+    assert tgf.fused_adjacency_epilogue(n) == (
+        "last_block" if n <= 33 else "launch")
+    assert torch.equal(r, _adjacency_formula(v, stats, 0.1, 0.01))
+    assert np.array_equal(np.diag(r.cpu().numpy()), np.zeros(n, np.float32))
+
+
+@pytest.mark.parametrize("offset", [1, 2, 3, 4])
+@pytest.mark.parametrize("n", [3, 34, 130, 513, 1025])
+def test_adjacency_kernel_on_offset_views(cuda, n, offset):
+    """V starting 4–16 bytes into its storage: out of place (R aligned, so
+    4-byte accesses unless the offset is 16 bytes) and in place at that
+    offset (past N = 512 on 16-byte vectors after a scalar head): R
+    bitwise the aligned call's."""
+    u = _fused_u(n, 610, n + 2, cuda)
+    v = tps.similarity_cuda(u)
+    stats = torch.stack([v.min(), v.max()])
+    want = tps.adjacency_cuda(v, stats, eps=0.1, sigma2=0.01)
+    buf = torch.empty(n * n + offset, device=cuda)
+    view = buf[offset:].view(n, n)
+    view.copy_(v)
+    assert torch.equal(tps.adjacency_cuda(view, stats, eps=0.1, sigma2=0.01),
+                       want)
+    tps.ADJ_KERNEL(view.data_ptr(), n, stats.data_ptr(), 0.1, 0.01,
+                   view.data_ptr(), torch.cuda.current_stream().cuda_stream)
+    assert torch.equal(view, want)
 
 
 @pytest.mark.parametrize("d", [520, 610, 611])

@@ -46,6 +46,7 @@ from repro_torch.core import sspp as tsspp
 from repro_torch.data.synthetic import make_synthetic
 from repro_torch.kernels import graph_fused as tgf
 from repro_torch.kernels import ops as tops
+from repro_torch.kernels import pairwise_similarity as tps
 from repro_torch.kernels.ref import (SIM_CHUNK, floyd_warshall_ref,
                                     similarity_ref)
 
@@ -458,6 +459,60 @@ def test_similarity_to_adjacency_vs_pallas(rng, n, eps):
     got = tops.similarity_to_adjacency(_t(v), eps=eps, sigma2=0.01).numpy()
     _assert_graph_close(got, want)
     assert np.array_equal(np.diag(got), np.zeros(n, np.float32))
+
+
+def _adjacency_walk(n, width, head_bytes, threads=256):
+    """The adjacency kernel's walk over the flat n x n array, modelled in
+    numpy (csrc/similarity.cuh adjacency_kernel): a thread for every
+    access, ceil(ceil(n² / width) / 256) blocks of 256.  On 16-byte
+    vectors (``width`` 4), a scalar head up to v's first 16-byte boundary
+    (``head_bytes`` its offset; its diagonal entry f = 0) and a scalar tail
+    (its diagonal entry f = n² − 1), thread t taking head entry t and tail
+    entry t; between them, or over every entry (``width`` 1), thread t
+    takes access t, with its first entry's residue f % (n + 1).
+    Returns (visits per entry, the diagonal flag each entry got)."""
+    nn, np1 = n * n, n + 1
+    head = min(nn, (16 - head_bytes) % 16 // 4) if width == 4 else 0
+    nvec = (nn - head) // width
+    tail = head + width * nvec
+    visits = np.zeros(nn, np.int64)
+    diag = np.zeros(nn, bool)
+    t = np.arange(max(1, -(-(-(-nn // width)) // threads)) * threads)
+    for f in t[t < head]:
+        visits[f] += 1
+        diag[f] = f == 0
+    for f in tail + t[t < nn - tail]:
+        visits[f] += 1
+        diag[f] = f == nn - 1
+    on = t[t < nvec]
+    q = (head + width * on) % np1
+    for k in range(width):
+        f = head + width * on + k
+        visits[f] += 1
+        diag[f] = (q == 0) if k == 0 else (q + k == np1)
+    return visits, diag
+
+
+@pytest.mark.parametrize("n", [1, 2, 3, 31, 33, 34, 130, 513, 1024])
+def test_adjacency_walk_visits_each_entry_once(n):
+    """Every entry once, the diagonal exactly where f % (n + 1) == 0, on
+    single entries and on 16-byte vectors at any alignment of V."""
+    for width, head_bytes in ((1, 0), (4, 0), (4, 4), (4, 8), (4, 12)):
+        visits, diag = _adjacency_walk(n, width, head_bytes)
+        assert (visits == 1).all(), (width, head_bytes)
+        assert np.array_equal(diag, np.arange(n * n) % (n + 1) == 0)
+
+
+def test_adjacency_grid_has_a_thread_for_every_access():
+    """Single entries up to 2^18 of them (N = 512), then 16-byte vectors,
+    a thread for each, 256 a block, at every N."""
+    assert [tps.adjacency_grid(n) for n in (0, 1, 30, 100, 130, 367, 512,
+                                            513, 1024, 4096, 8191, 8192,
+                                            46340)] == \
+        [(1, 1), (1, 1), (1, 4), (1, 40), (1, 67), (1, 527), (1, 1024),
+         (4, 258), (4, 1024), (4, 16384), (4, 65521), (4, 65536),
+         (4, 2097067)]
+    assert tps.ADJ_THREADS == 256 and tps.ADJ_ENTRIES_MOST == 1 << 18
 
 
 @pytest.mark.parametrize("n", [7, 130])
