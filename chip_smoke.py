@@ -118,11 +118,37 @@ Phases, each printing one JSON line (any failure exits non-zero):
               (d) the sliding-window variant (window 4096): prefill of
               8,191 tokens + one decode step against the prefill of 8,192.
               (c) and (d) print their gaps beside the earlier readings.
-  8. the ``{"kernels": [...]}`` line (times at the main path's shapes:
+  8. scan     the batched sweep engine (``fed/scan_engine.ScanEngine``)
+              at the quickstart's width: N = 30, P = 610, M = 6, E = 10, B
+              = 10, 40 rounds, max_sweeps 64.  (a) the seven Table-1 modes
+              x FedGS alpha = 1 on host masks as one ``run_batch``, each
+              cell against FLEngine on the card with the same masks, init
+              and batch indices: the same sets and counts every round,
+              val_loss within 1e-4, B3/B4 launches exactly 7 x the slice
+              phase's FLEngine run's.  (b) eight cells on the device
+              processes (LN table, Gilbert–Elliott, cluster, drift,
+              deadline; the four samplers; FedAvg, memory, multi-Krum; one
+              20% sign-flip cell), every draw made on the host from a seed:
+              the batch equals each cell's own run on the card (sets,
+              val_loss within 1e-5) and the CPU batch (sets and Krum rows
+              over the 40 rounds; val_loss within 1e-4 round by round,
+              each card round replayed on the CPU from the card's state:
+              free-running, some cells amplify round-off to ~1e-3, as a
+              one-ulp change of their init does on the CPU alone, both
+              printed), memagg and krum launched exactly once a round per
+              memory / Krum cell.  The same cells on the port's own device
+              draws: wall ms per round, host syncs (torch's sync debug
+              mode), launches per round and one profiled batch round.
+              (c) two FedGS cells on the dynamic 3DG (rebuilt every 5
+              rounds): B1 = B2 = 2 x (1 + 8); replayed on the CPU from the
+              card's state, the same sets every round and each rebuilt H
+              within rtol 1e-4 (the round where free-running sets part,
+              printed).  Batch and one-by-one seconds printed.
+  9. the ``{"kernels": [...]}`` line (times at the main path's shapes:
      N = 30, M = 6, P = 610; the similarity also at the vision phase's
      (100, 13946) update-cosine 3DG, with that call's launches; the dense
      swap at the vision solve's (m, N) = (10, 100); window attention at
-     smollm's prefill).
+     smollm's prefill; ``scan_launches``: the scan phase's gated runs).
 The last line is ``{"ok": true, "device": {...}}``.  The script needs a CUDA
 device and the repository's ``src/`` beside it; without either it exits
 non-zero and prints no result.  Full output also goes to
@@ -200,6 +226,9 @@ SIGN_FLIP = {"frac": 0.2, "scale": 5.0}
 KRUM_F = max(1, min(math.ceil(0.2 * 6) + 1, (6 - 3) // 2))
 KRUM_MULTI = max(2, 6 // 2)
 MAIN_N = ENGINE_RUNS[0][0]
+# phase 8: the batched sweep engine at the quickstart's width (FedGSSampler's
+# max_sweeps; the dynamic 3DG rebuilt every 5 rounds)
+SCAN = {"rounds": 40, "max_sweeps": 64, "graph_refresh_every": 5}
 NEG = -1e18
 # phase 7: the LM serving path.  bf16 inputs run on the tensor cores in the
 # library call, so their bound takes the bf16 tensor-core peak
@@ -1857,6 +1886,344 @@ def scale_run(np, torch, dev, *, n_clients: int, frac: float,
             "top_device_ms": [[k, t / 1e3, c] for k, t, c in top],
             "port_device_ms": port}
 
+# ------------------------------------------------------------ phase 8
+def scan_run(np, torch, dev, one_run: dict) -> tuple[dict, dict]:
+    """The batched sweep engine at the quickstart's width (see the module
+    docstring).  ``one_run`` is the slice phase's FLEngine launch counts.
+    Returns (info, the phase's launch counts summed over its gated runs)."""
+    import warnings
+    from repro_torch.core import availability_device as avd
+    from repro_torch.core.availability import ALL_MODES, make_mode
+    from repro_torch.core.sampler import FedGSSampler
+    from repro_torch.core.sampler_device import make_sampler_process
+    from repro_torch.data.synthetic import make_synthetic
+    from repro_torch.fed.aggregator_device import make_aggregator_process
+    from repro_torch.fed.engine import FLConfig, FLEngine
+    from repro_torch.fed.faults_device import make_fault_process
+    from repro_torch.fed.models import logistic_regression
+    from repro_torch.fed.scan_engine import (ScanConfig, ScanEngine,
+                                             oracle_h, precompute_masks)
+    from repro_torch.kernels import ops
+
+    t_phase = time.perf_counter()
+    ds = make_synthetic(n_clients=30, alpha=0.5, beta=0.5, seed=0)
+    n, m, rounds, sweeps = ds.n_clients, MAIN_M, SCAN["rounds"], \
+        SCAN["max_sweeps"]
+    model = logistic_regression()
+
+    def cfg(**kw):
+        return ScanConfig(rounds=rounds, m=m, local_steps=10, batch_size=10,
+                          lr=0.1, eval_every=4, max_sweeps=sweeps, **kw)
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    def counted(fn):
+        ops.reset_launches()
+        out, sec = timed(fn)
+        return out, sec, ops.launches()
+
+    def key_indices(seed):
+        """Batch indices keyed by (seed, t, client): the padded scan and
+        FLEngine (|S_t| rows) draw the same rows for the same client."""
+        def draw(t, sel, sizes):
+            return np.stack([np.floor(np.random.default_rng(
+                [seed, t, int(k)]).random((10, 10)) * max(int(nk), 1))
+                .astype(np.int64) for k, nk in zip(sel, sizes)])
+        return draw
+
+    info = {"phase": "scan", "n": n, "m": m, "p": 610, "rounds": rounds,
+            "max_sweeps": sweeps}
+    totals: dict = {}
+
+    def add(launches):
+        for k, v in launches.items():
+            totals[k] = totals.get(k, 0) + v
+
+    h = oracle_h(ds.opt_params, device=dev)
+    params0 = {k: v.numpy() for k, v in
+               model.init(torch.Generator().manual_seed(0)).items()}
+
+    # (a) the seven Table-1 modes x FedGS alpha = 1 on host masks, one
+    # batch, each cell against FLEngine on the card
+    modes = [make_mode(name, n_clients=n, data_sizes=ds.sizes,
+                       label_sets=ds.label_sets(), num_labels=ds.num_classes,
+                       seed=99) for name in ALL_MODES]
+    eng = ScanEngine(ds, model, cfg(), use_masks=True, device=dev)
+    cells = [eng.cell(seed=0, masks=precompute_masks(mo, rounds, 1234 + i),
+                      alpha=1.0, h=h, init_params=params0,
+                      batch_indices=key_indices(i))
+             for i, mo in enumerate(modes)]
+    batch, sec_a, la = counted(lambda: eng.run_batch(cells))
+    add(la)
+    want = {"greedy_argmax": len(modes) * one_run["greedy_argmax"],
+            "swap_best_fused": len(modes) * one_run["swap_best_fused"]}
+    if one_run["greedy_argmax"] != rounds * m or \
+            one_run["swap_best_fused"] != rounds * sweeps or \
+            any(la[k] != v for k, v in want.items()):
+        raise AssertionError(f"scan (a): launches {la}, want {want} "
+                             f"(7 x the slice phase's FLEngine run "
+                             f"{one_run})")
+    gaps, fl_launches, one_s = [], [], 0.0
+    for i, (mo, hist) in enumerate(zip(modes, batch)):
+        fl = FLEngine(ds, model, FedGSSampler(alpha=1.0, device=dev), mo,
+                      FLConfig(rounds=rounds, sample_frac=0.2,
+                               local_steps=10, batch_size=10, lr=0.1,
+                               eval_every=4, seed=0, avail_seed=1234 + i),
+                      device=dev, init_params=params0,
+                      batch_indices=key_indices(i))
+        fl.install_graph_from_H(h)
+        fh, _, lf = counted(fl.run)
+        fl_launches.append({k: lf[k] for k in want})
+        bad = [t for t in range(rounds)
+               if hist.sampled(t).tolist() != fh.all_sampled[t]]
+        if bad or not np.array_equal(hist.counts, fl.counts):
+            raise AssertionError(f"scan (a) {ALL_MODES[i]}: sets differ "
+                                 f"from FLEngine in rounds {bad}")
+        if hist.rounds.tolist() != fh.rounds:
+            raise AssertionError(f"scan (a): eval rounds {hist.rounds}")
+        gap = float(np.max(np.abs(hist.val_loss[fh.rounds] - fh.val_loss)))
+        if gap > 1e-4:
+            raise AssertionError(f"scan (a) {ALL_MODES[i]}: val_loss vs "
+                                 f"FLEngine {gap}")
+        gaps.append(gap)
+        one_s += timed(lambda c=cells[i]: eng.run(c))[1]
+    info["a_mask_sweep"] = {
+        "modes": list(ALL_MODES), "sets_identical_vs_flengine": True,
+        "val_loss_max_gap_vs_flengine": dict(zip(ALL_MODES, gaps)),
+        "val_loss_gate": 1e-4, "batch_s": sec_a, "one_by_one_s": one_s,
+        "launches": la, "flengine_launches": fl_launches,
+        "min_available": {nm: int(precompute_masks(
+            mo, rounds, 1234 + i).sum(1).min())
+            for i, (nm, mo) in enumerate(zip(ALL_MODES, modes))}}
+
+    # (b) eight cells on the device processes: the five families, the four
+    # samplers, FedAvg, memory and Krum, one sign-flip cell
+    krum = dict(krum_f=KRUM_F, krum_multi=KRUM_MULTI)
+    ln = make_mode("LN", n_clients=n, beta=0.5, seed=99).process()
+    mixed = [  # (process, sampler, aggregator, fault)
+        (ln, "fedgs", ("fedavg", {}), None),
+        (avd.GilbertElliott(n, mean_on=8, mean_off=4), "uniform",
+         ("memory", {"gamma": 0.9}), None),
+        (avd.make_process("CLUSTER", n_clients=n), "md", ("fedavg", {}),
+         None),
+        (avd.make_process("DRIFT", n_clients=n, data_sizes=ds.sizes,
+                          rounds=rounds), "poc", ("multikrum", krum), None),
+        (avd.DeadlineProcess(n, deadline=1.2), "fedgs",
+         ("memory", {"gamma": 0.9}), None),
+        (ln, "fedgs", ("multikrum", krum), "sign_flip"),
+        (avd.GilbertElliott(n, mean_on=8, mean_off=4), "poc",
+         ("fedavg", {}), None),
+        (avd.make_process("DRIFT", n_clients=n, data_sizes=ds.sizes,
+                          rounds=rounds), "md", ("fedavg", {}), None)]
+
+    def mixed_cells(e, seams=True):
+        out = []
+        for i, (proc, samp, (agg, kw), fault) in enumerate(mixed):
+            fp = make_fault_process(fault, n, **SIGN_FLIP) if fault else None
+            out.append(e.cell(
+                seed=i, process=proc, avail_seed=60 + i, h=h,
+                sampler_process=make_sampler_process(samp),
+                aggregator_process=make_aggregator_process(agg, **kw),
+                fault_process=fp,
+                **(e.host_draws(i, proc) if seams else {})))
+        return out
+
+    card = ScanEngine(ds, model, cfg(), device=dev)
+    cells = mixed_cells(card)
+    batch, sec_b, lb = counted(lambda: card.run_batch(cells))
+    add(lb)
+    n_fedgs = sum(samp == "fedgs" for _, samp, _, _ in mixed)
+    want = {"memagg": 2 * rounds, "krum": 2 * rounds,
+            "greedy_argmax": n_fedgs * rounds * m,
+            "swap_best_fused": n_fedgs * rounds * sweeps}
+    if any(lb[k] != v for k, v in want.items()):
+        raise AssertionError(f"scan (b): launches {lb}, want {want}")
+    one_s, solo_gap = 0.0, 0.0
+    for i, (c, hist) in enumerate(zip(cells, batch)):
+        one, sec = timed(lambda c=c: card.run(c))
+        one_s += sec
+        if not np.array_equal(one.sel, hist.sel):
+            raise AssertionError(f"scan (b) cell {i}: batch and own run "
+                                 f"select differently")
+        solo_gap = max(solo_gap, float(np.nanmax(np.abs(
+            one.val_loss - hist.val_loss))))
+    if solo_gap > 1e-5:
+        raise AssertionError(f"scan (b): val_loss batch vs own runs "
+                             f"{solo_gap}")
+    cpu = ScanEngine(ds, model, cfg(), device="cpu")
+    cpu_cells = mixed_cells(cpu)
+    on_cpu, sec_cpu = timed(lambda: cpu.run_batch(cpu_cells))
+    free_gap = []
+    for i, (a, b) in enumerate(zip(batch, on_cpu)):
+        same_chosen = (a.chosen is None) == (b.chosen is None) and (
+            a.chosen is None or np.array_equal(a.chosen, b.chosen))
+        if not (np.array_equal(a.sel, b.sel) and same_chosen):
+            raise AssertionError(f"scan (b) cell {i}: card and CPU differ "
+                                 f"(sets or Krum rows)")
+        free_gap.append(float(np.nanmax(np.abs(a.val_loss - b.val_loss))))
+    # val_loss card vs CPU round by round: each round of the card run
+    # replayed on the CPU from the card's own state.  Over 40 free-running
+    # rounds some of these trajectories amplify float32 round-off ~10^3x
+    # (a one-ulp change of the init alone moves them ~1e-3 on the CPU,
+    # printed below), which says nothing of the card's arithmetic.
+    def to(x, d):
+        if isinstance(x, torch.Tensor):
+            return x.to(d, copy=True)
+        if isinstance(x, dict):
+            return {k: to(v, d) for k, v in x.items()}
+        if isinstance(x, list):
+            return [to(v, d) for v in x]
+        return x
+    carry, step_gap = card.init_carry(cells), np.zeros(len(cells))
+    for t in range(rounds):
+        start = to(carry, "cpu")
+        carry, tc = card.run_segment(cells, carry, t, 1)
+        _, tp = cpu.run_segment(cpu_cells, start, t, 1)
+        if not torch.equal(tc["sel"].cpu(), tp["sel"]):
+            raise AssertionError(f"scan (b) round {t}: card and CPU select "
+                                 f"differently from the same state")
+        step_gap = np.fmax(step_gap, np.abs(
+            tc["val_loss"][:, 0].cpu().numpy() - tp["val_loss"][:, 0].numpy()))
+    if float(np.nanmax(step_gap)) > 1e-4:
+        raise AssertionError(f"scan (b): val_loss card vs CPU from the "
+                             f"same state {step_gap}")
+    # each cell's own conditioning: the CPU batch again with every init
+    # one float32 ulp up
+    bumped = []
+    for i, (proc, samp, (agg, kw), fault) in enumerate(mixed):
+        c = cpu_cells[i]
+        p1 = {k: np.nextafter(v.numpy(), np.inf).astype(np.float32)
+              for k, v in c["params0"].items()}
+        fp = make_fault_process(fault, n, **SIGN_FLIP) if fault else None
+        bumped.append(cpu.cell(
+            seed=i, process=proc, avail_seed=60 + i, h=h,
+            sampler_process=make_sampler_process(samp),
+            aggregator_process=make_aggregator_process(agg, **kw),
+            fault_process=fp, init_params=p1, **cpu.host_draws(i, proc)))
+    ulp = [float(np.nanmax(np.abs(a.val_loss - b.val_loss)))
+           for a, b in zip(on_cpu, cpu.run_batch(bumped))]
+    info["b_mixed"] = {
+        "cells": [[p.family, smp, agg, f or "none"]
+                  for p, smp, (agg, _), f in mixed],
+        "sets_identical_batch_vs_own_runs": True,
+        "val_loss_max_gap_batch_vs_own_runs": solo_gap,
+        "val_loss_gate_own_runs": 1e-5,
+        "sets_and_krum_rows_identical_card_vs_cpu": True,
+        "val_loss_gap_card_vs_cpu_per_round": step_gap.tolist(),
+        "val_loss_gate_cpu_per_round": 1e-4,
+        "val_loss_gap_card_vs_cpu_free_running": free_gap,
+        "val_loss_gap_cpu_one_ulp_init": ulp,
+        "krum_rounds_compared": 2 * rounds,
+        "batch_s": sec_b, "one_by_one_s": one_s, "cpu_batch_s": sec_cpu,
+        "launches": lb,
+        "final_val_acc": [float(x.val_acc[-1]) for x in batch]}
+
+    # the same eight cells on the port's own (device) draws: wall time per
+    # round, host syncs (torch's sync debug mode), launches per round, and
+    # one profiled batch round
+    own = mixed_cells(card, seams=False)
+    card.run_batch(own)                                  # warm
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            ops.reset_launches()
+            hists, sec_own = timed(lambda: card.run_batch(own))
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    syncs = sum("synchroniz" in str(w.message) for w in caught)
+    lo = ops.launches()
+    carry = card.init_carry(own)
+    card.run_segment(own, carry, 0, 1)
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        card.run_segment(own, carry, 1, 1)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    on_dev = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    dev_us = sum(e.self_device_time_total for e in on_dev)
+    top = sorted(((e.key, e.self_device_time_total, e.count) for e in on_dev),
+                 key=lambda x: -x[1])[:8]
+    if not all(np.isfinite(x.val_loss[x.rounds]).all() for x in hists):
+        raise AssertionError("scan (b) own draws: a val_loss is not finite")
+    info["b_own_draws"] = {
+        "batch_s": sec_own, "wall_ms_per_round": sec_own * 1e3 / rounds,
+        "host_syncs": syncs, "host_syncs_per_round": syncs / rounds,
+        "port_launches_per_round": {k: v / rounds for k, v in lo.items()
+                                    if v},
+        "profiled_round_wall_ms": wall_ms,
+        "profiled_round_device_ms": dev_us / 1e3 if dev_us else None,
+        "device_busy_share": dev_us / 1e3 / wall_ms if dev_us else None,
+        "device_launches_per_round": sum(e.count for e in on_dev),
+        "top_device_ms": [[k, t / 1e3, c] for k, t, c in top]}
+
+    # (c) the dynamic 3DG: two FedGS cells, rebuilt every 5 rounds
+    every = SCAN["graph_refresh_every"]
+    masks = precompute_masks(make_mode("LN", n_clients=n, beta=0.5,
+                                       seed=99), rounds, 1234)
+    engines, dyn_cells = {}, {}
+    for key, d in (("card", dev), ("cpu", "cpu")):
+        engines[key] = e = ScanEngine(
+            ds, model, cfg(graph_refresh_every=every), use_masks=True,
+            device=d)
+        dyn_cells[key] = [e.cell(seed=s, masks=masks, alpha=1.0,
+                                 **e.host_draws(s)) for s in (0, 1)]
+    free, sec, lc = counted(lambda: engines["card"].run_batch(
+        dyn_cells["card"]))
+    add(lc)
+    builds = 2 * (1 + rounds // every)
+    if any(lc[k] != builds for k in ("fused_adjacency", "floyd_warshall")):
+        raise AssertionError(f"scan (c): launches {lc}, want {builds} "
+                             f"fused adjacency and Floyd–Warshall")
+    # round by round from the card's state: the CPU selects the card's
+    # sets, and its rebuilt H (from the card's embeddings) is the card's
+    # under the graph contract.  Free-running, a FedGS near-tie decided by
+    # H's round-off may part the two runs (printed).
+    card, cpu = engines["card"], engines["cpu"]
+    carry, h_rel = card.init_carry(dyn_cells["card"]), 0.0
+    for t in range(rounds):
+        start = to(carry, "cpu")
+        carry, tc = card.run_segment(dyn_cells["card"], carry, t, 1)
+        nxt, tp = cpu.run_segment(dyn_cells["cpu"], start, t, 1)
+        if not torch.equal(tc["sel"].cpu(), tp["sel"]):
+            raise AssertionError(f"scan (c) round {t}: card and CPU select "
+                                 f"differently from the same state")
+        if (t + 1) % every:
+            continue
+        for hc, hp in zip(carry["h"], nxt["h"]):
+            hc, hp = hc.cpu().numpy(), hp.numpy()
+            if not np.array_equal(hc == hc.max(), hp == hp.max()):
+                raise AssertionError(f"scan (c) round {t}: H's "
+                                     f"disconnected pairs differ")
+            rel = float(np.max(np.abs(hc - hp) / np.maximum(np.abs(hp),
+                                                             1e-7)))
+            if rel > 1e-4:
+                raise AssertionError(f"scan (c) round {t}: H card vs CPU "
+                                     f"{rel}")
+            h_rel = max(h_rel, rel)
+    on_cpu = cpu.run_batch(dyn_cells["cpu"])
+    info["c_dynamic"] = {
+        "refresh_every": every, "batch_s": sec, "launches": lc,
+        "builds_gated": builds,
+        "sets_identical_card_vs_cpu_per_round": True,
+        "h_max_rel_card_vs_cpu_per_rebuild": h_rel, "h_gate_rel": 1e-4,
+        "free_running_first_round_sets_part": [
+            int(np.flatnonzero((a.sel != b.sel).any(1))[0])
+            if not np.array_equal(a.sel, b.sel) else None
+            for a, b in zip(free, on_cpu)]}
+    info["seconds"] = time.perf_counter() - t_phase
+    return info, totals
+
+
 # ------------------------------------------------------------ phase 7
 def visible_pairs(s: int, window: int) -> int:
     """Σ_i min(i + 1, window) over i < s: the (query, key) pairs one head
@@ -2215,6 +2582,7 @@ def main() -> int:
           "rows": robust_rows})
 
     info, launches = slice_run(np, torch, dev)
+    slice_launches = dict(launches)
     emit(info)
     info, robust_launches = robust_run(np, torch, dev)
     emit(info)
@@ -2230,6 +2598,8 @@ def main() -> int:
                     vision_launches["pairwise_similarity/vision"]}
     emit(scale_run(np, torch, dev, n_clients=ENGINE_RUNS[1][0],
                    frac=ENGINE_RUNS[1][1], aggregator="memory"))
+    info, scan_launches = scan_run(np, torch, dev, slice_launches)
+    emit(info)
     t0 = time.perf_counter()
     attn_rows = attention_kernel_checks(np, torch, dev)
     emit({"phase": "kernels", "attention": True, "card": smi,
@@ -2258,6 +2628,7 @@ def main() -> int:
             f"{name}/m={MAIN_M}" if name == "swap_best_fused" else name]
         kernels.append({"name": name, "route": "cuda", "source": source,
                         "replaces": replaces, "launches": launches[name],
+                        "scan_launches": scan_launches.get(name, 0),
                         "max_abs_err": row["max_abs_err"], "ms": row["ms"],
                         "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
                         "bound_by": row["bound_by"],

@@ -1,9 +1,12 @@
 """The paper's seven client-availability modes (Table 1) — numpy.
 
-A copy of ``repro.core.availability``'s mode classes and host draw, plus the
-two numpy helpers of ``repro.core.availability_device`` they delegate to.
-Everything here is numpy, so the port's masks are BITWISE equal to the
-reference's for the same seeds.
+A copy of ``repro.core.availability``'s mode classes and host draw (the
+numpy Bernoulli helpers they delegate to live in ``availability_device``).
+The masks are numpy draws, so the port's masks are BITWISE equal to the
+reference's for the same seeds.  Each mode is also a device process
+(:meth:`AvailabilityMode.process`, a ``TableProcess``), and
+:class:`ProcessMode` is the host face over any process, so ``FLEngine``
+runs the stateful scenario families too.
 
 Each mode yields a per-client active probability ``p_k(t)``; each round the
 active set is an independent Bernoulli draw with a *dedicated* seed stream
@@ -36,20 +39,10 @@ from __future__ import annotations
 
 import numpy as np
 
-
-def ensure_nonempty_np(avail: np.ndarray, rng: np.random.Generator) -> np.ndarray:
-    """Force >= 1 active client: if the mask is empty, turn on one uniformly
-    drawn client.  ``rng.integers`` is consumed ONLY when the mask is empty."""
-    if not avail.any():
-        avail = avail.copy()
-        avail[int(rng.integers(len(avail)))] = True
-    return avail
-
-
-def sample_bernoulli_np(p: np.ndarray, rng: np.random.Generator) -> np.ndarray:
-    """Host-side Bernoulli + force-one — the draw every mode's ``sample``
-    delegates to."""
-    return ensure_nonempty_np(rng.random(p.shape) < p, rng)
+from repro_torch.core.availability_device import (
+    AvailabilityProcess, TableProcess, init_draw, round_draws,
+    sample_bernoulli_np,
+)
 
 
 class AvailabilityMode:
@@ -81,6 +74,14 @@ class AvailabilityMode:
         """Boolean active mask for round t — the shared Bernoulli +
         force-one-active draw (:func:`sample_bernoulli_np`)."""
         return sample_bernoulli_np(self.probs(t), rng)
+
+    def process(self) -> TableProcess:
+        """This mode as a device-native ``AvailabilityProcess`` (the f64
+        table stays on the process for the host face; the device params
+        cast it to float32)."""
+        if not hasattr(self, "_process"):
+            self._process = TableProcess(self.probs_table(), name=self.name)
+        return self._process
 
 
 class Ideal(AvailabilityMode):
@@ -212,6 +213,50 @@ def make_mode(name: str, *, n_clients: int, data_sizes=None, label_sets=None,
 ALL_MODES = ("IDL", "MDF", "LDF", "YMF", "YC", "LN", "SLN")
 
 
+# ----------------------------------------------------------- host face
+class ProcessMode:
+    """Numpy face over ANY ``AvailabilityProcess`` — the ``probs(t)`` /
+    ``sample(t, rng)`` API ``FLEngine`` and ``precompute_masks`` consume.
+
+    Stateless families (table, drift) serve exact float64 probabilities
+    (``process.host_probs``).  Stateful families replay the process on the
+    CPU from ``avail_seed``: the init and transition draws are the port's
+    own default streams, the ones a CPU scan cell with this ``avail_seed``
+    draws (so the latent chain is that cell's), or ``draws(kind, t,
+    shape)`` when given ("init" and "step", as the scan engine's seam).
+    Only the Bernoulli differs from the scan: numpy here.  Rows are cached,
+    so replay is deterministic and order-independent."""
+
+    def __init__(self, process: AvailabilityProcess, avail_seed: int = 1234,
+                 *, draws=None):
+        self.process = process
+        self.name = getattr(process, "name", process.family)
+        self.avail_seed = avail_seed        # host_draw checks it matches
+        self._draws = draws
+        self._state = None
+        self._rows: list[np.ndarray] = []
+
+    def probs(self, t: int) -> np.ndarray:
+        hp = self.process.host_probs(t)
+        if hp is not None:
+            return np.asarray(hp, np.float64)
+        proc, n = self.process, self.process.n_clients
+        if self._state is None:
+            self._state = proc.init(init_draw(
+                proc.draw_dist, n, self.avail_seed, "cpu",
+                draws=self._draws), device="cpu")
+        while len(self._rows) <= t:
+            tt = len(self._rows)
+            d = round_draws(proc.draw_dist, n, self.avail_seed, tt, "cpu",
+                            draws=self._draws)
+            p, self._state = proc.step(self._state, d["step"], tt)
+            self._rows.append(p.numpy().astype(np.float64))
+        return self._rows[t]
+
+    def sample(self, t: int, rng: np.random.Generator) -> np.ndarray:
+        return sample_bernoulli_np(self.probs(t), rng)
+
+
 def host_round_rng(avail_seed: int, t: int) -> np.random.Generator:
     """The per-round numpy availability stream — ``SeedSequence([seed, t])``,
     independent of model-training randomness (Appendix C)."""
@@ -220,15 +265,19 @@ def host_round_rng(avail_seed: int, t: int) -> np.random.Generator:
 
 def host_draw(mode, t: int, avail_seed: int = 1234) -> np.ndarray:
     """ONE round's host-side availability mask — the wrapper ``FLEngine.run``
-    calls.  ``mode`` is anything with ``sample(t, rng)``.  A mode that
-    carries its own ``avail_seed`` must be drawn under that seed: a
-    mismatch is an error, not a silent skew."""
+    and ``scan_engine.precompute_masks`` call.  ``mode`` is anything with
+    ``sample(t, rng)``: an ``AvailabilityMode`` or a ``ProcessMode``.
+
+    A ``ProcessMode`` bakes its latent-stream seed at construction; drawing
+    it under another Bernoulli seed would give a trace that matches neither
+    scan run, so a mismatch is an error, not a silent skew."""
     mode_seed = getattr(mode, "avail_seed", None)
     if mode_seed is not None and mode_seed != avail_seed:
         raise ValueError(
-            f"availability seed mismatch: the mode was built with "
+            f"availability seed mismatch: the ProcessMode was built with "
             f"avail_seed={mode_seed} but host_draw was asked for "
-            f"avail_seed={avail_seed}")
+            f"avail_seed={avail_seed}; the latent process stream and the "
+            f"Bernoulli stream must share one seed for host<->scan parity")
     return mode.sample(t, host_round_rng(avail_seed, t))
 
 

@@ -33,22 +33,23 @@ def gini(counts: np.ndarray) -> float:
 
 
 # -------------------------------------------------------------- torch twins
+# Each reduces over the last axis: counts (N,) or (C, N) for C cells.
 def count_variance_device(counts: torch.Tensor) -> torch.Tensor:
     v = counts.to(torch.float32)
     n = v.shape[-1]
-    return torch.sum((v - v.mean()) ** 2) / max(n - 1, 1)
+    return torch.sum((v - v.mean(-1, keepdim=True)) ** 2, -1) / max(n - 1, 1)
 
 
 def count_range_device(counts: torch.Tensor) -> torch.Tensor:
-    return counts.max() - counts.min()
+    return counts.amax(-1) - counts.amin(-1)
 
 
 def gini_device(counts: torch.Tensor) -> torch.Tensor:
     """The zero-sum guard is a ``where`` over a 1e-12-floored denominator,
     so the twin needs no host sync."""
-    v = torch.sort(counts.to(torch.float32)).values
+    v = torch.sort(counts.to(torch.float32), dim=-1).values
     n = v.shape[-1]
-    cum = torch.cumsum(v, 0)
-    tot = cum[-1]
-    g = (n + 1 - 2.0 * torch.sum(cum) / torch.clamp_min(tot, 1e-12)) / n
+    cum = torch.cumsum(v, -1)
+    tot = cum[..., -1]
+    g = (n + 1 - 2.0 * torch.sum(cum, -1) / torch.clamp_min(tot, 1e-12)) / n
     return torch.where(tot > 0, g, torch.zeros_like(g))

@@ -1,5 +1,6 @@
-"""The FedGS Eq. 16 solver and the baseline selects (the part of
-``repro.core.sampler_device`` this slice needs).
+"""Device-native samplers (the port of ``repro.core.sampler_device``): the
+FedGS Eq. 16 solver, the baseline selects and the sampler processes the
+scan engine carries.
 
 FedGS solves, each round,
     max_s  sᵀ (alpha/N · H − diag(z)) s   s.t. |s| = m, s ⊆ A_t
@@ -20,13 +21,24 @@ reference's ``lax.cond``): the solve never syncs with the host, so a round
 costs one sync, when the caller reads the selection.  Tie-breaks (first
 max, row-major flat order) and the NaN guard (NaN -> −1e18) are the
 reference's (DESIGN.md assumption log #12/#13).
+
+A :class:`SamplerProcess` packs one cell's sampler (``params()``: family
+index, alpha, log-size weights) and :func:`make_sampler_step` builds the
+per-round step of one family — the family is host data, so the dispatch is
+a Python lookup (the reference's ``lax.switch``).  RNG seam: the reference's
+``jax.random.gumbel`` noise comes in as a tensor (``gumbel=``), and the
+Power-of-Choice probe reads its loss through a ``probe_losses`` callable
+that owns its index draws.
 """
 from __future__ import annotations
 
+from dataclasses import dataclass
 from typing import Callable
 
 import numpy as np
 import torch
+
+FAMILIES = ("fedgs", "uniform", "md", "poc")
 
 NEG = -1e18                 # masked-entry sentinel (== kernels/solver.NEG)
 SWAP_TOL = 1e-9             # a swap must improve Eq. 16 by more than this
@@ -34,13 +46,14 @@ SWAP_TOL = 1e-9             # a swap must improve Eq. 16 by more than this
 
 # ------------------------------------------------------------ shared helpers
 def select_k(s: torch.Tensor, k: int):
-    """Mask (N,) bool -> (sorted selected indices (k,), valid (k,)): selected
-    indices ascending, then pad slots (``valid`` False) ascending."""
-    n = s.shape[0]
+    """Mask (..., N) bool -> (sorted selected indices (..., k), valid (...,
+    k)): selected indices ascending, then pad slots (``valid`` False)
+    ascending, per row."""
+    n = s.shape[-1]
     iota = torch.arange(n, device=s.device)
-    order = torch.argsort(torch.where(s, iota, n + iota))
-    sel = order[:k]
-    return sel, s[sel]
+    order = torch.argsort(torch.where(s, iota, n + iota), dim=-1)
+    sel = order[..., :k]
+    return sel, torch.gather(s, -1, sel)
 
 
 def _at(x: torch.Tensor, i: torch.Tensor) -> torch.Tensor:
@@ -63,37 +76,47 @@ def log_size_weights(data_sizes) -> torch.Tensor:
 
 
 # --------------------------------------------------- baseline sampling draws
-def gumbel_topk_select(generator: torch.Generator, log_weights: torch.Tensor,
-                       avail: torch.Tensor, m: int) -> torch.Tensor:
+def gumbel_noise(generator: torch.Generator, shape,
+                 device=None) -> torch.Tensor:
+    """Standard Gumbel noise ``−log(−log u)`` from ``generator``."""
+    u = torch.rand(shape, generator=generator, device=generator.device,
+                   dtype=torch.float32)
+    return -torch.log(-torch.log(u.to(device or u.device)))
+
+
+def gumbel_topk_select(generator, log_weights: torch.Tensor,
+                       avail: torch.Tensor, m: int, *,
+                       gumbel: torch.Tensor | None = None) -> torch.Tensor:
     """Weighted sampling WITHOUT replacement among available clients (Gumbel
-    top-k), drawn from ``generator``.  Returns s (N,) bool with exactly
-    min(m, |avail|) True entries.  Torch's generator cannot replay JAX's
-    draws: this matches the reference in distribution only."""
-    u = torch.rand(log_weights.shape, generator=generator,
-                   device=generator.device, dtype=torch.float32)
-    g = -torch.log(-torch.log(u.to(log_weights.device)))
+    top-k) over the last axis: ``gumbel`` is the noise (e.g. the
+    reference's ``jax.random.gumbel`` draw), else drawn from ``generator``
+    (torch's generator cannot replay JAX's draws: that matches the
+    reference in distribution only).  Returns s (..., N) bool with exactly
+    min(m, |avail|) True entries per row."""
+    g = gumbel_noise(generator, avail.shape, log_weights.device) \
+        if gumbel is None else gumbel.to(log_weights.device)
     scores = torch.where(avail, log_weights + g,
                          torch.full_like(g, float("-inf")))
-    idx = torch.topk(scores, m).indices
-    s = torch.zeros(log_weights.shape, dtype=torch.bool,
-                    device=log_weights.device)
-    return s.scatter(0, idx, avail[idx])
+    idx = torch.topk(scores, m, dim=-1).indices
+    s = torch.zeros(avail.shape, dtype=torch.bool, device=avail.device)
+    return s.scatter(-1, idx, torch.gather(avail, -1, idx))
 
 
-def uniform_select(generator: torch.Generator, avail: torch.Tensor,
-                   m: int) -> torch.Tensor:
+def uniform_select(generator, avail: torch.Tensor, m: int, *,
+                   gumbel: torch.Tensor | None = None) -> torch.Tensor:
     """Uniform without replacement among A_t."""
     return gumbel_topk_select(
         generator, torch.zeros(avail.shape, dtype=torch.float32,
-                               device=avail.device), avail, m)
+                               device=avail.device), avail, m, gumbel=gumbel)
 
 
-def md_select(generator: torch.Generator, data_sizes, avail: torch.Tensor,
-              m: int) -> torch.Tensor:
+def md_select(generator, data_sizes, avail: torch.Tensor, m: int, *,
+              gumbel: torch.Tensor | None = None) -> torch.Tensor:
     """Without replacement, P(k) ∝ n_k, among A_t (degenerate sizes handled
     by the :func:`log_size_weights` floor)."""
     return gumbel_topk_select(
-        generator, log_size_weights(data_sizes).to(avail.device), avail, m)
+        generator, log_size_weights(data_sizes).to(avail.device), avail, m,
+        gumbel=gumbel)
 
 
 # ------------------------------------------------------------- FedGS solver
@@ -219,12 +242,13 @@ def fedgs_solve(q: torch.Tensor, avail: torch.Tensor, *, m: int,
 
 def balance_z(counts: torch.Tensor, m_target: int) -> torch.Tensor:
     """Eq. 14's count-balance penalty z = 2(c − mean(c) − M/N) + 1, float32
-    in the reference's op order."""
+    in the reference's op order.  XLA computes ``counts.mean()`` as the sum
+    times the float32 reciprocal of N (its divide by a constant becomes a
+    multiply), so the mean here is that product too: an IEEE multiply,
+    the same on the CPU and on CUDA."""
     n = counts.shape[0]
     counts = counts.to(torch.float32)
-    # sum / n as a true division (CUDA's mean multiplies by 1/n)
-    mean = torch.sum(counts) / torch.full((), n, dtype=torch.float32,
-                                          device=counts.device)
+    mean = torch.sum(counts) * float(np.float32(1.0) / np.float32(n))
     return 2.0 * (counts - mean - m_target / n) + 1.0
 
 
@@ -249,3 +273,158 @@ def fedgs_select(h: torch.Tensor, counts: torch.Tensor, avail: torch.Tensor,
 
     return _solve_kernel(q_diag(hf, z, al), lambda k: q_row(hf, z, al, k),
                          swap_fn, avail, m=m, max_sweeps=max_sweeps)
+
+
+# ------------------------------------------------------- the family step
+def make_sampler_step(n: int, m: int, *, family: str, max_sweeps: int = 32,
+                      d_cand: int | None = None,
+                      probe_losses: Callable | None = None):
+    """The per-round sampler step of one family,
+
+        ``step(sparams, state, inputs, avail, t, *, gumbel=None)
+            -> (s (N,) bool, state)``
+
+    ``inputs`` carries the round context: ``h`` (N, N) normalized H and
+    ``counts`` (N,) for FedGS, and whatever ``probe_losses(inputs, cidx,
+    cvalid) -> (d,)`` reads for Power-of-Choice (the scan engine closes
+    over the model and reads ``inputs["params"]``; the default reads a
+    precomputed ``inputs["losses"]`` (N,)).  ``gumbel`` is the round's (N,)
+    Gumbel noise of the uniform, MD and PoC families; FedGS reads none
+    (deterministic given (H, counts, A_t)).  |s| = min(m, |A_t|)."""
+    if family not in FAMILIES:
+        raise ValueError(f"family must be one of {FAMILIES}, not {family!r}")
+    d = int(n if d_cand is None else d_cand)
+    if probe_losses is None:
+        def probe_losses(inputs, cidx, cvalid):
+            return inputs["losses"][cidx]
+
+    def _fedgs(sp, state, inputs, avail, t, gumbel):
+        s = fedgs_select(inputs["h"], inputs["counts"], avail, sp["alpha"],
+                         m=m, max_sweeps=max_sweeps)
+        return s, state
+
+    def _uniform(sp, state, inputs, avail, t, gumbel):
+        return uniform_select(None, avail, m, gumbel=gumbel), state
+
+    def _md(sp, state, inputs, avail, t, gumbel):
+        return gumbel_topk_select(None, sp["log_sizes"], avail, m,
+                                  gumbel=gumbel), state
+
+    def _poc(sp, state, inputs, avail, t, gumbel):
+        """Cho et al. 2020: d·m candidates by data size (Gumbel top-k), then
+        keep the top-m highest-loss candidates."""
+        cand = gumbel_topk_select(None, sp["log_sizes"], avail, d,
+                                  gumbel=gumbel)
+        cidx, cvalid = select_k(cand, d)
+        losses = probe_losses(inputs, cidx, cvalid)
+        kk = torch.topk(torch.where(cvalid, losses,
+                                    torch.full_like(losses, float("-inf"))),
+                        m).indices
+        # cidx entries are distinct: an invalid slot never overwrites a
+        # kept candidate
+        s = torch.zeros(n, dtype=torch.bool, device=avail.device)
+        return s.scatter(0, cidx[kk], cvalid[kk]), state
+
+    branch = {"fedgs": _fedgs, "uniform": _uniform, "md": _md,
+              "poc": _poc}[family]
+
+    def step(sparams, state, inputs, avail, t, *, gumbel=None):
+        if family != "fedgs" and gumbel is None:
+            raise ValueError(f"the {family} sampler needs its (N,) Gumbel "
+                             f"noise")
+        return branch(sparams, state, inputs, avail, t, gumbel)
+
+    return step
+
+
+# ------------------------------------------------------------ the processes
+@dataclass
+class SamplerProcess:
+    """Base class: ``params()`` packs the family index, alpha and the
+    MD/PoC log-size weights; ``init()`` the carried state (empty: today's
+    samplers are stateless per round)."""
+
+    family = "uniform"
+    name = "process"
+
+    def _alpha(self) -> float:
+        return 0.0
+
+    def params(self, *, data_sizes=None, n_clients: int | None = None) -> dict:
+        """``{"family": int, "alpha": float32, "log_sizes" (N,) f32 CPU
+        tensor}``; ``data_sizes`` defaults to all ones (uniform MD/PoC
+        weights) when only ``n_clients`` is known."""
+        if data_sizes is None:
+            assert n_clients is not None, "need data_sizes or n_clients"
+            data_sizes = np.ones(n_clients)
+        return {"family": FAMILIES.index(self.family),
+                "alpha": float(np.float32(self._alpha())),
+                "log_sizes": log_size_weights(data_sizes)}
+
+    def init(self) -> dict:
+        return {}
+
+    def select(self, state, inputs, avail, t, *, m: int, gumbel=None,
+               data_sizes=None, max_sweeps: int = 32,
+               d_cand: int | None = None, probe_losses=None):
+        """One round of this process alone."""
+        n = avail.shape[-1]
+        sp = self.params(data_sizes=data_sizes, n_clients=n)
+        sp = {**sp, "log_sizes": sp["log_sizes"].to(avail.device)}
+        step = make_sampler_step(n, m, family=self.family,
+                                 max_sweeps=max_sweeps, d_cand=d_cand,
+                                 probe_losses=probe_losses)
+        return step(sp, state, inputs, avail, t, gumbel=gumbel)
+
+
+@dataclass
+class UniformProcess(SamplerProcess):
+    """McMahan et al. 2017: uniform without replacement among available."""
+    name: str = "uniform"
+    family = "uniform"
+
+
+@dataclass
+class MDProcess(SamplerProcess):
+    """Li et al. 2020: without replacement, P(k) ∝ n_k, among available."""
+    name: str = "md"
+    family = "md"
+
+
+@dataclass
+class PoCProcess(SamplerProcess):
+    """Cho et al. 2020 Power-of-Choice; the candidate count itself is an
+    engine knob (``ScanConfig.poc_d_factor``)."""
+    d_factor: int = 2
+    name: str = "poc"
+    family = "poc"
+
+
+@dataclass
+class FedGSProcess(SamplerProcess):
+    """The paper's method; ``alpha`` weighs graph dispersion vs count
+    balance, per cell."""
+    alpha: float = 1.0
+    name: str = "fedgs"
+    family = "fedgs"
+
+    def __post_init__(self):
+        self.name = f"fedgs(alpha={self.alpha})"
+
+    def _alpha(self) -> float:
+        return self.alpha
+
+
+def make_sampler_process(name: str, *, alpha: float = 1.0,
+                         d_factor: int = 2) -> SamplerProcess:
+    """Family names (= ``scan_engine.SAMPLERS``) -> processes."""
+    name = name.lower()
+    if name in ("uniform", "uniformsample"):
+        return UniformProcess()
+    if name in ("md", "mdsample"):
+        return MDProcess()
+    if name in ("poc", "power-of-choice", "powerofchoice"):
+        return PoCProcess(d_factor=d_factor)
+    if name == "fedgs":
+        return FedGSProcess(alpha=alpha)
+    raise ValueError(f"unknown sampler family {name!r}")

@@ -6,6 +6,8 @@ leading (M,) axis, and autograd on the SUM of the M per-client losses gives
 each client exactly its own gradient (client k's loss depends only on its
 own slice).  Batch indices come in as an (M, E, B) int64 tensor, and
 probe indices as (N, probe_size), so a test can feed the reference's draws.
+The trainer's ``cells`` entry trains C cells' M clients in one call (C·M
+rows, each cell from its own global params), as the scan engine does.
 """
 from __future__ import annotations
 
@@ -17,6 +19,16 @@ _PROBE_STREAM = 2          # SeedSequence([seed, t, 2]): the loss-probe draws
 PROBE_SIZE = 64            # the reference prober's batch per client
 
 
+def indices_from_uniform(u: torch.Tensor, sizes: torch.Tensor) -> torch.Tensor:
+    """Float64 uniforms u (R, ...) -> int64 indices in [0, max(n_r, 1)) for
+    row sizes (R,), on u's device (no host sync): the scan engine's
+    default draws, where :func:`default_batch_indices` draws on the CPU."""
+    n = torch.clamp_min(sizes.to(torch.float64), 1.0).reshape(
+        -1, *([1] * (u.dim() - 1)))
+    idx = torch.floor(u * n).to(torch.int64)
+    return torch.minimum(idx, n.to(torch.int64) - 1)
+
+
 def _uniform_indices(seed: int, t: int, stream: int, sizes,
                      shape: tuple) -> torch.Tensor:
     """(len(sizes), *shape) int64 indices, uniform in [0, max(n_k, 1)) per
@@ -24,11 +36,8 @@ def _uniform_indices(seed: int, t: int, stream: int, sizes,
     a CPU run and a card run draw the same indices."""
     state = np.random.SeedSequence([seed, t, stream]).generate_state(1)
     gen = torch.Generator().manual_seed(int(state[0]))
-    n = torch.clamp_min(torch.as_tensor(np.asarray(sizes), dtype=torch.float64),
-                        1.0).reshape(-1, *([1] * len(shape)))
-    u = torch.rand((len(n), *shape), generator=gen, dtype=torch.float64)
-    idx = torch.floor(u * n).to(torch.int64)
-    return torch.minimum(idx, n.to(torch.int64) - 1)
+    u = torch.rand((len(sizes), *shape), generator=gen, dtype=torch.float64)
+    return indices_from_uniform(u, torch.as_tensor(np.asarray(sizes)))
 
 
 def default_batch_indices(seed: int, t: int, sizes, local_steps: int,
@@ -48,30 +57,56 @@ def make_local_trainer(model, *, local_steps: int, batch_size: int,
                        prox_mu: float = 0.0):
     """Returns fn(global_params, x (M, n_max, ...), y (M, n_max), lr, idx
     (M, E, B)) -> dict of stacked local params (M, ...).  ``model`` has
-    ``loss(params, x, y) -> (M,)`` over stacked params."""
+    ``loss(params, x, y) -> (M,)`` over stacked params.
+
+    ``fn.cells(global_params (C, ...), x (C·M, n_max, ...), y, lr, idx
+    (C·M, E, B))`` trains C cells at once: rows c·M … c·M + M − 1 start
+    from (and, with ``prox_mu``, are pulled toward) cell c's params."""
+
+    def check(idx, m):
+        if idx.shape != (m, local_steps, batch_size):
+            raise ValueError(f"batch indices {tuple(idx.shape)} are not "
+                             f"{(m, local_steps, batch_size)}")
 
     def train(global_params: dict, x: torch.Tensor, y: torch.Tensor,
               lr: float, idx: torch.Tensor) -> dict:
         m = x.shape[0]
-        if idx.shape != (m, local_steps, batch_size):
-            raise ValueError(f"batch indices {tuple(idx.shape)} are not "
-                             f"{(m, local_steps, batch_size)}")
-        rows = torch.arange(m, device=x.device)[:, None]
+        check(idx, m)
         params = {k: v.unsqueeze(0).expand(m, *v.shape).clone()
                   for k, v in global_params.items()}
+        return steps(params, global_params, x, y, lr, idx)
+
+    def train_cells(global_params: dict, x: torch.Tensor, y: torch.Tensor,
+                    lr: float, idx: torch.Tensor) -> dict:
+        rows = x.shape[0]
+        c = next(iter(global_params.values())).shape[0]
+        if rows % c:
+            raise ValueError(f"{rows} client rows do not split into {c} "
+                             f"cells")
+        check(idx, rows)
+        params = {k: v.repeat_interleave(rows // c, 0)
+                  for k, v in global_params.items()}
+        anchor = {k: v.clone() for k, v in params.items()} if prox_mu > 0.0 \
+            else None
+        return steps(params, anchor, x, y, lr, idx)
+
+    def steps(params, anchor, x, y, lr, idx):
+        m = x.shape[0]
+        rows = torch.arange(m, device=x.device)[:, None]
         for e in range(local_steps):
             xb, yb = x[rows, idx[:, e]], y[rows, idx[:, e]]
             p = {k: v.requires_grad_(True) for k, v in params.items()}
             loss = model.loss(p, xb, yb)
             if prox_mu > 0.0:
                 sq = sum(torch.sum(torch.square(p[k] - g).reshape(m, -1), 1)
-                         for k, g in global_params.items())
+                         for k, g in anchor.items())
                 loss = loss + 0.5 * prox_mu * sq
             grads = torch.autograd.grad(loss.sum(), list(p.values()))
             with torch.no_grad():
                 params = {k: p[k] - lr * g for k, g in zip(p, grads)}
         return params
 
+    train.cells = train_cells
     return train
 
 

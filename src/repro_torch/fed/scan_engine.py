@@ -1,0 +1,802 @@
+"""The batched sweep engine (the port of ``repro.fed.scan_engine``): B cells
+— (seed, availability, sampler, aggregator, fault) choices — run round by
+round side by side, the state of every cell on the device.
+
+One round, in the reference's order:
+
+  availability A_t  (host masks, or each family's device process: one call
+                     per family group of cells, ``core/availability_device``)
+  -> sampler        (per cell: FedGS's Eq. 16 solve through the greedy and
+                     Q-free swap kernels; Gumbel top-m for uniform / MD;
+                     Power-of-Choice's d·m candidates, loss probe, top-m)
+  -> local training (ONE call for all B·M clients)
+  -> fault seam     (per fault cell, on the flat (M, P) update panel)
+  -> server update  (FedAvg cells as one group; every other family per
+                     cell: memory through memagg, krum through its
+                     distance kernel)
+  -> counts -> dynamic 3DG (re-embed participants; every K rounds rebuild
+                     H through the fused adjacency and Floyd–Warshall)
+  -> eval (grouped, on the ``eval_every`` cadence) -> count variance, Gini
+
+The reference compiles this step into one vmapped ``lax.scan``; here the
+round loop is a host loop, as ``FLEngine``'s is, and a cell's families are
+fixed when the cell is built, so every family switch is a dispatch on the
+host (``lax.switch`` has no torch twin).  Grouping runs a family's step
+once over the cells that use it where the step takes a leading cell axis;
+a family step that does not runs per cell.  Everything a family does not
+need stays unallocated: the (N, P) memory panel exists only for memory
+cells, the fault state and the straggler's stale panel only for fault
+cells (the reference's ``_flags`` widen the whole batch's carry instead).
+
+The padded static shape is the reference's: the sampler returns a mask s
+with |s| = min(M, |A_t|), ``select_k`` gathers the M ascending selected
+indices (then pads) and the pads carry zero Eq. 18 weight.
+
+RNG seam.  The reference draws in-scan from threefry keys; torch cannot
+replay them, so every draw is a seam a cell may fill (``cell(...)``):
+``init_params``, ``batch_indices(t, sel (M,), sizes (M,)) -> (M, E, B)``
+(the padded ``sel``), ``avail_draws(kind, t, shape)`` (``availability_
+device.round_draws``), ``sampler_draws(kind, t, arg)`` ("gumbel" with
+shape (N,); "probe" with the (d,) candidate sizes -> (d, poc_probe)
+indices), ``fault_draws(kind, t, shape)`` (as ``FLEngine``'s) and, for the
+dynamic 3DG's probe round, ``graph_init_params`` / ``graph_batch_indices``
+(N, E, B).  Injected draws are host arrays (reading the padded ``sel``
+or the candidates to make them syncs with the device).  The port's own
+default draws come from ``torch.Generator``s on the engine's device, one
+per (cell, round, stream) seeded from ``SeedSequence`` — ``[seed, t, 1]``
+training, ``[sampler_seed, t]`` sampler, ``[avail_seed, t]`` availability,
+``[fault_seed, t]`` faults, ``[seed + 778, 0, 1]`` the probe round — so
+no round syncs with the host, a segment split replays the same draws, and
+a cell draws the same numbers alone or in a batch (but a card and a CPU
+run draw different ones).  The trajectory stays on the device until the
+end of a segment and is read once there.
+
+Not in this slice (each raises ``NotImplementedError`` naming its
+ROADMAP item): the mesh, ``cell_sharding`` and ``silo_reduce`` (item 12);
+telemetry, ``compile_cache_dir``, ``donate_carry``, ``async_pipeline``,
+``program_cache_size``, checkpoints (``run_batch(ckpt_path=...)``),
+``run_batch_stream``, ``lower_batch``, ``carry_shapes``, ``runtime_stats``
+and ``attach_sink`` (item 11).  The reference's ``graph_backend``,
+``solver_backend`` and ``agg_backend`` knobs are left out: the tensors'
+device picks kernel or plain version, as everywhere in the port.
+
+Typical use::
+
+    eng = ScanEngine(ds, model, ScanConfig(rounds=60, m=6), device="cuda")
+    h = oracle_h(ds.label_dist, device="cuda")
+    cells = [eng.cell(seed=s, mode=mode, alpha=1.0, h=h) for s in (0, 1, 2)]
+    hists = eng.run_batch(cells)
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+from typing import Callable, Optional
+
+import numpy as np
+import torch
+
+from repro_torch import resolve_device
+from repro_torch.core import availability_device as avd
+from repro_torch.core.availability import AvailabilityMode, host_trace
+from repro_torch.core.fairness import count_variance_device, gini_device
+from repro_torch.core.graph import probe_embeddings
+from repro_torch.core.graph_device import GraphConfig, build_h, \
+    cap_and_normalize
+from repro_torch.core.sampler_device import FAMILIES as SAMPLERS
+from repro_torch.core.sampler_device import (SamplerProcess, gumbel_noise,
+                                             make_sampler_process,
+                                             make_sampler_step, select_k)
+from repro_torch.data.fed_dataset import FedDataset
+from repro_torch.fed.aggregator_device import FAMILIES as AGGREGATORS
+from repro_torch.fed.aggregator_device import (AggregatorProcess,
+                                               _flat_template, fedavg_cells,
+                                               init_agg_state,
+                                               make_aggregator_process,
+                                               make_aggregator_step)
+from repro_torch.fed.client import (indices_from_uniform, make_local_trainer,
+                                    make_loss_prober)
+from repro_torch.fed.faults_device import FAMILIES as FAULTS
+from repro_torch.fed.faults_device import (FaultProcess, device_params,
+                                           init_fault_state,
+                                           make_fault_process,
+                                           make_fault_step)
+
+SILO_REDUCES = ("gather", "psum")
+_ITEM11 = "telemetry, checkpoints and the runtime layer (ROADMAP item 11)"
+_ITEM12 = "the mesh scale-out (ROADMAP item 12)"
+
+
+@dataclass(frozen=True)
+class ScanConfig:
+    """The batched engine's configuration: the reference's field names,
+    defaults and validation.  The scale-out, runtime and telemetry fields
+    keep their defaults in this port; a value away from it raises."""
+    rounds: int = 200
+    m: int = 3                     # sampled clients per round (static M)
+    local_steps: int = 10          # E
+    batch_size: int = 10
+    lr: float = 0.1
+    lr_decay: float = 0.998
+    prox_mu: float = 0.0
+    eval_every: int = 1            # eval cadence (NaN on off rounds)
+    sampler: str = "fedgs"         # fedgs | uniform | md | poc
+    max_sweeps: int = 32           # FedGS local-search budget
+    poc_d_factor: int = 2          # Power-of-Choice: d·m candidates
+    poc_probe: int = 64            # loss-probe batch per candidate
+    graph_refresh_every: int = 0   # dynamic 3DG rebuild period (0 = static)
+    graph_eps: float = 0.1
+    graph_sigma2: float = 0.01
+    aggregator: str = "fedavg"     # per-cell overridable
+    fault: str = "none"            # per-cell overridable
+    fault_frac: float = 0.0
+    probe_size: int = 64
+    probe_seed: int = 777
+    # ROADMAP item 12: one device, no mesh
+    mesh: Optional[tuple] = None
+    cell_sharding: bool = True
+    silo_reduce: str = "gather"
+    # ROADMAP item 11: the runtime layer and telemetry
+    donate_carry: bool = True
+    async_pipeline: bool = True
+    compile_cache_dir: Optional[str] = None
+    program_cache_size: int = 32
+    telemetry: bool = False
+    telemetry_clip_thresh: float = 10.0
+
+    def __post_init__(self):
+        if self.sampler not in SAMPLERS:
+            raise ValueError(f"scan engine supports {SAMPLERS}, "
+                             f"not {self.sampler!r}")
+        if self.aggregator not in AGGREGATORS:
+            raise ValueError(f"scan engine supports {AGGREGATORS}, "
+                             f"not {self.aggregator!r}")
+        if self.silo_reduce not in SILO_REDUCES:
+            raise ValueError(f"silo_reduce must be one of {SILO_REDUCES}, "
+                             f"not {self.silo_reduce!r}")
+        if self.fault not in FAULTS:
+            raise ValueError(f"scan engine supports faults {FAULTS}, "
+                             f"not {self.fault!r}")
+        if not 0.0 <= self.fault_frac <= 1.0:
+            raise ValueError(f"fault_frac must be in [0, 1], "
+                             f"not {self.fault_frac!r}")
+        if self.program_cache_size < 1:
+            raise ValueError(f"program_cache_size must be >= 1, "
+                             f"not {self.program_cache_size!r}")
+        if self.mesh is not None:
+            shape = tuple(int(s) for s in self.mesh)
+            if len(shape) not in (1, 2) or any(s < 1 for s in shape):
+                raise ValueError(f"mesh must be (cells,) or (cells, silo) "
+                                 f"with positive sizes, not {self.mesh!r}")
+        if (self.mesh is not None or not self.cell_sharding
+                or self.silo_reduce != "gather"):
+            raise NotImplementedError(f"mesh / cell_sharding / silo_reduce "
+                                      f"away from their defaults: {_ITEM12}")
+        if (self.telemetry or self.compile_cache_dir is not None
+                or not self.donate_carry or not self.async_pipeline
+                or self.program_cache_size != 32
+                or self.telemetry_clip_thresh != 10.0):
+            raise NotImplementedError(f"telemetry / compile_cache_dir / "
+                                      f"donate_carry / async_pipeline / "
+                                      f"program_cache_size away from their "
+                                      f"defaults: {_ITEM11}")
+
+
+# --------------------------------------------------------------- host helpers
+def precompute_masks(mode, rounds: int, avail_seed: int = 1234) -> np.ndarray:
+    """(rounds, N) bool availability trace, bitwise the stream ``FLEngine``
+    draws (both go through ``availability.host_trace``).  ``mode`` is an
+    ``AvailabilityMode`` or a ``ProcessMode``."""
+    return host_trace(mode, rounds, avail_seed)
+
+
+def normalized_h(h, *, device=None) -> np.ndarray:
+    """Finite-cap + [0, 1]-normalize a shortest-path matrix on ``device``
+    (None means CUDA): the stage ``FedGSSampler.set_graph`` runs."""
+    dev = resolve_device(device, who="normalized_h")
+    return cap_and_normalize(torch.as_tensor(
+        np.asarray(h, np.float32), device=dev)).cpu().numpy()
+
+
+def oracle_h(features, *, eps: float = 0.1, sigma2: float = 0.01,
+             device=None) -> np.ndarray:
+    """Oracle 3DG -> normalized H, built on ``device`` (None means CUDA)
+    through ``graph_device.build_h``: on the card the fused adjacency and
+    Floyd–Warshall kernels."""
+    dev = resolve_device(device, who="oracle_h")
+    u = torch.as_tensor(np.asarray(features, np.float32), device=dev)
+    return build_h(u, GraphConfig(eps=eps, sigma2=sigma2,
+                                  similarity="dot")).cpu().numpy()
+
+
+def stack_cells(cells: list[dict]) -> dict:
+    """The cells' stackable parts along a new leading cell axis: the
+    availability params (tables zero-padded to the common period, so
+    families with different periods stack) and states, and the masks."""
+    out = {}
+    if "proc" in cells[0]:
+        out["proc"] = avd.stack_params([c["proc"] for c in cells])
+        out["proc_state"] = avd.stack_state([c["proc_state"] for c in cells])
+    if "masks" in cells[0]:
+        out["masks"] = torch.stack([c["masks"] for c in cells])
+    return out
+
+
+# ------------------------------------------------------------------ histories
+@dataclass
+class ScanHistory:
+    """One cell's trajectory at full-round resolution (eval entries are NaN
+    on rounds ``eval_every`` skips)."""
+    val_loss: np.ndarray       # (T,)
+    val_acc: np.ndarray        # (T,)
+    count_var: np.ndarray      # (T,)
+    gini: np.ndarray           # (T,)
+    sel: np.ndarray            # (T, M) sorted selected indices (padded)
+    valid: np.ndarray          # (T, M) pad mask (False = zero-weight slot)
+    counts: np.ndarray         # (N,) final participation counts
+    chosen: Optional[np.ndarray] = None   # (T, M) krum's averaged slots
+    telemetry: Optional[dict] = None      # not in this port (item 11)
+
+    @property
+    def best_loss(self) -> float:
+        return float(np.nanmin(self.val_loss))
+
+    @property
+    def rounds(self) -> np.ndarray:
+        """Rounds with recorded eval."""
+        return np.flatnonzero(np.isfinite(self.val_loss))
+
+    def sampled(self, t: int) -> np.ndarray:
+        """The round-t sampled set (pads stripped)."""
+        return self.sel[t][self.valid[t]]
+
+
+@dataclass
+class _Plan:
+    """What a batch of cells needs each round, built once per cell list."""
+    cells: list
+    groups: list = field(default_factory=list)     # (family, cells, params)
+    masks: Optional[torch.Tensor] = None           # (B, T, N)
+    sampler_steps: list = field(default_factory=list)
+    fedavg: list = field(default_factory=list)
+    fedavg_index: Optional[torch.Tensor] = None
+    agg_steps: dict = field(default_factory=dict)  # cell -> step
+    fault_steps: dict = field(default_factory=dict)  # cell -> (step, fp,
+    #                                                   flat layout)
+    krum: bool = False
+
+
+def _host(x, dtype, device) -> torch.Tensor:
+    """An array (copied) or a tensor as ``dtype`` on ``device``."""
+    if not isinstance(x, torch.Tensor):
+        x = torch.as_tensor(np.array(x))
+    return x.to(device=device, dtype=dtype)
+
+
+# ------------------------------------------------------------------- engine
+class ScanEngine:
+    """Builds cells and runs one cell or a batch of them, every cell's
+    state on ``device`` (None means CUDA, and raises without one; pass
+    ``device="cpu"`` for the CPU).  ``use_masks`` runs every cell on
+    host-precomputed availability masks instead of a device process."""
+
+    def __init__(self, ds: FedDataset, model, cfg: ScanConfig, *,
+                 use_masks: bool = False, device=None, tracer=None,
+                 sink=None):
+        if tracer is not None or sink is not None:
+            raise NotImplementedError(f"tracer / sink: {_ITEM11}")
+        self.ds, self.model, self.cfg = ds, model, cfg
+        self.n = int(ds.n_clients)
+        self.use_masks = use_masks
+        self.device = dev = resolve_device(device, who="ScanEngine")
+        # the client data lives on the device from construction on
+        self._x = torch.as_tensor(ds.x, dtype=torch.float32, device=dev)
+        self._y = torch.as_tensor(ds.y, dtype=torch.int64, device=dev)
+        self._sizes_i = torch.as_tensor(np.asarray(ds.sizes), dtype=torch.int64,
+                                        device=dev)
+        self._sizes_f = torch.as_tensor(np.asarray(ds.sizes, np.float32),
+                                        device=dev)
+        self._xv = torch.as_tensor(ds.x_val, dtype=torch.float32, device=dev)
+        self._yv = torch.as_tensor(ds.y_val, dtype=torch.int64, device=dev)
+        self._trainer = make_local_trainer(
+            model, local_steps=cfg.local_steps, batch_size=cfg.batch_size,
+            prox_mu=cfg.prox_mu)
+        self._prober = make_loss_prober(model)
+        self._d_cand = int(min(self.n, max(cfg.m, cfg.poc_d_factor * cfg.m)))
+        self._gcfg = GraphConfig(eps=cfg.graph_eps, sigma2=cfg.graph_sigma2,
+                                 similarity="functional")
+        self._probe = None
+        if cfg.graph_refresh_every > 0:
+            # the shared Gaussian probe batch (Eq. 12), fixed by probe_seed
+            # as in the reference (numpy, so the same numbers)
+            rng = np.random.default_rng(cfg.probe_seed)
+            flat = np.asarray(ds.x_val, np.float64).reshape(len(ds.x_val), -1)
+            mu = flat.mean(0)
+            cov = np.cov(flat.T) + 1e-4 * np.eye(flat.shape[1])
+            probe = rng.multivariate_normal(mu, cov, cfg.probe_size)
+            self._probe = torch.as_tensor(
+                probe.reshape(cfg.probe_size, *ds.x_val.shape[1:]),
+                dtype=torch.float32, device=dev)
+        self._plan_cache = None
+        self.params = None
+
+    # ------------------------------------------------------------- cells
+    def cell(self, *, seed: int = 0, mode: Optional[AvailabilityMode] = None,
+             process: Optional[avd.AvailabilityProcess] = None,
+             masks: Optional[np.ndarray] = None, alpha: float = 1.0,
+             h=None, avail_seed: int = 1234,
+             sampler_seed: Optional[int] = None,
+             sampler_process: Optional[SamplerProcess] = None,
+             aggregator_process: Optional[AggregatorProcess] = None,
+             fault_process: Optional[FaultProcess] = None,
+             fault_seed: Optional[int] = None,
+             init_params: Optional[dict] = None,
+             batch_indices: Optional[Callable] = None,
+             avail_draws: Optional[Callable] = None,
+             sampler_draws: Optional[Callable] = None,
+             fault_draws: Optional[Callable] = None,
+             graph_init_params: Optional[dict] = None,
+             graph_batch_indices=None) -> dict:
+        """One sweep cell.  Availability: ``masks`` (rounds, N) with
+        ``use_masks`` (e.g. ``precompute_masks``, bitwise ``FLEngine``'s),
+        else ``process`` (any ``AvailabilityProcess``) or ``mode`` (a
+        Table-1 mode, as its ``TableProcess``) drawn on the device from
+        ``avail_seed``.  The sampler, aggregator and fault default to the
+        engine's ``cfg.sampler`` (with this cell's ``alpha``),
+        ``cfg.aggregator`` and ``cfg.fault`` / ``cfg.fault_frac``.  A static
+        FedGS cell needs a normalized ``h``.  The seams are described in
+        the module docstring."""
+        cfg, dev, n = self.cfg, self.device, self.n
+        if init_params is not None:
+            params0 = {k: _host(v, torch.float32, dev)
+                       for k, v in init_params.items()}
+        else:
+            params0 = self.model.init(torch.Generator().manual_seed(seed),
+                                      device=dev)
+        sseed = seed + 0x5E1EC7 if sampler_seed is None else sampler_seed
+        fseed = seed + 0xFA17 if fault_seed is None else fault_seed
+        c: dict = {"seed": seed, "params0": params0, "sampler_seed": sseed,
+                   "fault_seed": fseed, "batch_indices": batch_indices,
+                   "sampler_draws": sampler_draws, "fault_draws": fault_draws}
+        if self.use_masks:
+            if masks is None or tuple(masks.shape) != (cfg.rounds, n):
+                raise ValueError(f"a mask cell needs masks of shape "
+                                 f"{(cfg.rounds, n)}")
+            c["masks"] = _host(masks, torch.bool, dev)
+        else:
+            if process is None:
+                if mode is None:
+                    raise ValueError("device-side availability needs a "
+                                     "process or a mode")
+                process = mode.process()
+            c["process"], c["avail_seed"] = process, avail_seed
+            c["avail_draws"] = avail_draws
+            c["proc"] = process.params()
+            c["proc_state"] = process.init(avd.init_draw(
+                process.draw_dist, n, avail_seed, dev, draws=avail_draws),
+                device=dev)
+        sproc = sampler_process if sampler_process is not None else \
+            make_sampler_process(cfg.sampler, alpha=alpha,
+                                 d_factor=cfg.poc_d_factor)
+        sp = sproc.params(data_sizes=self.ds.sizes)
+        c["sampler_process"] = sproc
+        c["sampler"] = {**sp, "log_sizes": sp["log_sizes"].to(dev)}
+        aproc = aggregator_process if aggregator_process is not None else \
+            make_aggregator_process(cfg.aggregator)
+        c["aggregator_process"], c["agg"] = aproc, aproc.params()
+        fproc = fault_process if fault_process is not None else \
+            make_fault_process(cfg.fault, n, frac=cfg.fault_frac)
+        c["fault_process"], c["fault"] = fproc, fproc.params()
+        if fproc.family != "none":
+            eps = None
+            if fproc.family == "straggler_stale":
+                eps = self._normal(fault_draws, "init", None, (n,), (fseed,))
+            c["fault_state"] = fproc.init(eps, device=dev)
+        if cfg.graph_refresh_every > 0:
+            gp = graph_init_params
+            gp = self.model.init(torch.Generator().manual_seed(seed + 778),
+                                 device=dev) if gp is None else \
+                {k: _host(v, torch.float32, dev) for k, v in gp.items()}
+            if graph_batch_indices is None:
+                u = torch.rand(
+                    (n, cfg.local_steps, cfg.batch_size), dtype=torch.float64,
+                    generator=avd.stream_generator((seed + 778, 0, 1), dev),
+                    device=dev)
+                gidx = indices_from_uniform(u, self._sizes_i)
+            else:
+                gidx = _host(graph_batch_indices, torch.int64, dev)
+            c["graph_init"] = (gp, gidx)
+        elif h is not None:
+            c["h"] = _host(h, torch.float32, dev)
+        elif sproc.family == "fedgs":
+            raise ValueError("a static FedGS cell needs a normalized H")
+        else:
+            c["h"] = None
+        return c
+
+    def host_draws(self, seed: int, process=None) -> dict:
+        """Seams for ``cell(..., **eng.host_draws(seed, process))`` that
+        draw every random number of the cell on the host, from numpy
+        ``SeedSequence([seed, stream, t + 1, kind])``: a card run and a CPU
+        run of the cell then draw the same numbers.  ``process`` is the
+        cell's availability process (its draws' distribution), if any."""
+        cfg, n, sizes = self.cfg, self.n, np.asarray(self.ds.sizes)
+        dist = None if process is None else process.draw_dist
+
+        def rng(stream, t, kind=0):
+            return np.random.default_rng(np.random.SeedSequence(
+                [seed, stream, 0 if t is None else t + 1, kind]))
+
+        def sample(g, d, shape):
+            return g.random(shape, np.float32) if d == "uniform" else \
+                g.standard_normal(shape, np.float32)
+
+        def indices(g, rows, shape):
+            u = g.random((len(rows),) + shape)
+            hi = np.maximum(np.asarray(rows), 1).reshape(-1, *[1] * len(shape))
+            return np.minimum(np.floor(u * hi), hi - 1).astype(np.int64)
+
+        def avail(kind, t, shape):
+            g = rng(1, t, ("init", "u", "force", "step").index(kind))
+            if kind == "force":
+                return g.integers(n)
+            return sample(g, "uniform" if kind == "u" else dist, shape)
+
+        def batch(t, sel, sel_sizes):
+            return indices(rng(2, t), sel_sizes,
+                           (cfg.local_steps, cfg.batch_size))
+
+        def sampler(kind, t, arg):
+            if kind == "gumbel":
+                u = rng(3, t, 0).random(arg, np.float32)
+                return -np.log(-np.log(u))
+            return indices(rng(3, t, 1), arg, (cfg.poc_probe,))
+
+        def fault(kind, t, shape):
+            return sample(rng(4, t, ("init", "noise", "innovations").index(
+                kind)), "normal", shape)
+
+        out = {"avail_draws": avail, "batch_indices": batch,
+               "sampler_draws": sampler, "fault_draws": fault}
+        if cfg.graph_refresh_every > 0:
+            out["graph_batch_indices"] = indices(
+                rng(5, None), sizes, (cfg.local_steps, cfg.batch_size))
+        return out
+
+    def _normal(self, draws, kind, t, shape, entropy) -> torch.Tensor:
+        """A standard-normal draw: ``draws(kind, t, shape)`` or the default
+        stream of ``entropy`` on the engine's device."""
+        if draws is not None:
+            return _host(draws(kind, t, shape), torch.float32, self.device)
+        gen = avd.stream_generator(entropy, self.device)
+        return torch.randn(shape, generator=gen, device=self.device,
+                           dtype=torch.float32)
+
+    # ------------------------------------------------------------ the plan
+    def _plan(self, cells: list[dict]) -> _Plan:
+        key = tuple(id(c) for c in cells)
+        if self._plan_cache is not None and self._plan_cache[0] == key:
+            return self._plan_cache[1]
+        cfg, dev, n, m = self.cfg, self.device, self.n, self.cfg.m
+        plan = _Plan(cells=list(cells))
+        if self.use_masks:
+            plan.masks = torch.stack([c["masks"] for c in cells])
+        else:
+            by_family: dict = {}
+            for i, c in enumerate(cells):
+                by_family.setdefault(c["process"].family, []).append(i)
+            for fam, idx in by_family.items():
+                plan.groups.append((fam, idx, avd.stack_params(
+                    [cells[i]["proc"] for i in idx], dev)))
+        probe = self._probe_losses
+        for i, c in enumerate(cells):
+            fam = c["sampler_process"].family
+            plan.sampler_steps.append(make_sampler_step(
+                n, m, family=fam, max_sweeps=cfg.max_sweeps,
+                d_cand=self._d_cand, probe_losses=probe))
+            afam = c["aggregator_process"].family
+            if afam == "fedavg":
+                plan.fedavg.append(i)
+            else:
+                plan.agg_steps[i] = make_aggregator_step(
+                    n, m, c["params0"], family=afam,
+                    data_sizes=self.ds.sizes)
+                plan.krum |= afam == "krum"
+            ffam = c["fault_process"].family
+            if ffam != "none":
+                plan.fault_steps[i] = (make_fault_step(ffam),
+                                       device_params(c["fault"], dev),
+                                       _flat_template(c["params0"]))
+        plan.fedavg_index = torch.as_tensor(plan.fedavg, dtype=torch.int64,
+                                            device=dev)
+        self._plan_cache = (key, plan)
+        return plan
+
+    # --------------------------------------------------------------- carry
+    def init_carry(self, cells: list[dict]) -> dict:
+        """The state of every cell before round 0: the stacked (B, ...)
+        global params, per-cell aggregator and fault state, the (B, N)
+        counts, each cell's H (and dynamic-3DG embeddings) and each
+        availability family group's stacked process state.  On the device;
+        ``run_segment`` advances it in place."""
+        plan = self._plan(cells)
+        n = self.n
+        carry = {"params": {k: torch.stack([c["params0"][k] for c in cells])
+                            for k in cells[0]["params0"]},
+                 "counts": torch.zeros(len(cells), n, dtype=torch.float32,
+                                       device=self.device),
+                 "agg": {}, "fault": {}, "h": [], "emb": [], "proc": {}}
+        for i, c in enumerate(cells):
+            if i in plan.agg_steps:
+                rows = n if c["aggregator_process"].family == "memory" else 0
+                st = init_agg_state(c["params0"], n, memory_rows=rows)
+                carry["agg"][i] = {k: v for k, v in st.items() if k != "prev"}
+            if i in plan.fault_steps:
+                stale = c["fault_process"].family == "straggler_stale"
+                carry["fault"][i] = init_fault_state(
+                    c["fault_state"], c["params0"], n if stale else 0)
+            if self._probe is not None:
+                # the probe round: every client trains from a fresh model
+                # (the paper's everyone-available-at-init assumption)
+                gp, gidx = c["graph_init"]
+                stacked = self._trainer(gp, self._x, self._y,
+                                        float(np.float32(self.cfg.lr)), gidx)
+                emb = probe_embeddings(self.model.embed, stacked, self._probe)
+                carry["emb"].append(emb)
+                carry["h"].append(build_h(emb, self._gcfg))
+            else:
+                carry["emb"].append(None)
+                carry["h"].append(c["h"])
+        for fam, idx, _ in plan.groups:
+            carry["proc"][fam] = avd.stack_state(
+                [cells[i]["proc_state"] for i in idx])
+        return carry
+
+    # --------------------------------------------------------------- draws
+    def _sampler_draw(self, cell, t):
+        """(the round's (N,) Gumbel noise, the cell's sampler generator —
+        None with injected draws; the PoC probe draws from it next)."""
+        if cell["sampler_draws"] is not None:
+            return _host(cell["sampler_draws"]("gumbel", t, (self.n,)),
+                         torch.float32, self.device), None
+        gen = avd.stream_generator((cell["sampler_seed"], t), self.device)
+        return gumbel_noise(gen, (self.n,), self.device), gen
+
+    def _probe_losses(self, inputs, cidx, cvalid):
+        """Power-of-Choice's probe: the global model's loss on a
+        ``poc_probe`` batch of each candidate's data (the reference's
+        in-scan ``probe_losses``)."""
+        draws, t = inputs["cell"]["sampler_draws"], inputs["t"]
+        sizes = self._sizes_i[cidx]
+        if draws is not None:
+            idx = _host(draws("probe", t, sizes.cpu().numpy()), torch.int64,
+                        self.device)
+        else:
+            u = torch.rand((cidx.shape[0], self.cfg.poc_probe),
+                           generator=inputs["gen"], device=self.device,
+                           dtype=torch.float64)
+            idx = indices_from_uniform(u, sizes)
+        return self._prober(inputs["params"], self._x[cidx], self._y[cidx],
+                            idx)
+
+    def _batch_indices(self, cells, t, sel) -> torch.Tensor:
+        """(B·M, E, B) training indices for the padded ``sel`` (B, M)."""
+        cfg, dev = self.cfg, self.device
+        shape = (cfg.m, cfg.local_steps, cfg.batch_size)
+        rows, host_sel = [], None
+        for i, c in enumerate(cells):
+            if c["batch_indices"] is None:
+                gen = avd.stream_generator((c["seed"], t, 1), dev)
+                rows.append(indices_from_uniform(
+                    torch.rand(shape, generator=gen, device=dev,
+                               dtype=torch.float64), self._sizes_i[sel[i]]))
+            else:
+                if host_sel is None:
+                    host_sel = sel.cpu().numpy()
+                s = host_sel[i]
+                rows.append(_host(c["batch_indices"](t, s, self.ds.sizes[s]),
+                                  torch.int64, dev))
+        return torch.cat(rows)
+
+    # --------------------------------------------------------------- round
+    def _round(self, plan: _Plan, carry: dict, t: int) -> dict:
+        cfg, dev, n, m = self.cfg, self.device, self.n, self.cfg.m
+        cells, b = plan.cells, len(plan.cells)
+        params, counts = carry["params"], carry["counts"]
+
+        # 1. availability A_t
+        if plan.masks is not None:
+            avail = plan.masks[:, t]
+        else:
+            rows = [None] * b
+            for fam, idx, gparams in plan.groups:
+                dist = avd.DRAW_DIST[fam]
+                draws = avd.stack_draws([avd.round_draws(
+                    dist, n, cells[i]["avail_seed"], t, dev,
+                    draws=cells[i]["avail_draws"]) for i in idx])
+                a, carry["proc"][fam] = avd.proc_draw(
+                    gparams, carry["proc"][fam], draws, t)
+                for j, i in enumerate(idx):
+                    rows[i] = a[j]
+            avail = torch.stack(rows)
+
+        # 2. sampler, per cell: S_t ⊆ A_t, |S_t| = min(M, |A_t|)
+        s_rows = []
+        for i, c in enumerate(cells):
+            gumbel, gen = (None, None) \
+                if c["sampler_process"].family == "fedgs" \
+                else self._sampler_draw(c, t)
+            inputs = {"h": carry["h"][i], "counts": counts[i],
+                      "params": {k: v[i] for k, v in params.items()},
+                      "cell": c, "t": t, "gen": gen}
+            s_i, _ = plan.sampler_steps[i](c["sampler"], {}, inputs,
+                                           avail[i], t, gumbel=gumbel)
+            s_rows.append(s_i)
+        s = torch.stack(s_rows)
+        sel, valid = select_k(s, m)
+
+        # 3. local training: every cell's M gathered clients in one call
+        flat = sel.reshape(-1)
+        lr = float(np.float32(cfg.lr * cfg.lr_decay ** t))
+        local = self._trainer.cells(params, self._x[flat], self._y[flat], lr,
+                                    self._batch_indices(cells, t, sel))
+        per_cell = [{k: v[i * m:(i + 1) * m] for k, v in local.items()}
+                    for i in range(b)]
+
+        # 3b. the fault seam, per fault cell, on the flat (M, P) panel
+        for i, (step, fp, (ravel, unravel, p)) in plan.fault_steps.items():
+            c = cells[i]
+            fam = c["fault_process"].family
+            draws, fseed = c["fault_draws"], c["fault_seed"]
+            noise = self._normal(draws, "noise", t, (m, p), (fseed, t)) \
+                if fam == "gaussian_noise" else None
+            innov = self._normal(draws, "innovations", t, (n,), (fseed, t)) \
+                if fam == "straggler_stale" else None
+            updf, carry["fault"][i] = step(
+                fp, carry["fault"][i], ravel(per_cell[i]),
+                ravel({k: v[i] for k, v in params.items()}), avail[i], t,
+                sel[i], valid[i], noise=noise, innovations=innov)
+            per_cell[i] = unravel(updf)
+
+        # 4. server update: Eq. 18 weights, pads weigh zero
+        w = self._sizes_f[sel] * valid.to(torch.float32)
+        new_rows = [None] * b
+        chosen = None
+        if plan.fedavg:
+            g = plan.fedavg
+            whole = len(g) == b
+            prev = params if whole else {
+                k: v.index_select(0, plan.fedavg_index)
+                for k, v in params.items()}
+            stacked = {k: torch.stack([per_cell[i][k] for i in g])
+                       for k in params}
+            new = fedavg_cells(stacked, w if whole else w[plan.fedavg_index],
+                               prev)
+            for j, i in enumerate(g):
+                new_rows[i] = {k: v[j] for k, v in new.items()}
+        for i, step in plan.agg_steps.items():
+            c = cells[i]
+            state = {**carry["agg"][i],
+                     "prev": {k: v[i] for k, v in params.items()}}
+            new_rows[i], state = step(c["agg"], state, None, per_cell[i],
+                                      w[i], s[i], avail[i], t, sel[i],
+                                      valid[i])
+            if "chosen" in state:
+                if chosen is None:
+                    chosen = [torch.zeros(m, dtype=torch.bool, device=dev)
+                              for _ in range(b)]
+                chosen[i] = state.pop("chosen")
+            carry["agg"][i] = {k: v for k, v in state.items() if k != "prev"}
+        if plan.fedavg and len(plan.fedavg) == b:
+            params = new
+        else:
+            params = {k: torch.stack([r[k] for r in new_rows])
+                      for k in params}
+        carry["params"] = params
+
+        # 5. counts v^{t+1}
+        counts = counts + s.to(torch.float32)
+        carry["counts"] = counts
+
+        # dynamic 3DG: re-embed the participants; rebuild H every K rounds
+        if self._probe is not None:
+            every = {k: torch.cat([r[k] for r in per_cell]) for k in params}
+            e_all = probe_embeddings(self.model.embed, every, self._probe)
+            rebuild = (t + 1) % cfg.graph_refresh_every == 0
+            for i in range(b):
+                emb, si = carry["emb"][i], sel[i]
+                e_i = torch.where(valid[i][:, None], e_all[i * m:(i + 1) * m],
+                                  emb[si])
+                emb = emb.index_put((si,), e_i)
+                carry["emb"][i] = emb
+                if rebuild:
+                    carry["h"][i] = build_h(emb, self._gcfg)
+
+        # 6. eval on the eval_every cadence (always on the last round)
+        out = {"count_var": count_variance_device(counts),
+               "gini": gini_device(counts), "sel": sel, "valid": valid}
+        if cfg.eval_every == 1 or t % cfg.eval_every == 0 \
+                or t == cfg.rounds - 1:
+            xv = self._xv.expand(b, *self._xv.shape)
+            yv = self._yv.expand(b, *self._yv.shape)
+            with torch.no_grad():
+                out["val_loss"] = self.model.loss(params, xv, yv)
+                out["val_acc"] = self.model.accuracy(params, xv, yv)
+        if plan.krum:
+            out["chosen"] = torch.stack(chosen) if chosen is not None else \
+                torch.zeros(b, m, dtype=torch.bool, device=dev)
+        return out
+
+    def run_segment(self, cells: list[dict], carry: dict, t0: int,
+                    seg_len: int):
+        """Rounds ``t0 … t0 + seg_len − 1`` from ``carry``, which it
+        advances in place (copy it first to keep the start).  Returns
+        ``(carry, traj)``: ``traj`` holds (B, seg_len, ...) device tensors
+        (nothing is read back to the host here).  Every per-round draw is
+        keyed by the round index alone, so a ``(k) + (T − k)`` split
+        replays the uninterrupted run bit for bit."""
+        plan = self._plan(cells)
+        b = len(cells)
+        nan = torch.full((b,), float("nan"), device=self.device)
+        rounds = [self._round(plan, carry, t) for t in range(t0, t0 + seg_len)]
+        traj = {}
+        for k in ("val_loss", "val_acc", "count_var", "gini", "sel", "valid",
+                  "chosen"):
+            if k in rounds[0] or k in ("val_loss", "val_acc"):
+                traj[k] = torch.stack([r.get(k, nan) for r in rounds], 1)
+        return carry, traj
+
+    # ----------------------------------------------------------------- runs
+    def run(self, cell: dict) -> ScanHistory:
+        """One cell (the batch path with a batch of one)."""
+        hist = self.run_batch([cell])[0]
+        self.params = {k: v[0] for k, v in self.params.items()}
+        return hist
+
+    def run_batch(self, cells: list[dict], *,
+                  ckpt_path: Optional[str] = None, ckpt_every: int = 0,
+                  resume: bool = False) -> list[ScanHistory]:
+        """B cells, round by round side by side.  ``ckpt_every`` without a
+        checkpoint path runs the rounds in segments of that length (the
+        same results); checkpoints are item 11's."""
+        if ckpt_path is not None or resume:
+            raise NotImplementedError(f"run_batch checkpoints: {_ITEM11}")
+        rounds = self.cfg.rounds
+        every = int(ckpt_every) if ckpt_every else rounds
+        carry = self.init_carry(cells)
+        parts, t0 = [], 0
+        while t0 < rounds:
+            k = min(every, rounds - t0)
+            carry, traj = self.run_segment(cells, carry, t0, k)
+            # the segment's trajectory, read once
+            parts.append({key: v.cpu().numpy() for key, v in traj.items()})
+            t0 += k
+        traj = {key: np.concatenate([p[key] for p in parts], 1)
+                for key in parts[0]}
+        counts = carry["counts"].cpu().numpy()
+        self.params = carry["params"]
+        out = []
+        for i, c in enumerate(cells):
+            krum = c["aggregator_process"].family == "krum"
+            out.append(ScanHistory(
+                val_loss=traj["val_loss"][i], val_acc=traj["val_acc"][i],
+                count_var=traj["count_var"][i], gini=traj["gini"][i],
+                sel=traj["sel"][i].astype(np.int32), valid=traj["valid"][i],
+                counts=counts[i],
+                chosen=traj["chosen"][i] if krum else None))
+        return out
+
+    # -------------------------------------------------- not in this slice
+    def run_batch_stream(self, *a, **kw):
+        raise NotImplementedError(f"run_batch_stream: {_ITEM11}")
+
+    def lower_batch(self, *a, **kw):
+        raise NotImplementedError(f"lower_batch: {_ITEM11}")
+
+    def carry_shapes(self, *a, **kw):
+        raise NotImplementedError(f"carry_shapes: {_ITEM11}")
+
+    def runtime_stats(self):
+        raise NotImplementedError(f"runtime_stats: {_ITEM11}")
+
+    def attach_sink(self, sink):
+        raise NotImplementedError(f"attach_sink: {_ITEM11}")

@@ -455,3 +455,33 @@ def test_process_protocol_and_factory():
         tad.make_aggregator_process("nope")
     with pytest.raises(ValueError):
         tad.make_aggregator_step(4, 2, {"w": torch.zeros(3)}, family="nope")
+
+
+def test_fedavg_cells_group_invariant_and_vs_reference(rng):
+    """The scan engine's grouped FedAvg: each cell within f32 round-off of
+    the reference's Eq. 18, the zero-weight guard per cell, and a cell's
+    result bitwise the same in any group."""
+    fedavg_cells = tad.fedavg_cells
+    c, m = 5, 6
+    stacked = {"w": rng.normal(size=(c, m, 60, 10)).astype(np.float32),
+               "b": rng.normal(size=(c, m, 10)).astype(np.float32)}
+    prev = {"w": rng.normal(size=(c, 60, 10)).astype(np.float32),
+            "b": rng.normal(size=(c, 10)).astype(np.float32)}
+    w = rng.integers(0, 900, size=(c, m)).astype(np.float32)
+    w[:, -1] = 0.0                                  # a pad slot
+    w[3] = 0.0                                      # an all-zero round
+    t = {k: torch.as_tensor(v) for k, v in stacked.items()}
+    tp = {k: torch.as_tensor(v) for k, v in prev.items()}
+    got = fedavg_cells(t, torch.as_tensor(w), tp)
+    for i in range(c):
+        want = jad.fedavg_combine({k: v[i] for k, v in stacked.items()},
+                                  jnp.asarray(w[i]),
+                                  {k: v[i] for k, v in prev.items()})
+        for k in stacked:
+            np.testing.assert_allclose(got[k][i].numpy(), np.asarray(want[k]),
+                                       rtol=1e-5, atol=1e-6)
+        one = fedavg_cells({k: v[i:i + 1] for k, v in t.items()},
+                           torch.as_tensor(w[i:i + 1]),
+                           {k: v[i:i + 1] for k, v in tp.items()})
+        assert all(torch.equal(one[k][0], got[k][i]) for k in t)
+    assert np.array_equal(got["w"][3].numpy(), prev["w"][3])

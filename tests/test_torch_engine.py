@@ -84,10 +84,11 @@ def test_port_imports_no_jax_and_no_repro(target):
 
 def test_guard_covers_every_port_module():
     """The scan above reaches every module of the port, the robust
-    server-update modules, the staged-3DG, vision and SSPP modules and the
-    LM serving path's configs, models, attention kernel and launcher
-    included, and importing all of them in a fresh interpreter loads
-    neither jax nor repro."""
+    server-update modules, the staged-3DG, vision and SSPP modules, the LM
+    serving path's configs, models, attention kernel and launcher, and the
+    batched sweep engine with its availability processes included, and
+    importing all of them in a fresh interpreter loads neither jax nor
+    repro."""
     pkg = ROOT / "src" / "repro_torch"
     mods = sorted(".".join(f.relative_to(pkg.parent).with_suffix("").parts)
                   for f in pkg.rglob("*.py"))
@@ -102,7 +103,9 @@ def test_guard_covers_every_port_module():
                  "repro_torch.kernels.window_attention",
                  "repro_torch.models.layers", "repro_torch.models.attention",
                  "repro_torch.models.ffn", "repro_torch.models.lm",
-                 "repro_torch.launch.serve"):
+                 "repro_torch.launch.serve",
+                 "repro_torch.core.availability_device",
+                 "repro_torch.fed.scan_engine"):
         assert need in mods, need
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"

@@ -1338,3 +1338,109 @@ def test_reduced_lm_on_card_equals_cpu(cuda):
         out.append(torch.stack(steps).cpu())
     np.testing.assert_allclose(out[0].numpy(), out[1].numpy(), atol=1e-4,
                                rtol=1e-4)
+
+
+# ------------------------------------------------- the batched sweep engine
+def _scan_cells(eng, ds, h, device):
+    """Three cells over the five families' mix: FedGS on LN with FedAvg,
+    uniform on Gilbert–Elliott with memory, PoC on deadlines with
+    multi-Krum under a 20% sign-flip; every draw made on the host."""
+    from repro_torch.core import availability_device as tavd
+    from repro_torch.core import sampler_device as tsamp
+    from repro_torch.fed.faults_device import make_fault_process
+    n = ds.n_clients
+    specs = [
+        (make_mode("LN", n_clients=n, beta=0.5, seed=99).process(), "fedgs",
+         tad.make_aggregator_process("fedavg"), None),
+        (tavd.GilbertElliott(n, mean_on=6, mean_off=3), "uniform",
+         tad.make_aggregator_process("memory", gamma=0.9), None),
+        (tavd.DeadlineProcess(n, deadline=1.2), "poc",
+         tad.make_aggregator_process("multikrum", krum_f=1, krum_multi=3),
+         make_fault_process("sign_flip", n, frac=0.2, scale=5.0))]
+    return [eng.cell(seed=i, process=proc, avail_seed=50 + i, h=h,
+                     sampler_process=tsamp.make_sampler_process(samp),
+                     aggregator_process=agg, fault_process=fault,
+                     **eng.host_draws(i, proc))
+            for i, (proc, samp, agg, fault) in enumerate(specs)]
+
+
+def test_scan_mixed_batch_on_card(cuda):
+    """A 3-cell mixed batch on the card: each cell's sets equal its own run
+    on the card and the CPU batch's; val_loss within 1e-5 of the card's
+    per-cell run and 1e-4 of the CPU's; Krum's rows the CPU's; each kernel
+    launched once per cell that uses it."""
+    from repro_torch.fed.scan_engine import ScanConfig, ScanEngine, oracle_h
+    ds = make_synthetic(n_clients=30, alpha=0.5, beta=0.5, seed=0)
+    rounds, m, sweeps = 6, 6, 16
+    cfg = ScanConfig(rounds=rounds, m=m, local_steps=5, batch_size=10,
+                     max_sweeps=sweeps)
+    h = oracle_h(ds.opt_params, device=cuda)
+    card = ScanEngine(ds, logistic_regression(), cfg, device=cuda)
+    cells = _scan_cells(card, ds, h, cuda)
+    tops.reset_launches()
+    batch = card.run_batch(cells)
+    got = tops.launches()
+    want = {"greedy_argmax": rounds * m, "swap_best_fused": rounds * sweeps,
+            "memagg": rounds, "krum": rounds, "fused_adjacency": 0,
+            "floyd_warshall": 0}
+    assert {k: got[k] for k in want} == want
+    cpu = ScanEngine(ds, logistic_regression(), cfg, device="cpu")
+    on_cpu = cpu.run_batch(_scan_cells(cpu, ds, h, "cpu"))
+    for cell, b, c in zip(cells, batch, on_cpu):
+        one = card.run(cell)
+        assert np.array_equal(b.sel, one.sel) and np.array_equal(b.sel, c.sel)
+        assert np.array_equal(b.counts, c.counts)
+        np.testing.assert_allclose(b.val_loss, one.val_loss, atol=1e-5)
+        np.testing.assert_allclose(b.val_loss, c.val_loss, atol=1e-4)
+    assert np.array_equal(batch[2].chosen, on_cpu[2].chosen)
+    # launches per cell: the memory cell alone launches memagg once a round
+    tops.reset_launches()
+    card.run(cells[1])
+    assert tops.launches()["memagg"] == rounds
+    assert tops.launches()["greedy_argmax"] == 0
+
+
+def test_scan_dynamic_3dg_launches_on_card(cuda):
+    """The in-scan dynamic 3DG rebuilds H through the fused adjacency and
+    Floyd–Warshall kernels: once at the probe round and every K rounds,
+    per cell.  Each round replayed on the CPU from the card's state selects
+    the card's sets, and the rebuilt H is the card's within rtol 1e-4."""
+    from repro_torch.core import sampler_device as tsamp
+    from repro_torch.fed.scan_engine import (ScanConfig, ScanEngine,
+                                             precompute_masks)
+    ds = make_synthetic(n_clients=30, alpha=0.5, beta=0.5, seed=0)
+    rounds, every = 6, 3
+    cfg = ScanConfig(rounds=rounds, m=6, local_steps=5, batch_size=10,
+                     max_sweeps=16, graph_refresh_every=every)
+    masks = precompute_masks(make_mode("LN", n_clients=30, beta=0.5,
+                                       seed=99), rounds, 7)
+    engines, cells = {}, {}
+    for key, dev in (("card", cuda), ("cpu", "cpu")):
+        engines[key] = eng = ScanEngine(ds, logistic_regression(), cfg,
+                                        use_masks=True, device=dev)
+        cells[key] = [eng.cell(seed=s, masks=masks,
+                               sampler_process=tsamp.make_sampler_process(
+                                   name), **eng.host_draws(s))
+                      for s, name in ((0, "fedgs"), (1, "uniform"))]
+    tops.reset_launches()
+    engines["card"].run_batch(cells["card"])
+    got = tops.launches()
+    assert got["fused_adjacency"] == got["floyd_warshall"] == 2 * 3
+
+    def to_cpu(x):
+        if isinstance(x, torch.Tensor):
+            return x.to("cpu", copy=True)
+        if isinstance(x, dict):
+            return {k: to_cpu(v) for k, v in x.items()}
+        if isinstance(x, list):
+            return [to_cpu(v) for v in x]
+        return x
+    carry = engines["card"].init_carry(cells["card"])
+    for t in range(rounds):
+        start = to_cpu(carry)
+        carry, tc = engines["card"].run_segment(cells["card"], carry, t, 1)
+        nxt, tp = engines["cpu"].run_segment(cells["cpu"], start, t, 1)
+        assert torch.equal(tc["sel"].cpu(), tp["sel"])
+        for hc, hp in zip(carry["h"], nxt["h"]):
+            np.testing.assert_allclose(hc.cpu().numpy(), hp.numpy(),
+                                       rtol=1e-4, atol=1e-7)
