@@ -144,7 +144,32 @@ Phases, each printing one JSON line (any failure exits non-zero):
               card's state, the same sets every round and each rebuilt H
               within rtol 1e-4 (the round where free-running sets part,
               printed).  Batch and one-by-one seconds printed.
-  9. the ``{"kernels": [...]}`` line (times at the main path's shapes:
+  9. runtime  checkpoints, the stream, telemetry and the service at the
+              scan phase's width.  (a) the scan phase's 8 mixed cells on
+              the engine's own device draws, 40 rounds checkpointed every
+              10: the default run (pipelined, the carry handle consumed),
+              async_pipeline=False, donate_carry=False and telemetry on,
+              each bitwise the default in every history field and every
+              checkpoint array; a fresh engine resumed from the round-30
+              file, bitwise the unbroken run, launching B3 = 3 x 6 x 10
+              and B3/B4/B6/B7 exactly as the unbroken run's last segment
+              (counted at the inline stream's yields); the pipelined
+              run's host syncs (torch's sync debug mode plus the main
+              thread's snapshot waits) at most one per segment and the
+              final read.  (b) FLEngine: the slice phase's FedGS run and
+              the robust phase's memory/sign_flip run, a head of 20
+              rounds saved at round 20, a resumed tail bitwise the
+              unbroken 40 rounds (sets, val_loss, final params), B3 =
+              120, B4 = 1,280 (and memagg 20) in the tail.  (c) SimService:
+              4 FedGS cells, drain(segment=10) streams 16 updates whose
+              histories are bitwise run_batch's; metrics_text() parses as
+              Prometheus text.  (d) telemetry card vs CPU over 10 rounds on
+              host draws, each card round replayed on the CPU from the
+              card's state: avail_rate, n_selected and staleness_hist
+              exact, the float metrics within rtol 1e-4.  Prints the
+              writer's write_ms / blocked_ms / queue high-watermark, the
+              inline and pipelined walls and the checkpoint's bytes.
+ 10. the ``{"kernels": [...]}`` line (times at the main path's shapes:
      N = 30, M = 6, P = 610; the similarity also at the vision phase's
      (100, 13946) update-cosine 3DG, with that call's launches; the dense
      swap at the vision solve's (m, N) = (10, 100); window attention at
@@ -158,6 +183,7 @@ from __future__ import annotations
 
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -229,6 +255,10 @@ MAIN_N = ENGINE_RUNS[0][0]
 # phase 8: the batched sweep engine at the quickstart's width (FedGSSampler's
 # max_sweeps; the dynamic 3DG rebuilt every 5 rounds)
 SCAN = {"rounds": 40, "max_sweeps": 64, "graph_refresh_every": 5}
+# phase 9: the runtime layer on the scan phase's cells: checkpoints every 10
+# rounds (a fresh engine resumes from round 30), FLEngine's head of 20
+# rounds, the service's 4 FedGS cells, telemetry card vs CPU over 10 rounds
+RUNTIME = {"ckpt_every": 10, "fl_head": 20, "svc_cells": 4, "tel_rounds": 10}
 NEG = -1e18
 # phase 7: the LM serving path.  bf16 inputs run on the tensor cores in the
 # library call, so their bound takes the bf16 tensor-core peak
@@ -1322,7 +1352,10 @@ def quickstart_cfg(FLConfig, rounds=40):
                     batch_size=10, lr=0.1, eval_every=4, seed=0)
 
 
-def slice_run(np, torch, dev) -> tuple[dict, dict]:
+def slice_run(np, torch, dev, kept: dict) -> tuple[dict, dict]:
+    """The quickstart (see the module docstring).  Keeps its unbroken
+    FedGS run in ``kept["fedgs"]`` as (history, final params, a factory of
+    the same engine) for the runtime phase."""
     from repro_torch.core.availability import make_mode
     from repro_torch.core.fairness import count_variance, gini
     from repro_torch.core.sampler import FedGSSampler, UniformSampler
@@ -1336,16 +1369,21 @@ def slice_run(np, torch, dev) -> tuple[dict, dict]:
     def mode():
         return make_mode("LN", n_clients=ds.n_clients, beta=0.5, seed=99)
 
+    def fedgs_engine():
+        eng = FLEngine(ds, logistic_regression(), FedGSSampler(alpha=1.0),
+                       mode(), quickstart_cfg(FLConfig), device=dev)
+        eng.install_oracle_graph(ds.opt_params)
+        return eng
+
     ops.reset_launches()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    card = FLEngine(ds, logistic_regression(), FedGSSampler(alpha=1.0),
-                    mode(), quickstart_cfg(FLConfig), device=dev)
-    card.install_oracle_graph(ds.opt_params)
+    card = fedgs_engine()
     h_card = card.run()
     torch.cuda.synchronize()
     fedgs_s = time.perf_counter() - t0
     launches = ops.launches()
+    kept["fedgs"] = (h_card, card.params, fedgs_engine)
     if card.m != MAIN_M:
         raise AssertionError(f"quickstart M = {card.m}, expected {MAIN_M}")
     if not all(launches[k] > 0 for k in FEDGS_KERNELS):
@@ -1393,10 +1431,11 @@ def slice_run(np, torch, dev) -> tuple[dict, dict]:
     return info, launches
 
 
-def robust_run(np, torch, dev) -> tuple[dict, dict]:
+def robust_run(np, torch, dev, kept: dict) -> tuple[dict, dict]:
     """The quickstart under sign-flip against each defense on the card, and
     the memory and multikrum runs again on the CPU.  Returns (info, the
-    launch counts of the memory and multikrum runs)."""
+    launch counts of the memory and multikrum runs); keeps the
+    memory/sign_flip run in ``kept`` as ``slice_run`` does."""
     from repro_torch.core.availability import make_mode
     from repro_torch.core.sampler import FedGSSampler
     from repro_torch.data.synthetic import make_synthetic
@@ -1449,6 +1488,13 @@ def robust_run(np, torch, dev) -> tuple[dict, dict]:
             raise AssertionError(f"{key}: launches {out[key]}, want {want}")
         hists[key], cards[key] = hist, eng
 
+    def memory_engine():
+        eng = engine("memory", "sign_flip", dev)
+        eng.install_oracle_graph(ds.opt_params)
+        return eng
+    kept["memory/sign_flip"] = (hists["memory/sign_flip"],
+                                cards["memory/sign_flip"].params,
+                                memory_engine)
     cpu_check = {}
     for key in ("memory/sign_flip", "multikrum/sign_flip"):
         defense, attack = key.split("/")
@@ -1887,12 +1933,56 @@ def scale_run(np, torch, dev, *, n_clients: int, frac: float,
             "port_device_ms": port}
 
 # ------------------------------------------------------------ phase 8
+def scan_mixed(ds, rounds: int) -> list:
+    """The scan phase's eight mixed cells, as (availability process,
+    sampler, (aggregator, its knobs), fault): the five availability
+    families, the four samplers, FedAvg, memory and multi-Krum, one 20%
+    sign-flip cell."""
+    from repro_torch.core import availability_device as avd
+    from repro_torch.core.availability import make_mode
+    n = ds.n_clients
+    krum = dict(krum_f=KRUM_F, krum_multi=KRUM_MULTI)
+    ln = make_mode("LN", n_clients=n, beta=0.5, seed=99).process()
+    return [
+        (ln, "fedgs", ("fedavg", {}), None),
+        (avd.GilbertElliott(n, mean_on=8, mean_off=4), "uniform",
+         ("memory", {"gamma": 0.9}), None),
+        (avd.make_process("CLUSTER", n_clients=n), "md", ("fedavg", {}),
+         None),
+        (avd.make_process("DRIFT", n_clients=n, data_sizes=ds.sizes,
+                          rounds=rounds), "poc", ("multikrum", krum), None),
+        (avd.DeadlineProcess(n, deadline=1.2), "fedgs",
+         ("memory", {"gamma": 0.9}), None),
+        (ln, "fedgs", ("multikrum", krum), "sign_flip"),
+        (avd.GilbertElliott(n, mean_on=8, mean_off=4), "poc",
+         ("fedavg", {}), None),
+        (avd.make_process("DRIFT", n_clients=n, data_sizes=ds.sizes,
+                          rounds=rounds), "md", ("fedavg", {}), None)]
+
+
+def scan_mixed_cells(e, mixed: list, h, *, seams: bool = True) -> list:
+    """``mixed``'s cells on engine ``e``: every draw made on the host from
+    a seed (``host_draws``) with ``seams``, else the engine's own device
+    draws."""
+    from repro_torch.core.sampler_device import make_sampler_process
+    from repro_torch.fed.aggregator_device import make_aggregator_process
+    from repro_torch.fed.faults_device import make_fault_process
+    out = []
+    for i, (proc, samp, (agg, kw), fault) in enumerate(mixed):
+        fp = make_fault_process(fault, e.n, **SIGN_FLIP) if fault else None
+        out.append(e.cell(
+            seed=i, process=proc, avail_seed=60 + i, h=h,
+            sampler_process=make_sampler_process(samp),
+            aggregator_process=make_aggregator_process(agg, **kw),
+            fault_process=fp, **(e.host_draws(i, proc) if seams else {})))
+    return out
+
+
 def scan_run(np, torch, dev, one_run: dict) -> tuple[dict, dict]:
     """The batched sweep engine at the quickstart's width (see the module
     docstring).  ``one_run`` is the slice phase's FLEngine launch counts.
     Returns (info, the phase's launch counts summed over its gated runs)."""
     import warnings
-    from repro_torch.core import availability_device as avd
     from repro_torch.core.availability import ALL_MODES, make_mode
     from repro_torch.core.sampler import FedGSSampler
     from repro_torch.core.sampler_device import make_sampler_process
@@ -1901,6 +1991,7 @@ def scan_run(np, torch, dev, one_run: dict) -> tuple[dict, dict]:
     from repro_torch.fed.engine import FLConfig, FLEngine
     from repro_torch.fed.faults_device import make_fault_process
     from repro_torch.fed.models import logistic_regression
+    from repro_torch.fed.runtime import CarryHandle
     from repro_torch.fed.scan_engine import (ScanConfig, ScanEngine,
                                              oracle_h, precompute_masks)
     from repro_torch.kernels import ops
@@ -2003,35 +2094,10 @@ def scan_run(np, torch, dev, one_run: dict) -> tuple[dict, dict]:
 
     # (b) eight cells on the device processes: the five families, the four
     # samplers, FedAvg, memory and Krum, one sign-flip cell
-    krum = dict(krum_f=KRUM_F, krum_multi=KRUM_MULTI)
-    ln = make_mode("LN", n_clients=n, beta=0.5, seed=99).process()
-    mixed = [  # (process, sampler, aggregator, fault)
-        (ln, "fedgs", ("fedavg", {}), None),
-        (avd.GilbertElliott(n, mean_on=8, mean_off=4), "uniform",
-         ("memory", {"gamma": 0.9}), None),
-        (avd.make_process("CLUSTER", n_clients=n), "md", ("fedavg", {}),
-         None),
-        (avd.make_process("DRIFT", n_clients=n, data_sizes=ds.sizes,
-                          rounds=rounds), "poc", ("multikrum", krum), None),
-        (avd.DeadlineProcess(n, deadline=1.2), "fedgs",
-         ("memory", {"gamma": 0.9}), None),
-        (ln, "fedgs", ("multikrum", krum), "sign_flip"),
-        (avd.GilbertElliott(n, mean_on=8, mean_off=4), "poc",
-         ("fedavg", {}), None),
-        (avd.make_process("DRIFT", n_clients=n, data_sizes=ds.sizes,
-                          rounds=rounds), "md", ("fedavg", {}), None)]
+    mixed = scan_mixed(ds, rounds)
 
     def mixed_cells(e, seams=True):
-        out = []
-        for i, (proc, samp, (agg, kw), fault) in enumerate(mixed):
-            fp = make_fault_process(fault, n, **SIGN_FLIP) if fault else None
-            out.append(e.cell(
-                seed=i, process=proc, avail_seed=60 + i, h=h,
-                sampler_process=make_sampler_process(samp),
-                aggregator_process=make_aggregator_process(agg, **kw),
-                fault_process=fp,
-                **(e.host_draws(i, proc) if seams else {})))
-        return out
+        return scan_mixed_cells(e, mixed, h, seams=seams)
 
     card = ScanEngine(ds, model, cfg(), device=dev)
     cells = mixed_cells(card)
@@ -2081,7 +2147,7 @@ def scan_run(np, torch, dev, one_run: dict) -> tuple[dict, dict]:
         return x
     carry, step_gap = card.init_carry(cells), np.zeros(len(cells))
     for t in range(rounds):
-        start = to(carry, "cpu")
+        start = CarryHandle(to(carry.tree, "cpu"))
         carry, tc = card.run_segment(cells, carry, t, 1)
         _, tp = cpu.run_segment(cpu_cells, start, t, 1)
         if not torch.equal(tc["sel"].cpu(), tp["sel"]):
@@ -2138,8 +2204,7 @@ def scan_run(np, torch, dev, one_run: dict) -> tuple[dict, dict]:
         torch.cuda.set_sync_debug_mode(0)
     syncs = sum("synchroniz" in str(w.message) for w in caught)
     lo = ops.launches()
-    carry = card.init_carry(own)
-    card.run_segment(own, carry, 0, 1)
+    carry, _ = card.run_segment(own, card.init_carry(own), 0, 1)
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
@@ -2191,7 +2256,7 @@ def scan_run(np, torch, dev, one_run: dict) -> tuple[dict, dict]:
     card, cpu = engines["card"], engines["cpu"]
     carry, h_rel = card.init_carry(dyn_cells["card"]), 0.0
     for t in range(rounds):
-        start = to(carry, "cpu")
+        start = CarryHandle(to(carry.tree, "cpu"))
         carry, tc = card.run_segment(dyn_cells["card"], carry, t, 1)
         nxt, tp = cpu.run_segment(dyn_cells["cpu"], start, t, 1)
         if not torch.equal(tc["sel"].cpu(), tp["sel"]):
@@ -2199,7 +2264,7 @@ def scan_run(np, torch, dev, one_run: dict) -> tuple[dict, dict]:
                                  f"differently from the same state")
         if (t + 1) % every:
             continue
-        for hc, hp in zip(carry["h"], nxt["h"]):
+        for hc, hp in zip(carry.tree["h"], nxt.tree["h"]):
             hc, hp = hc.cpu().numpy(), hp.numpy()
             if not np.array_equal(hc == hc.max(), hp == hp.max()):
                 raise AssertionError(f"scan (c) round {t}: H's "
@@ -2222,6 +2287,335 @@ def scan_run(np, torch, dev, one_run: dict) -> tuple[dict, dict]:
             for a, b in zip(free, on_cpu)]}
     info["seconds"] = time.perf_counter() - t_phase
     return info, totals
+
+
+# ------------------------------------------------------------ phase 9
+def _hist_diff(np, a, b) -> list[str]:
+    """The ScanHistory fields in which a and b are not bitwise equal."""
+    bad = [f for f in ("sel", "valid", "counts", "val_loss", "val_acc",
+                       "count_var", "gini")
+           if not np.array_equal(getattr(a, f), getattr(b, f),
+                                 equal_nan=True)]
+    if (a.chosen is None) != (b.chosen is None) or (
+            a.chosen is not None and not np.array_equal(a.chosen, b.chosen)):
+        bad.append("chosen")
+    return bad
+
+
+def _npz_diff(np, a: str, b: str) -> list[str]:
+    """The keys of two npz files whose arrays are not bitwise equal
+    (["keys"] when the key sets differ)."""
+    with np.load(a, allow_pickle=False) as za, \
+            np.load(b, allow_pickle=False) as zb:
+        if sorted(za.files) != sorted(zb.files):
+            return ["keys"]
+        return [k for k in za.files
+                if za[k].dtype != zb[k].dtype or za[k].shape != zb[k].shape
+                or za[k].tobytes() != zb[k].tobytes()]
+
+
+_PROM_LINE = (r'^[a-zA-Z_:][a-zA-Z0-9_:]*(\{[a-zA-Z_][a-zA-Z0-9_]*="[^"]*"'
+              r'(,[a-zA-Z_][a-zA-Z0-9_]*="[^"]*")*\})? '
+              r'([-+]?[0-9.]+([eE][-+]?[0-9]+)?|NaN|[+-]Inf)$')
+
+
+def parse_prometheus(text: str) -> dict:
+    """{metric: [values]} of a Prometheus text exposition; raises on a line
+    that is not HELP, TYPE (counter or gauge) or a sample of a typed
+    metric."""
+    import re
+    out, typed = {}, set()
+    for ln in text.splitlines():
+        if ln.startswith("# HELP "):
+            continue
+        if ln.startswith("# TYPE "):
+            _, _, name, kind = ln.split(" ", 3)
+            if kind not in ("counter", "gauge"):
+                raise AssertionError(f"prometheus: {ln!r}")
+            typed.add(name)
+            continue
+        name = re.split(r"[{ ]", ln, maxsplit=1)[0]
+        if not re.match(_PROM_LINE, ln) or name not in typed:
+            raise AssertionError(f"prometheus: {ln!r}")
+        out.setdefault(name, []).append(float(ln.rsplit(" ", 1)[1]))
+    return out
+
+
+def runtime_run(np, torch, dev, kept: dict) -> dict:
+    """The runtime layer at the quickstart's width (see the module
+    docstring).  ``kept``: the slice and robust phases' unbroken FLEngine
+    runs, which (b) resumes."""
+    import shutil
+    import threading
+    import warnings
+    from repro_torch.core.sampler_device import make_sampler_process
+    from repro_torch.data.synthetic import make_synthetic
+    from repro_torch.fed import runtime as rt
+    from repro_torch.fed.models import logistic_regression
+    from repro_torch.fed.scan_engine import ScanConfig, ScanEngine, oracle_h
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import SimService
+
+    t_phase = time.perf_counter()
+    work = OUT / "runtime"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    ds = make_synthetic(n_clients=30, alpha=0.5, beta=0.5, seed=0)
+    n, m, rounds = ds.n_clients, MAIN_M, SCAN["rounds"]
+    every, sweeps = RUNTIME["ckpt_every"], SCAN["max_sweeps"]
+    model = logistic_regression()
+    h = oracle_h(ds.opt_params, device=dev)
+    mixed = scan_mixed(ds, rounds)
+    n_fedgs = sum(samp == "fedgs" for _, samp, _, _ in mixed)
+    per_round = ("greedy_argmax", "swap_best_fused", "memagg", "krum")
+
+    def cfg(**kw):
+        return ScanConfig(rounds=rounds, m=m, local_steps=10, batch_size=10,
+                          lr=0.1, eval_every=4, max_sweeps=sweeps, **kw)
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    info = {"phase": "runtime", "card": smi_line(), "n": n, "m": m,
+            "p": 610, "rounds": rounds, "ckpt_every": every}
+
+    # (a) the 8 mixed cells on the engine's own device draws, checkpointed
+    # every 10 rounds: the default (pipelined, handle consumed), inline,
+    # on a clone, telemetry on.  Each engine builds its plan first (the
+    # cells' tables go to the card: set-up, and host syncs).  The inline
+    # stream's launch counts at each yield give each segment's launches;
+    # the default run counts the host syncs torch flags and the snapshot
+    # waits of the main thread
+    runs, ck, seg_counts, waits = {}, {}, [], {"main": 0}
+    orig_wait = rt.HostSnapshot.wait
+
+    def counting_wait(self):
+        if threading.current_thread() is threading.main_thread():
+            waits["main"] += 1
+        return orig_wait(self)
+
+    for name, kw in (("default", {}), ("inline", {"async_pipeline": False}),
+                     ("no_donate", {"donate_carry": False}),
+                     ("telemetry", {"telemetry": True})):
+        eng = ScanEngine(ds, model, cfg(**kw), device=dev)
+        cells = scan_mixed_cells(eng, mixed, h, seams=False)
+        eng.init_carry(cells)
+        ck[name] = str(work / name)
+        if name == "inline":
+            def counting_stream(*a, _stream=eng.run_batch_stream, **k):
+                for item in _stream(*a, **k):
+                    seg_counts.append(ops.launches())
+                    yield item
+            eng.run_batch_stream = counting_stream
+        ops.reset_launches()
+        if name == "default":
+            torch.cuda.set_sync_debug_mode("warn")
+            rt.HostSnapshot.wait = counting_wait
+        try:
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                hists, sec = timed(lambda: eng.run_batch(
+                    cells, ckpt_path=ck[name], ckpt_every=every))
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+            rt.HostSnapshot.wait = orig_wait
+        runs[name] = {"hists": hists, "seconds": sec,
+                      "launches": ops.launches(),
+                      "stats": eng.runtime_stats(),
+                      "flagged_syncs": sum("synchroniz" in str(w.message)
+                                           for w in caught)}
+    want = runs["default"]["hists"]
+    if not all(np.isfinite(x.val_loss[x.rounds]).all() for x in want):
+        raise AssertionError("runtime (a): a val_loss is not finite")
+    for name in ("inline", "no_donate", "telemetry"):
+        bad = {i: d for i, (a, b) in enumerate(zip(runs[name]["hists"],
+                                                    want))
+               if (d := _hist_diff(np, a, b))}
+        if bad:
+            raise AssertionError(f"runtime (a) {name}: history fields "
+                                 f"differ from the default run {bad}")
+        diff = _npz_diff(np, ck[name] + ".npz", ck["default"] + ".npz")
+        if diff:
+            raise AssertionError(f"runtime (a) {name}: checkpoint arrays "
+                                 f"differ from the default run {diff[:8]}")
+    tel = [x.telemetry for x in runs["telemetry"]["hists"]]
+    if any(t is None or not all(np.isfinite(v).all() for v in t.values())
+           for t in tel):
+        raise AssertionError("runtime (a): telemetry missing or not finite")
+    with np.load(ck["default"] + ".npz") as z:
+        ck_round = int(z["round"])
+    if ck_round != rounds - every or len(seg_counts) != rounds // every:
+        raise AssertionError(f"runtime (a): checkpoint round {ck_round}, "
+                             f"{len(seg_counts)} segments")
+    last = {k: seg_counts[-1][k] - seg_counts[-2][k] for k in per_round}
+    # a fresh engine resumes from the round-30 file
+    shutil.copy(ck["default"] + ".npz", str(work / "resume.npz"))
+    eng = ScanEngine(ds, model, cfg(), device=dev)
+    cells = scan_mixed_cells(eng, mixed, h, seams=False)
+    eng.init_carry(cells)
+    ops.reset_launches()
+    res, sec_res = timed(lambda: eng.run_batch(
+        cells, ckpt_path=str(work / "resume"), ckpt_every=every,
+        resume=True))
+    tail = ops.launches()
+    bad = {i: d for i, (a, b) in enumerate(zip(res, want))
+           if (d := _hist_diff(np, a, b))}
+    if bad:
+        raise AssertionError(f"runtime (a) resume: history fields differ "
+                             f"from the unbroken run {bad}")
+    if tail["greedy_argmax"] != n_fedgs * m * every or \
+            any(tail[k] != last[k] for k in per_round):
+        raise AssertionError(f"runtime (a) resume: tail launches "
+                             f"{ {k: tail[k] for k in per_round} }, the "
+                             f"unbroken run's last segment {last}")
+    d = runs["default"]
+    host_waits = d["flagged_syncs"] + waits["main"]
+    segments = rounds // every
+    if host_waits > segments + 1:
+        raise AssertionError(f"runtime (a): {host_waits} host syncs in the "
+                             f"pipelined run, more than one per segment "
+                             f"and the final read ({segments + 1}): a sync "
+                             f"inside a round")
+    writer = d["stats"]["checkpoint_writer"]
+    info["a_resume"] = {
+        "cells": [[p.family, smp, agg, f or "none"]
+                  for p, smp, (agg, _), f in mixed],
+        "draws": "the engine's own (device)",
+        "checkpoint_round": ck_round,
+        "resume_bitwise_unbroken": True,
+        "inline_bitwise_default": True, "no_donate_bitwise_default": True,
+        "telemetry_bitwise_default_history_and_checkpoint": True,
+        "tail_launches": {k: tail[k] for k in per_round},
+        "unbroken_last_segment_launches": last,
+        "greedy_argmax_tail_gate": n_fedgs * m * every,
+        "seconds": {k: v["seconds"] for k, v in runs.items()},
+        "resume_tail_s": sec_res,
+        "wall_s_inline_vs_pipelined": [runs["inline"]["seconds"],
+                                       d["seconds"]],
+        "checkpoint_bytes": os.path.getsize(ck["default"] + ".npz"),
+        "writer": {k: writer[k] for k in ("write_ms", "blocked_ms",
+                                          "queue_high_watermark",
+                                          "submitted", "completed")},
+        "host_syncs": {"flagged_by_torch": d["flagged_syncs"],
+                       "snapshot_waits_main_thread": waits["main"],
+                       "segments": segments,
+                       "checkpoint_boundaries": segments - 1,
+                       "per_segment": host_waits / segments,
+                       "gate": "<= one per segment + the final read"},
+        "telemetry_keys": sorted(tel[0]),
+        "compiles": d["stats"]["compiles"],
+        "compile_ms": d["stats"]["compile_ms"]}
+
+    # (b) FLEngine: the slice phase's FedGS run and the robust phase's
+    # memory run, a head of 20 rounds saved at round 20, a resumed tail
+    head_rounds = RUNTIME["fl_head"]
+    info["b_flengine"] = {}
+    for key, (h_full, p_full, make) in kept.items():
+        path = str(work / ("fl_" + key.replace("/", "_")))
+        head = make()
+        head.cfg.rounds = head_rounds
+        head.run(ckpt_path=path, ckpt_every=head_rounds)
+        eng = make()
+        ops.reset_launches()
+        h_tail, sec = timed(lambda e=eng, p=path: e.run(ckpt_path=p,
+                                                       resume=True))
+        lt = ops.launches()
+        tail_rounds = rounds - head_rounds
+        want_l = {"greedy_argmax": tail_rounds * m,
+                  "swap_best_fused": tail_rounds * sweeps,
+                  "memagg": tail_rounds if key.startswith("memory") else 0}
+        evals = [(r, v) for r, v in zip(h_full.rounds, h_full.val_loss)
+                 if r >= head_rounds]
+        if h_tail.all_sampled != h_full.all_sampled[head_rounds:] or \
+                list(zip(h_tail.rounds, h_tail.val_loss)) != evals or \
+                not all(torch.equal(eng.params[k], p_full[k])
+                        for k in p_full):
+            raise AssertionError(f"runtime (b) {key}: the resumed tail is "
+                                 f"not the unbroken run's")
+        if any(lt[k] != v for k, v in want_l.items()):
+            raise AssertionError(f"runtime (b) {key}: tail launches {lt}, "
+                                 f"want {want_l}")
+        info["b_flengine"][key] = {
+            "head_rounds": head_rounds, "tail_bitwise_unbroken": True,
+            "tail_launches": {k: lt[k] for k in want_l}, "tail_s": sec,
+            "checkpoint_bytes": os.path.getsize(path + ".npz"),
+            "writer": head.runtime_stats()["checkpoint_writer"]}
+
+    # (c) SimService: 4 FedGS cells, streamed in segments of 10
+    ln = mixed[0][0]
+
+    def svc_kw(i):
+        return dict(seed=i, process=ln, avail_seed=80 + i, h=h,
+                    sampler_process=make_sampler_process("fedgs"))
+    svc = SimService(ScanEngine(ds, model, cfg(), device=dev))
+    cells_n = RUNTIME["svc_cells"]
+    ids = [svc.submit(**svc_kw(i)) for i in range(cells_n)]
+    updates, sec_svc = timed(lambda: list(svc.drain(segment=every)))
+    ref = ScanEngine(ds, model, cfg(), device=dev)
+    ref_h, sec_ref = timed(lambda: ref.run_batch(
+        [ref.cell(**svc_kw(i)) for i in range(cells_n)]))
+    if len(updates) != cells_n * (rounds // every):
+        raise AssertionError(f"runtime (c): {len(updates)} updates")
+    bad = {i: d for i, (rid, b) in enumerate(zip(ids, ref_h))
+           if (d := _hist_diff(np, svc.histories[rid], b))}
+    if bad:
+        raise AssertionError(f"runtime (c): service histories differ from "
+                             f"run_batch {bad}")
+    text = svc.metrics_text()
+    fams = parse_prometheus(text)
+    if fams.get("fedgs_rounds_streamed_total") != [float(cells_n * rounds)]:
+        raise AssertionError(f"runtime (c): metrics {fams}")
+    info["c_service"] = {
+        "cells": cells_n, "updates": len(updates),
+        "histories_bitwise_run_batch": True, "drain_s": sec_svc,
+        "run_batch_s": sec_ref, "prometheus_parsed": True,
+        "prometheus_families": len(fams),
+        "first_segment_s": [svc.timings[r]["first_segment_s"] for r in ids],
+        "stats": svc.stats()["service"]}
+
+    # (d) telemetry card vs CPU, round by round from the card's state, on
+    # the same host draws
+    tel_rounds = RUNTIME["tel_rounds"]
+    card = ScanEngine(ds, model, cfg(telemetry=True), device=dev)
+    cpu = ScanEngine(ds, model, cfg(telemetry=True), device="cpu")
+    cc = scan_mixed_cells(card, mixed, h)
+    pc = scan_mixed_cells(cpu, mixed, h)
+
+    def to(x, d):
+        if isinstance(x, torch.Tensor):
+            return x.to(d, copy=True)
+        if isinstance(x, dict):
+            return {k: to(v, d) for k, v in x.items()}
+        if isinstance(x, list):
+            return [to(v, d) for v in x]
+        return x
+    carry, gaps = card.init_carry(cc), {}
+    for t in range(tel_rounds):
+        start = rt.CarryHandle(to(carry.tree, "cpu"))
+        carry, tc = card.run_segment(cc, carry, t, 1)
+        _, tp = cpu.run_segment(pc, start, t, 1)
+        if not torch.equal(tc["sel"].cpu(), tp["sel"]):
+            raise AssertionError(f"runtime (d) round {t}: card and CPU "
+                                 f"select differently")
+        for k, v in tp["telemetry"].items():
+            a, b = tc["telemetry"][k].cpu().numpy(), v.numpy()
+            exact = k in ("avail_rate", "n_selected", "staleness_hist")
+            if (exact and not np.array_equal(a, b)) or not np.allclose(
+                    a, b, rtol=1e-4, atol=0.0):
+                raise AssertionError(f"runtime (d) round {t}: {k} card "
+                                     f"{a} vs CPU {b}")
+            rel = np.abs(a - b) / np.maximum(np.abs(b), 1e-30)
+            gaps[k] = max(gaps.get(k, 0.0), float(np.max(rel)))
+    info["d_telemetry_card_vs_cpu"] = {
+        "rounds": tel_rounds, "exact": ["avail_rate", "n_selected",
+                                        "staleness_hist"],
+        "float_gate_rtol": 1e-4, "max_rel_gap": gaps}
+    info["seconds"] = time.perf_counter() - t_phase
+    return info
 
 
 # ------------------------------------------------------------ phase 7
@@ -2581,10 +2975,11 @@ def main() -> int:
     emit({"phase": "kernels", "robust": True, "card": smi,
           "rows": robust_rows})
 
-    info, launches = slice_run(np, torch, dev)
+    kept: dict = {}
+    info, launches = slice_run(np, torch, dev, kept)
     slice_launches = dict(launches)
     emit(info)
-    info, robust_launches = robust_run(np, torch, dev)
+    info, robust_launches = robust_run(np, torch, dev, kept)
     emit(info)
     info, vision_launches = vision_run(np, torch, dev)
     emit(info)
@@ -2600,6 +2995,7 @@ def main() -> int:
                    frac=ENGINE_RUNS[1][1], aggregator="memory"))
     info, scan_launches = scan_run(np, torch, dev, slice_launches)
     emit(info)
+    emit(runtime_run(np, torch, dev, kept))
     t0 = time.perf_counter()
     attn_rows = attention_kernel_checks(np, torch, dev)
     emit({"phase": "kernels", "attention": True, "card": smi,

@@ -14,6 +14,13 @@ Per round t:
 Evaluation on the shared validation split; the history records loss,
 accuracy and count fairness.
 
+``run(ckpt_path=, ckpt_every=, resume=)`` saves the params, the counts,
+the round, the server state and the fault state every ``ckpt_every``
+rounds on a background writer, from a host copy taken before the next
+round (the memory panel and the straggler's stale panel are updated in
+place); every round's randomness is keyed by (seed, t), so a resume is
+exact.  The dynamic 3DG's embeddings are not saved (as in the reference).
+
 Everything runs on ``device``: CUDA unless the caller asks for the CPU.
 On CUDA the 3DG builds (static and dynamic, through the staged kernels),
 the FedGS solve and the memory and krum server updates go through the
@@ -23,6 +30,7 @@ in the reference), Power-of-Choice's losses and the eval numbers.
 """
 from __future__ import annotations
 
+import os
 from dataclasses import dataclass, field
 from typing import Callable, Optional
 
@@ -30,6 +38,7 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
+from repro_torch.checkpoint.ckpt import load_checkpoint, save_checkpoint
 from repro_torch.core import graph as graph_mod
 from repro_torch.core.availability import host_draw
 from repro_torch.core.fairness import count_variance
@@ -40,7 +49,10 @@ from repro_torch.fed.client import (default_batch_indices,
                                     default_probe_indices, make_local_trainer,
                                     make_loss_prober)
 from repro_torch.fed.faults_device import HostFaultInjector, make_fault_process
+from repro_torch.fed.runtime import (AsyncCheckpointWriter, ProgramCache,
+                                     host_snapshot)
 from repro_torch.fed.server import ServerAggregator
+from repro_torch.fed.telemetry import NULL_TRACER, runtime_snapshot
 
 
 @dataclass
@@ -86,7 +98,8 @@ class FLEngine:
                  device=None, init_params: Optional[dict] = None,
                  batch_indices: Optional[Callable] = None,
                  fault_draws: Optional[Callable] = None,
-                 probe_indices: Optional[Callable] = None):
+                 probe_indices: Optional[Callable] = None,
+                 tracer=None, sink=None):
         """``aggregator`` is any ``fed.aggregator_device.AggregatorProcess``
         (default FedAvg).  ``fault`` is a ``fed.faults_device.FaultProcess``
         or a family name (built with ``fault_frac`` adversarial clients),
@@ -99,7 +112,10 @@ class FLEngine:
         Power-of-Choice loss probe's and ``fault_draws(kind, t, shape)``
         the fault families' standard-normal draws (``HostFaultInjector``):
         the seams that let a run replay the JAX package's random draws.
-        A FedGS sampler is handed the engine's device."""
+        A FedGS sampler is handed the engine's device.  ``tracer``
+        (``fed/telemetry.Tracer``) records host spans and ``sink``
+        (``obs.JSONLMetricsSink``) receives run and eval-round events; both
+        default to off."""
         self.ds, self.model, self.sampler, self.mode, self.cfg = \
             ds, model, sampler, mode, cfg
         self.device = resolve_device(device, who="FLEngine")
@@ -120,11 +136,17 @@ class FLEngine:
                 else fault_seed, draws=fault_draws)
         else:
             self._faults = None
-        self._trainer = make_local_trainer(
-            model, local_steps=cfg.local_steps, batch_size=cfg.batch_size,
-            prox_mu=cfg.prox_mu)
-        self._prober = make_loss_prober(model) if sampler.needs_losses \
-            else None
+        self.tracer = tracer if tracer is not None else NULL_TRACER
+        self.sink = sink
+        self._programs = ProgramCache(maxsize=8)
+        self._writer_stats: Optional[dict] = None
+        self._trainer = self._programs.get(
+            "trainer", lambda: make_local_trainer(
+                model, local_steps=cfg.local_steps,
+                batch_size=cfg.batch_size, prox_mu=cfg.prox_mu))
+        self._prober = self._programs.get(
+            "prober", lambda: make_loss_prober(model)) \
+            if sampler.needs_losses else None
         self._emb = None                  # dynamic 3DG embeddings (N, dim)
         self.counts = np.zeros(self.n)
         # the padded client data and the validation split live on the
@@ -134,6 +156,14 @@ class FLEngine:
         self._y = torch.as_tensor(ds.y, dtype=torch.int64, device=dev)
         self._xv = torch.as_tensor(ds.x_val, dtype=torch.float32, device=dev)
         self._yv = torch.as_tensor(ds.y_val, dtype=torch.int64, device=dev)
+
+    def runtime_stats(self) -> dict:
+        """The shared telemetry snapshot (``ScanEngine.runtime_stats``'s
+        shape): the cache counters flat, the last run's checkpoint-writer
+        counters and the tracer's per-span aggregates."""
+        return runtime_snapshot(programs=self._programs,
+                                writer=self._writer_stats,
+                                tracer=self.tracer)
 
     # ------------------------------------------------------------- 3DG setup
     def install_oracle_graph(self, features: Optional[np.ndarray] = None,
@@ -234,7 +264,15 @@ class FLEngine:
         idx = torch.as_tensor(idx, dtype=torch.int64, device=self.device)
         return self._prober(params, self._x, self._y, idx).cpu().numpy()
 
-    def run(self, progress: Callable | None = None) -> History:
+    def run(self, progress: Callable | None = None, *,
+            ckpt_path: str | None = None, ckpt_every: int = 0,
+            resume: bool = False) -> History:
+        """Run the rounds.  Every round's randomness comes from (seed, t),
+        so the process is Markov in (params, counts, server and fault
+        state, t): with ``ckpt_path`` and ``ckpt_every`` that state is
+        saved every ``ckpt_every`` rounds, and ``resume=True`` continues
+        from the file when it exists, bitwise the unbroken run (its
+        history holds the rounds run after the resume)."""
         cfg, dev = self.cfg, self.device
         if self.init_params is not None:
             params = {k: torch.as_tensor(v, dtype=torch.float32, device=dev)
@@ -242,14 +280,74 @@ class FLEngine:
         else:
             params = self.model.init(torch.Generator().manual_seed(cfg.seed),
                                      device=dev)
+        # the server and fault state: built from the initial params, then
+        # overwritten wholesale by a checkpoint on resume
         self._server.init(params)
         if self._faults is not None:
             self._faults.init(params)
+        start_round = 0
+        if resume and ckpt_path and os.path.exists(
+                ckpt_path if ckpt_path.endswith(".npz")
+                else ckpt_path + ".npz"):
+            params, start_round = self._resume(ckpt_path, params)
+        writer = AsyncCheckpointWriter() \
+            if (ckpt_path and ckpt_every) else None
+        self._writer_stats = None
+        if self.sink is not None:
+            self.sink.emit("run_start",
+                           {"engine": "host", "rounds": cfg.rounds,
+                            "start_round": start_round,
+                            "sampler": self.sampler.name})
+        try:
+            return self._run_rounds(params, start_round, progress,
+                                    ckpt_path, ckpt_every, writer)
+        finally:
+            if writer is not None:
+                try:
+                    writer.close()
+                finally:
+                    self._writer_stats = writer.stats()
+            if self.sink is not None:
+                self.sink.emit("run_end",
+                               {"engine": "host",
+                                "runtime": self.runtime_stats()})
+
+    def _resume(self, ckpt_path: str, params: dict):
+        """(params, first round) from a checkpoint; the server and fault
+        state come back too, or restart from params when the file is of
+        the older format without them."""
+        like = {"params": params, "counts": self.counts,
+                "round": np.zeros((), np.int64),
+                "server": self._server.state}
+        if self._faults is not None:
+            like["faults"] = self._faults.state
+        try:
+            state = load_checkpoint(ckpt_path, like=like)
+        except KeyError:          # older checkpoint: no server/fault state
+            like.pop("server")
+            like.pop("faults", None)
+            state = load_checkpoint(ckpt_path, like=like)
+        params = state["params"]
+        self.counts = np.asarray(state["counts"], np.float64)
+        if "server" in state:
+            self._server.state = state["server"]
+        else:
+            self._server.init(params)
+        if self._faults is not None:
+            if "faults" in state:
+                self._faults.state = state["faults"]
+            else:
+                self._faults.init(params)
+        return params, int(state["round"]) + 1
+
+    def _run_rounds(self, params, start_round, progress, ckpt_path,
+                    ckpt_every, writer) -> History:
+        cfg, dev = self.cfg, self.device
         hist = History()
         chosen = []
         xs, ys, xv, yv = self._x, self._y, self._xv, self._yv
 
-        for t in range(cfg.rounds):
+        for t in range(start_round, cfg.rounds):
             rng = np.random.default_rng(np.random.SeedSequence([cfg.seed, t]))
             avail = host_draw(self.mode, t, cfg.avail_seed)
             losses = self._losses(t, params) if self._prober is not None \
@@ -259,12 +357,15 @@ class FLEngine:
                 data_sizes=self.ds.sizes, losses=losses, t=t), dtype=int)
             lr = cfg.lr * (cfg.lr_decay ** t)
             sel_t = torch.as_tensor(sel, dtype=torch.int64, device=dev)
-            local = self._trainer(params, xs[sel_t], ys[sel_t], lr,
-                                  self._indices(t, sel))
+            with self.tracer.span("local_train", t=t, m=len(sel)):
+                local = self._trainer(params, xs[sel_t], ys[sel_t], lr,
+                                      self._indices(t, sel))
             if self._faults is not None:
                 local = self._faults.inject(local, params, sel, avail, t)
-            params = self._server.apply(
-                local, self.ds.sizes[sel].astype(np.float32), sel, avail, t)
+            with self.tracer.span("aggregate", t=t):
+                params = self._server.apply(
+                    local, self.ds.sizes[sel].astype(np.float32), sel,
+                    avail, t)
             if self._server.last_chosen is not None:
                 chosen.append(self._server.last_chosen)
             self.counts[sel] += 1
@@ -275,7 +376,7 @@ class FLEngine:
                     self._rebuild_dynamic_graph()
 
             if t % cfg.eval_every == 0 or t == cfg.rounds - 1:
-                with torch.no_grad():
+                with self.tracer.span("eval", t=t), torch.no_grad():
                     vl = float(self.model.loss(params, xv, yv))
                     va = float(self.model.accuracy(params, xv, yv))
                 hist.rounds.append(t)
@@ -283,9 +384,38 @@ class FLEngine:
                 hist.val_acc.append(va)
                 hist.count_var.append(count_variance(self.counts))
                 hist.sampled.append(sel.tolist())
+                if self.sink is not None:
+                    self.sink.emit("round",
+                                   {"engine": "host", "t": t,
+                                    "val_loss": vl, "val_acc": va,
+                                    "count_var": hist.count_var[-1],
+                                    "n_selected": int(len(sel)),
+                                    "avail_rate": float(np.mean(avail))})
                 if progress:
                     progress(t, vl, va)
+            if writer is not None and (t + 1) % ckpt_every == 0:
+                self._save(writer, ckpt_path, params, t)
         # read krum's choices once, after the rounds: no sync per round
         hist.chosen = [c.tolist() for c in chosen]
         self.params = params
         return hist
+
+    def _save(self, writer, ckpt_path: str, params: dict, t: int):
+        """Hand round t's state to the writer thread.  The next round
+        updates the memory and stale panels in place, so the tensors are
+        copied here, in stream order (``host_snapshot``), and the counts
+        (numpy, updated in place too) with them."""
+        tree = {"params": params, "server": self._server.state}
+        if self._faults is not None:
+            tree["faults"] = self._faults.state
+        snap = host_snapshot(tree)
+        counts = self.counts.copy()
+
+        def _write(snap=snap, counts=counts, tn=t):
+            with self.tracer.span("checkpoint_write", round=tn):
+                save_checkpoint(
+                    ckpt_path, {**snap.wait(), "counts": counts,
+                                "round": np.asarray(tn, np.int64)},
+                    metadata={"round": tn, "sampler": self.sampler.name,
+                              "aggregator": self._server.process.name})
+        writer.submit(_write)

@@ -51,14 +51,33 @@ a cell draws the same numbers alone or in a batch (but a card and a CPU
 run draw different ones).  The trajectory stays on the device until the
 end of a segment and is read once there.
 
-Not in this slice (each raises ``NotImplementedError`` naming its
-ROADMAP item): the mesh, ``cell_sharding`` and ``silo_reduce`` (item 12);
-telemetry, ``compile_cache_dir``, ``donate_carry``, ``async_pipeline``,
-``program_cache_size``, checkpoints (``run_batch(ckpt_path=...)``),
-``run_batch_stream``, ``lower_batch``, ``carry_shapes``, ``runtime_stats``
-and ``attach_sink`` (item 11).  The reference's ``graph_backend``,
-``solver_backend`` and ``agg_backend`` knobs are left out: the tensors'
-device picks kernel or plain version, as everywhere in the port.
+Runtime (``fed/runtime.py``).  ``init_carry`` returns a ``CarryHandle``
+and ``run_segment`` consumes it: a segment updates the carry in place (the
+memory panel through memagg, the straggler's stale panel), so the handle
+passed in raises on any later read (``donate_carry=False`` runs the
+segment on a clone and leaves it alive).  ``run_batch_stream`` yields
+``(t0, k, traj_host)`` per segment, in order: ``async_pipeline=False``
+fetches and writes inline; with a checkpoint path the carry's host copy
+is taken (pinned, non-blocking, one event) before the next segment and the
+npz write runs on a background thread; without one, segment k's
+trajectory is fetched while segment k + 1 is dispatched.  A checkpoint
+holds the whole carry, the trajectory so far and the next round; every
+default draw is keyed by (seed, round, stream), so no generator state is
+saved and a resume replays the unbroken run bit for bit.  Telemetry
+(``ScanConfig.telemetry``) adds per-round health metrics
+(``fed/telemetry.round_telemetry``) that only read the round's values:
+the history fields and the checkpoints are those of a run without it.
+``ProgramCache`` bounds the per-batch plans (``program_cache_size``).
+
+Not in this port: the mesh, ``cell_sharding`` and ``silo_reduce`` (ROADMAP
+item 12, which raise ``NotImplementedError``, as do ``carry_shapes`` and
+the compile-only dry-run it serves); ``compile_cache_dir`` and
+``lower_batch``, which have no torch meaning (no traced programs; the
+kernel libraries persist under ``build/``, keyed by their sources' hash),
+so they raise away from their defaults.  The reference's
+``graph_backend``, ``solver_backend`` and ``agg_backend`` knobs are left
+out: the tensors' device picks kernel or plain version, as everywhere in
+the port.
 
 Typical use::
 
@@ -69,6 +88,7 @@ Typical use::
 """
 from __future__ import annotations
 
+import os
 from dataclasses import dataclass, field
 from typing import Callable, Optional
 
@@ -76,6 +96,7 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
+from repro_torch.checkpoint.ckpt import load_checkpoint, save_checkpoint
 from repro_torch.core import availability_device as avd
 from repro_torch.core.availability import AvailabilityMode, host_trace
 from repro_torch.core.fairness import count_variance_device, gini_device
@@ -100,17 +121,24 @@ from repro_torch.fed.faults_device import (FaultProcess, device_params,
                                            init_fault_state,
                                            make_fault_process,
                                            make_fault_step)
+from repro_torch.fed.runtime import (AsyncCheckpointWriter, CarryHandle,
+                                     ProgramCache, clone_tree, host_snapshot)
+from repro_torch.fed.telemetry import (NULL_TRACER, fault_corruption_norm,
+                                       round_telemetry, runtime_snapshot)
 
 SILO_REDUCES = ("gather", "psum")
-_ITEM11 = "telemetry, checkpoints and the runtime layer (ROADMAP item 11)"
+_NO_TORCH_MEANING = ("has no torch meaning: the port traces no programs, "
+                     "and its kernel libraries persist under build/, keyed "
+                     "by a hash of their sources")
 _ITEM12 = "the mesh scale-out (ROADMAP item 12)"
 
 
 @dataclass(frozen=True)
 class ScanConfig:
     """The batched engine's configuration: the reference's field names,
-    defaults and validation.  The scale-out, runtime and telemetry fields
-    keep their defaults in this port; a value away from it raises."""
+    defaults and validation.  The scale-out fields and
+    ``compile_cache_dir`` keep their defaults in this port; a value away
+    from it raises."""
     rounds: int = 200
     m: int = 3                     # sampled clients per round (static M)
     local_steps: int = 10          # E
@@ -135,13 +163,18 @@ class ScanConfig:
     mesh: Optional[tuple] = None
     cell_sharding: bool = True
     silo_reduce: str = "gather"
-    # ROADMAP item 11: the runtime layer and telemetry
+    # the runtime layer (fed/runtime.py): consume the carry handle (the
+    # segment updates it in place; False: run on a clone), overlap the
+    # trajectory's fetch and the checkpoint write with the next segment,
+    # bound the plan cache.  compile_cache_dir has no torch meaning
     donate_carry: bool = True
     async_pipeline: bool = True
     compile_cache_dir: Optional[str] = None
     program_cache_size: int = 32
+    # per-round health metrics (fed/telemetry.round_telemetry): read-only,
+    # the history fields and checkpoints are those of a run without them
     telemetry: bool = False
-    telemetry_clip_thresh: float = 10.0
+    telemetry_clip_thresh: float = 10.0   # client-update-norm clip probe
 
     def __post_init__(self):
         if self.sampler not in SAMPLERS:
@@ -171,14 +204,8 @@ class ScanConfig:
                 or self.silo_reduce != "gather"):
             raise NotImplementedError(f"mesh / cell_sharding / silo_reduce "
                                       f"away from their defaults: {_ITEM12}")
-        if (self.telemetry or self.compile_cache_dir is not None
-                or not self.donate_carry or not self.async_pipeline
-                or self.program_cache_size != 32
-                or self.telemetry_clip_thresh != 10.0):
-            raise NotImplementedError(f"telemetry / compile_cache_dir / "
-                                      f"donate_carry / async_pipeline / "
-                                      f"program_cache_size away from their "
-                                      f"defaults: {_ITEM11}")
+        if self.compile_cache_dir is not None:
+            raise NotImplementedError(f"compile_cache_dir {_NO_TORCH_MEANING}")
 
 
 # --------------------------------------------------------------- host helpers
@@ -234,7 +261,9 @@ class ScanHistory:
     valid: np.ndarray          # (T, M) pad mask (False = zero-weight slot)
     counts: np.ndarray         # (N,) final participation counts
     chosen: Optional[np.ndarray] = None   # (T, M) krum's averaged slots
-    telemetry: Optional[dict] = None      # not in this port (item 11)
+    # ScanConfig.telemetry: {name: (T,) or (T, bins)}, None when off; NaN
+    # before a resume point (telemetry is not checkpointed)
+    telemetry: Optional[dict] = None
 
     @property
     def best_loss(self) -> float:
@@ -263,6 +292,7 @@ class _Plan:
     fault_steps: dict = field(default_factory=dict)  # cell -> (step, fp,
     #                                                   flat layout)
     krum: bool = False
+    memory: list = field(default_factory=list)     # memory cells
 
 
 def _host(x, dtype, device) -> torch.Tensor:
@@ -277,13 +307,14 @@ class ScanEngine:
     """Builds cells and runs one cell or a batch of them, every cell's
     state on ``device`` (None means CUDA, and raises without one; pass
     ``device="cpu"`` for the CPU).  ``use_masks`` runs every cell on
-    host-precomputed availability masks instead of a device process."""
+    host-precomputed availability masks instead of a device process.
+    ``tracer`` (``fed/telemetry.Tracer``) records host spans and ``sink``
+    (``obs.JSONLMetricsSink``) receives per-round rows as each segment's
+    trajectory lands on the host; both default to off."""
 
     def __init__(self, ds: FedDataset, model, cfg: ScanConfig, *,
                  use_masks: bool = False, device=None, tracer=None,
                  sink=None):
-        if tracer is not None or sink is not None:
-            raise NotImplementedError(f"tracer / sink: {_ITEM11}")
         self.ds, self.model, self.cfg = ds, model, cfg
         self.n = int(ds.n_clients)
         self.use_masks = use_masks
@@ -316,8 +347,27 @@ class ScanEngine:
             self._probe = torch.as_tensor(
                 probe.reshape(cfg.probe_size, *ds.x_val.shape[1:]),
                 dtype=torch.float32, device=dev)
-        self._plan_cache = None
+        # per-batch round plans: a bounded LRU (fed/runtime.ProgramCache)
+        self._programs = ProgramCache(maxsize=cfg.program_cache_size)
+        self.tracer = tracer if tracer is not None else NULL_TRACER
+        self.sink = sink
+        self._tel_parts: list = []    # [(t0, k, telemetry_host)] per run
+        self._writer_stats: Optional[dict] = None
         self.params = None
+        self.final_counts = None
+
+    def runtime_stats(self) -> dict:
+        """The shared telemetry snapshot: the plan cache's counters flat at
+        the top level (hits, misses, evictions, compiles, compile_ms,
+        size), the last run's checkpoint-writer counters and the tracer's
+        per-span aggregates."""
+        return runtime_snapshot(programs=self._programs,
+                                writer=self._writer_stats,
+                                tracer=self.tracer)
+
+    def attach_sink(self, sink):
+        """Install (or clear, with None) the streaming metrics sink."""
+        self.sink = sink
 
     # ------------------------------------------------------------- cells
     def cell(self, *, seed: int = 0, mode: Optional[AvailabilityMode] = None,
@@ -473,9 +523,11 @@ class ScanEngine:
 
     # ------------------------------------------------------------ the plan
     def _plan(self, cells: list[dict]) -> _Plan:
-        key = tuple(id(c) for c in cells)
-        if self._plan_cache is not None and self._plan_cache[0] == key:
-            return self._plan_cache[1]
+        # a plan holds its cells, so their ids stay unique while it lives
+        return self._programs.get(tuple(id(c) for c in cells),
+                                  lambda: self._build_plan(cells))
+
+    def _build_plan(self, cells: list[dict]) -> _Plan:
         cfg, dev, n, m = self.cfg, self.device, self.n, self.cfg.m
         plan = _Plan(cells=list(cells))
         if self.use_masks:
@@ -501,6 +553,8 @@ class ScanEngine:
                     n, m, c["params0"], family=afam,
                     data_sizes=self.ds.sizes)
                 plan.krum |= afam == "krum"
+                if afam == "memory":
+                    plan.memory.append(i)
             ffam = c["fault_process"].family
             if ffam != "none":
                 plan.fault_steps[i] = (make_fault_step(ffam),
@@ -508,16 +562,17 @@ class ScanEngine:
                                        _flat_template(c["params0"]))
         plan.fedavg_index = torch.as_tensor(plan.fedavg, dtype=torch.int64,
                                             device=dev)
-        self._plan_cache = (key, plan)
         return plan
 
     # --------------------------------------------------------------- carry
-    def init_carry(self, cells: list[dict]) -> dict:
-        """The state of every cell before round 0: the stacked (B, ...)
-        global params, per-cell aggregator and fault state, the (B, N)
-        counts, each cell's H (and dynamic-3DG embeddings) and each
-        availability family group's stacked process state.  On the device;
-        ``run_segment`` advances it in place."""
+    def init_carry(self, cells: list[dict]) -> CarryHandle:
+        """The state of every cell before round 0, on the device, in a
+        ``CarryHandle``: the stacked (B, ...) global params, per-cell
+        aggregator and fault state (int-keyed by cell), the (B, N) counts,
+        each cell's H and dynamic-3DG embeddings (None where a cell has
+        none) and each availability family group's stacked process state.
+        ``run_segment`` consumes the handle and advances the carry in
+        place."""
         plan = self._plan(cells)
         n = self.n
         carry = {"params": {k: torch.stack([c["params0"][k] for c in cells])
@@ -549,7 +604,7 @@ class ScanEngine:
         for fam, idx, _ in plan.groups:
             carry["proc"][fam] = avd.stack_state(
                 [cells[i]["proc_state"] for i in idx])
-        return carry
+        return CarryHandle(carry)
 
     # --------------------------------------------------------------- draws
     def _sampler_draw(self, cell, t):
@@ -643,6 +698,7 @@ class ScanEngine:
                     for i in range(b)]
 
         # 3b. the fault seam, per fault cell, on the flat (M, P) panel
+        fault_mag = {}
         for i, (step, fp, (ravel, unravel, p)) in plan.fault_steps.items():
             c = cells[i]
             fam = c["fault_process"].family
@@ -651,11 +707,15 @@ class ScanEngine:
                 if fam == "gaussian_noise" else None
             innov = self._normal(draws, "innovations", t, (n,), (fseed, t)) \
                 if fam == "straggler_stale" else None
+            cleanf = ravel(per_cell[i])
             updf, carry["fault"][i] = step(
-                fp, carry["fault"][i], ravel(per_cell[i]),
+                fp, carry["fault"][i], cleanf,
                 ravel({k: v[i] for k, v in params.items()}), avail[i], t,
                 sel[i], valid[i], noise=noise, innovations=innov)
             per_cell[i] = unravel(updf)
+            if cfg.telemetry:
+                # measured here, where the clean panel is still in hand
+                fault_mag[i] = fault_corruption_norm(updf, cleanf, valid[i])
 
         # 4. server update: Eq. 18 weights, pads weigh zero
         w = self._sizes_f[sel] * valid.to(torch.float32)
@@ -686,6 +746,7 @@ class ScanEngine:
                               for _ in range(b)]
                 chosen[i] = state.pop("chosen")
             carry["agg"][i] = {k: v for k, v in state.items() if k != "prev"}
+        params_prev = params
         if plan.fedavg and len(plan.fedavg) == b:
             params = new
         else:
@@ -724,26 +785,154 @@ class ScanEngine:
         if plan.krum:
             out["chosen"] = torch.stack(chosen) if chosen is not None else \
                 torch.zeros(b, m, dtype=torch.bool, device=dev)
+        if cfg.telemetry:
+            out["telemetry"] = self._telemetry(
+                plan, carry, t, avail, sel, valid, per_cell, params_prev,
+                params, w, fault_mag)
         return out
 
-    def run_segment(self, cells: list[dict], carry: dict, t0: int,
+    def _telemetry(self, plan, carry, t, avail, sel, valid, per_cell,
+                   params_prev, params, w, fault_mag) -> dict:
+        """The round's (B, ...) health metrics, as the reference's per-cell
+        channel gives them to a batch: a cell without H reads dispersion
+        0, a batch with a memory cell has the staleness histogram (tau 0
+        for its other cells) and one with a fault cell the corruption
+        magnitude (0 for its benign cells)."""
+        b, n, dev = len(plan.cells), self.n, self.device
+        zero_h = torch.zeros(n, n, dtype=torch.float32, device=dev) \
+            if any(h is None for h in carry["h"]) else None
+        hs = torch.stack([zero_h if h is None else h for h in carry["h"]])
+        tau = None
+        if plan.memory:
+            zeros = torch.zeros(n, dtype=torch.float32, device=dev)
+            tau = torch.stack([carry["agg"][i]["tau"] if i in plan.memory
+                               else zeros for i in range(b)])
+        mag = None
+        if plan.fault_steps:
+            zero = torch.zeros((), dtype=torch.float32, device=dev)
+            mag = torch.stack([fault_mag.get(i, zero) for i in range(b)])
+        local = {k: torch.stack([r[k] for r in per_cell]) for k in params}
+        return round_telemetry(
+            avail=avail, valid=valid, sel=sel, local=local,
+            params_prev=params_prev, params_new=params, weights=w,
+            h=hs, clip_thresh=self.cfg.telemetry_clip_thresh,
+            tau=tau, t=t, fault_mag=mag)
+
+    def run_segment(self, cells: list[dict], carry: CarryHandle, t0: int,
                     seg_len: int):
-        """Rounds ``t0 … t0 + seg_len − 1`` from ``carry``, which it
-        advances in place (copy it first to keep the start).  Returns
-        ``(carry, traj)``: ``traj`` holds (B, seg_len, ...) device tensors
-        (nothing is read back to the host here).  Every per-round draw is
+        """Rounds ``t0 … t0 + seg_len − 1`` from the carry handle.  With
+        ``cfg.donate_carry`` the handle is CONSUMED (the segment advances
+        its carry in place, and a later read of it raises); without, the
+        segment runs on a clone and the handle stays alive.  Returns
+        ``(new_handle, traj)``: ``traj`` holds (B, seg_len, ...) device
+        tensors, nothing read back to the host.  Every per-round draw is
         keyed by the round index alone, so a ``(k) + (T − k)`` split
         replays the uninterrupted run bit for bit."""
-        plan = self._plan(cells)
-        b = len(cells)
-        nan = torch.full((b,), float("nan"), device=self.device)
-        rounds = [self._round(plan, carry, t) for t in range(t0, t0 + seg_len)]
-        traj = {}
-        for k in ("val_loss", "val_acc", "count_var", "gini", "sel", "valid",
-                  "chosen"):
-            if k in rounds[0] or k in ("val_loss", "val_acc"):
-                traj[k] = torch.stack([r.get(k, nan) for r in rounds], 1)
-        return carry, traj
+        with self.tracer.span("program_get", seg_len=seg_len):
+            plan = self._plan(cells)
+        with self.tracer.span("dispatch_segment", t0=t0, rounds=seg_len):
+            tree = carry.consume() if self.cfg.donate_carry \
+                else clone_tree(carry.tree)
+            b = len(cells)
+            nan = torch.full((b,), float("nan"), device=self.device)
+            rounds = [self._round(plan, tree, t)
+                      for t in range(t0, t0 + seg_len)]
+            traj = {}
+            for k in ("val_loss", "val_acc", "count_var", "gini", "sel",
+                      "valid", "chosen"):
+                if k in rounds[0] or k in ("val_loss", "val_acc"):
+                    traj[k] = torch.stack([r.get(k, nan) for r in rounds], 1)
+            if "telemetry" in rounds[0]:
+                traj["telemetry"] = {
+                    k: torch.stack([r["telemetry"][k] for r in rounds], 1)
+                    for k in rounds[0]["telemetry"]}
+        return CarryHandle(tree), traj
+
+    # ----------------------------------------------------- host plumbing
+    def _fetch_segment(self, t0: int, k: int, snap, b: int) -> dict:
+        """A segment's trajectory on the host (``snap`` from
+        ``host_snapshot``, started when the segment was dispatched), as
+        numpy with ``sel`` int32.  The telemetry subtree is split off —
+        kept for the histories and streamed to the sink — so what flows
+        into checkpoints and stream consumers is the telemetry-off
+        trajectory."""
+        with self.tracer.span("device_get", t0=t0, rounds=k):
+            traj_h = _numpy_tree(snap.wait())
+        traj_h["sel"] = traj_h["sel"].astype(np.int32)
+        tel_h = traj_h.pop("telemetry", None)
+        if tel_h is not None:
+            self._tel_parts.append((t0, k, tel_h))
+        self._emit_segment_metrics(b, t0, k, traj_h, tel_h)
+        return traj_h
+
+    def _emit_segment_metrics(self, b: int, t0: int, k: int, traj_h: dict,
+                              tel_h: Optional[dict]):
+        """One fetched segment's per-round rows to the metrics sink, as the
+        segment lands on the host."""
+        if self.sink is None:
+            return
+        with self.tracer.span("metrics_emit", t0=t0, rounds=k):
+            for j in range(b):
+                for r in range(k):
+                    row = {"cell": j, "t": t0 + r,
+                           "n_valid": int(np.sum(traj_h["valid"][j][r]))}
+                    for f in ("val_loss", "val_acc", "count_var", "gini"):
+                        row[f] = float(traj_h[f][j][r])
+                    if tel_h is not None:
+                        row["metrics"] = {
+                            kk: np.asarray(v[j][r])
+                            for kk, v in tel_h.items()}
+                    self.sink.emit("round", row)
+            self.sink.emit("segment",
+                           {"t0": t0, "rounds": k, "cells": b,
+                            "programs": self._programs.stats()})
+
+    def _assemble_telemetry(self) -> Optional[dict]:
+        """The stashed per-segment telemetry as (B, T, ...) arrays; a
+        resumed run's prefix (telemetry is not checkpointed) is NaN, so
+        round indices stay aligned."""
+        if not self._tel_parts:
+            return None
+        parts, t_next = [], 0
+        for t0, k, tel in self._tel_parts:
+            if t0 > t_next:
+                gap = t0 - t_next
+                parts.append({kk: np.full(x.shape[:1] + (gap,) + x.shape[2:],
+                                          np.nan, x.dtype)
+                              for kk, x in tel.items()})
+            parts.append(tel)
+            t_next = t0 + k
+        return {kk: np.concatenate([p[kk] for p in parts], axis=1)
+                for kk in parts[0]}
+
+    @staticmethod
+    def _ckpt_carry(tree: dict) -> dict:
+        """The carry as a checkpoint tree: a cell without H or embeddings
+        (None) is an empty dict, which the flat npz format keeps."""
+        return {**tree, "h": [{} if v is None else v for v in tree["h"]],
+                "emb": [{} if v is None else v for v in tree["emb"]]}
+
+    def _carry_from_ckpt(self, node: dict, b: int) -> dict:
+        """A loaded checkpoint carry back on the engine's device, leaves
+        with their saved dtypes, int cell keys and None restored."""
+        dev = self.device
+
+        def leaf(x):
+            return torch.as_tensor(x).to(dev)
+
+        def tree(x):
+            return {k: tree(v) for k, v in x.items()} \
+                if isinstance(x, dict) else leaf(x)
+
+        def cells_list(x):
+            vals = [x[str(i)] for i in range(b)]
+            return [None if isinstance(v, dict) else leaf(v) for v in vals]
+
+        return {"params": tree(node["params"]), "counts": leaf(node["counts"]),
+                "agg": {int(i): tree(v) for i, v in node["agg"].items()},
+                "fault": {int(i): tree(v) for i, v in node["fault"].items()},
+                "h": cells_list(node["h"]), "emb": cells_list(node["emb"]),
+                "proc": tree(node["proc"])}
 
     # ----------------------------------------------------------------- runs
     def run(self, cell: dict) -> ScanHistory:
@@ -752,28 +941,142 @@ class ScanEngine:
         self.params = {k: v[0] for k, v in self.params.items()}
         return hist
 
+    def run_batch_stream(self, cells: list[dict], *,
+                         ckpt_path: Optional[str] = None,
+                         ckpt_every: int = 0, resume: bool = False):
+        """Generator over the segmented run: yields ``(t_start, seg_len,
+        traj_host)`` per segment IN ORDER, ``traj_host`` a dict of (B,
+        seg_len, ...) numpy arrays (``sel`` int32).  With ``ckpt_path``
+        the whole carry, the trajectory so far and the next round are saved
+        after every segment but the last; ``resume=True`` starts from that
+        file when it exists (first yielding ``(0, t, traj_so_far)``), else
+        from round 0.
+
+        ``cfg.async_pipeline=False``: each segment is fetched, and
+        checkpointed, inline.  Otherwise, with a checkpoint path, the
+        carry's host copy is started (pinned, non-blocking, in stream
+        order) before the next segment updates it in place, and the npz
+        write runs on a background ``AsyncCheckpointWriter``; without one,
+        segment k's trajectory is fetched after segment k + 1 is
+        dispatched.  The rounds run are the same either way, so the
+        results are bitwise equal.  Afterwards ``self.params`` (on the
+        device) and ``self.final_counts`` (numpy) hold the final state."""
+        cfg, b, rounds = self.cfg, len(cells), self.cfg.rounds
+        every = int(ckpt_every) if ckpt_every else rounds
+        self._tel_parts = []
+        self._writer_stats = None
+        if self.sink is not None:
+            self.sink.emit("run_start",
+                           {"cells": b, "rounds": rounds, "mesh": cfg.mesh,
+                            "telemetry": bool(cfg.telemetry),
+                            "ckpt_every": int(ckpt_every)})
+        t0, parts, handle = 0, [], None
+        if resume and ckpt_path is not None and os.path.exists(
+                ckpt_path if ckpt_path.endswith(".npz")
+                else ckpt_path + ".npz"):
+            with self.tracer.span("checkpoint_load"):
+                state = load_checkpoint(ckpt_path)
+                t0 = int(state["round"])
+                handle = CarryHandle(self._carry_from_ckpt(state["carry"],
+                                                           b))
+            parts.append(state["traj"])
+            yield 0, t0, state["traj"]
+        if handle is None:
+            with self.tracer.span("init_carry", cells=b):
+                handle = self.init_carry(cells)
+        writer = AsyncCheckpointWriter() \
+            if (ckpt_path is not None and cfg.async_pipeline) else None
+        pending = None                      # (t_start, seg_len, snapshot)
+
+        def meta_of(t_next):
+            return {"round": t_next, "rounds": rounds, "b": b,
+                    "cells": b, "mesh": cfg.mesh}
+
+        def ckpt_tree(carry_h, sn, t_next):
+            return {"carry": carry_h, "round": np.int64(t_next),
+                    "traj": _concat(sn)}
+        try:
+            while t0 < rounds:
+                k = min(every, rounds - t0)
+                handle, traj_dev = self.run_segment(cells, handle, t0, k)
+                # the trajectory's copy is queued right behind the segment
+                snap = host_snapshot(traj_dev)
+                t1 = t0 + k
+                need_ckpt = ckpt_path is not None and t1 < rounds
+                if not cfg.async_pipeline:
+                    traj_h = self._fetch_segment(t0, k, snap, b)
+                    parts.append(traj_h)
+                    if need_ckpt:
+                        with self.tracer.span("checkpoint_write", round=t1):
+                            save_checkpoint(
+                                ckpt_path, ckpt_tree(
+                                    self._ckpt_carry(handle.tree), parts, t1),
+                                metadata=meta_of(t1))
+                    yield t0, k, traj_h
+                elif need_ckpt:
+                    if pending is not None:
+                        ph = self._fetch_segment(*pending, b)
+                        parts.append(ph)
+                        yield pending[0], pending[1], ph
+                        pending = None
+                    # the carry's copy, queued before the next segment
+                    # overwrites it in place; the writer waits for it
+                    carry_snap = host_snapshot(self._ckpt_carry(handle.tree))
+                    traj_h = self._fetch_segment(t0, k, snap, b)
+                    parts.append(traj_h)
+                    snapshot = list(parts)
+
+                    def _write(cs=carry_snap, sn=snapshot, tn=t1):
+                        with self.tracer.span("checkpoint_write", round=tn):
+                            save_checkpoint(ckpt_path,
+                                            ckpt_tree(cs.wait(), sn, tn),
+                                            metadata=meta_of(tn))
+                    writer.submit(_write)
+                    yield t0, k, traj_h
+                else:
+                    # free-running: fetch the PREVIOUS segment now that
+                    # this one is dispatched
+                    if pending is not None:
+                        ph = self._fetch_segment(*pending, b)
+                        parts.append(ph)
+                        yield pending[0], pending[1], ph
+                    pending = (t0, k, snap)
+                t0 = t1
+            if pending is not None:
+                ph = self._fetch_segment(*pending, b)
+                parts.append(ph)
+                yield pending[0], pending[1], ph
+            final = handle.tree
+            self.params = final["params"]
+            self.final_counts = final["counts"].cpu().numpy()
+        finally:
+            if writer is not None:
+                try:
+                    writer.close()
+                finally:
+                    self._writer_stats = writer.stats()
+            if self.sink is not None:
+                self.sink.emit("run_end", {"runtime": self.runtime_stats()})
+
     def run_batch(self, cells: list[dict], *,
                   ckpt_path: Optional[str] = None, ckpt_every: int = 0,
                   resume: bool = False) -> list[ScanHistory]:
-        """B cells, round by round side by side.  ``ckpt_every`` without a
-        checkpoint path runs the rounds in segments of that length (the
-        same results); checkpoints are item 11's."""
-        if ckpt_path is not None or resume:
-            raise NotImplementedError(f"run_batch checkpoints: {_ITEM11}")
-        rounds = self.cfg.rounds
-        every = int(ckpt_every) if ckpt_every else rounds
-        carry = self.init_carry(cells)
-        parts, t0 = [], 0
-        while t0 < rounds:
-            k = min(every, rounds - t0)
-            carry, traj = self.run_segment(cells, carry, t0, k)
-            # the segment's trajectory, read once
-            parts.append({key: v.cpu().numpy() for key, v in traj.items()})
-            t0 += k
-        traj = {key: np.concatenate([p[key] for p in parts], 1)
-                for key in parts[0]}
-        counts = carry["counts"].cpu().numpy()
-        self.params = carry["params"]
+        """B cells, round by round side by side, through
+        ``run_batch_stream``.  ``ckpt_every`` runs the rounds in segments
+        of that length (the same results, with or without a checkpoint
+        path); ``ckpt_path`` saves after each segment but the last and
+        ``resume=True`` picks up from it if it exists (else starts fresh):
+        the tail replays the unbroken run bit for bit."""
+        parts = [traj for _, _, traj in self.run_batch_stream(
+            cells, ckpt_path=ckpt_path, ckpt_every=ckpt_every,
+            resume=resume)]
+        return self._histories(cells, _concat(parts),
+                              self._assemble_telemetry())
+
+    def _histories(self, cells: list[dict], traj: dict,
+                  telemetry: Optional[dict] = None) -> list[ScanHistory]:
+        """Per-cell ``ScanHistory`` from a whole (B, T, ...) host
+        trajectory and the last run's final counts."""
         out = []
         for i, c in enumerate(cells):
             krum = c["aggregator_process"].family == "krum"
@@ -781,22 +1084,29 @@ class ScanEngine:
                 val_loss=traj["val_loss"][i], val_acc=traj["val_acc"][i],
                 count_var=traj["count_var"][i], gini=traj["gini"][i],
                 sel=traj["sel"][i].astype(np.int32), valid=traj["valid"][i],
-                counts=counts[i],
-                chosen=traj["chosen"][i] if krum else None))
+                counts=self.final_counts[i],
+                chosen=traj["chosen"][i] if krum else None,
+                telemetry=None if telemetry is None else
+                {k: v[i] for k, v in telemetry.items()}))
         return out
 
-    # -------------------------------------------------- not in this slice
-    def run_batch_stream(self, *a, **kw):
-        raise NotImplementedError(f"run_batch_stream: {_ITEM11}")
-
+    # -------------------------------------------------- not in this port
     def lower_batch(self, *a, **kw):
-        raise NotImplementedError(f"lower_batch: {_ITEM11}")
+        raise NotImplementedError(f"lower_batch {_NO_TORCH_MEANING}")
 
     def carry_shapes(self, *a, **kw):
-        raise NotImplementedError(f"carry_shapes: {_ITEM11}")
+        raise NotImplementedError(f"carry_shapes serves the compile-only "
+                                  f"mesh dry-run: {_ITEM12}")
 
-    def runtime_stats(self):
-        raise NotImplementedError(f"runtime_stats: {_ITEM11}")
 
-    def attach_sink(self, sink):
-        raise NotImplementedError(f"attach_sink: {_ITEM11}")
+def _numpy_tree(x):
+    """A host tree's tensors as numpy arrays."""
+    if isinstance(x, torch.Tensor):
+        return x.numpy()
+    return {k: _numpy_tree(v) for k, v in x.items()}
+
+
+def _concat(parts: list[dict]) -> dict:
+    """Per-segment (B, k, ...) trajectories joined along the round axis."""
+    return {k: np.concatenate([p[k] for p in parts], axis=1)
+            for k in parts[0]}

@@ -33,6 +33,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
+# the libraries built or loaded in this process, and the ms it took
+_compiles = {"compiles": 0, "compile_ms": 0.0}
 
 
 def nvcc_path() -> str:
@@ -99,11 +101,21 @@ def library(name: str) -> ctypes.CDLL:
     """The loaded library of ``csrc/<name>.cu``, built on first use."""
     with _lock:
         if name not in _libs:
+            t0 = time.perf_counter()
             path = _target(name)
             if not path.exists():
                 build((name,))
             _libs[name] = ctypes.CDLL(str(path))
+            _compiles["compiles"] += 1
+            _compiles["compile_ms"] += (time.perf_counter() - t0) * 1e3
         return _libs[name]
+
+
+def compile_stats() -> dict:
+    """``compiles``: the kernel libraries this process built or loaded;
+    ``compile_ms``: the milliseconds their builds and loads took."""
+    with _lock:
+        return dict(_compiles)
 
 
 class Kernel:

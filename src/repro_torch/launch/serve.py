@@ -1,5 +1,7 @@
-"""Serve an LM: prefill a batch of prompts, then decode tokens (the port of
-``repro.launch.serve``'s LM branch).
+"""Serving entry points (the port of ``repro.launch.serve``): the LM decode
+path and the federated-simulation service.
+
+LM path — prefill a batch of prompts, then decode tokens:
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-135m
     PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-135m \\
@@ -12,20 +14,244 @@ gen slots up front (the reference pads it after prefill; the function is
 the same).  Greedy decoding takes the first maximum, as ``jnp.argmax``
 does; temperature sampling draws from a ``torch.Generator`` and matches the
 reference only in distribution.  ``--device`` defaults to CUDA and raises
-without it.  ``--fedsim`` (the federated-simulation service over the batched
-engine) raises ``NotImplementedError`` until that engine is ported.
+without it.
+
+Federated-simulation path — a ``SimService`` over ONE ``ScanEngine``:
+sweep-cell requests (mixed samplers / availability processes /
+aggregators) run as one batch, and per-round metrics stream back segment
+by segment through the engine's ``run_batch_stream``:
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --fedsim --cells 4 \\
+        --rounds 24 --segment 8 [--device cpu] [--telemetry]
+
+``--compile-cache-dir`` has no torch meaning (the kernel libraries persist
+under ``build/``) and raises away from its default.
 """
 from __future__ import annotations
 
 import argparse
 import time
+from dataclasses import dataclass
 
 import numpy as np
 import torch
 
 from repro_torch import resolve_device
 from repro_torch.configs.registry import get_config
+from repro_torch.launch.obs_cli import (add_observability_args,
+                                        finish_observability,
+                                        make_observability)
 from repro_torch.models import lm
+
+
+# ------------------------------------------------- simulation-as-a-service
+@dataclass
+class SegmentUpdate:
+    """One streamed per-request slice of a segment."""
+    request: int               # submit() ticket
+    t0: int                    # first round of the segment
+    rounds: int                # segment length
+    val_loss: np.ndarray       # (rounds,) — NaN off the eval cadence
+    val_acc: np.ndarray        # (rounds,)
+    sel: np.ndarray            # (rounds, M) sampled sets (padded)
+    valid: np.ndarray          # (rounds, M)
+    metrics: dict | None = None   # per-round telemetry slice
+    #                               (ScanConfig.telemetry only)
+
+
+class SimService:
+    """Queue sweep-cell requests, run them as ONE batch, stream
+    per-segment metrics back as they land.
+
+    The service owns one ``ScanEngine``, whose plan cache keeps the
+    batches' plans across ``drain()`` calls.  ``submit`` takes whatever
+    ``ScanEngine.cell`` does.  Per-request latencies land in
+    ``self.timings`` — ``first_segment_s`` (submit -> first streamed
+    segment) and ``complete_s`` (submit -> reassembled history) — and on
+    the returned ``ScanHistory`` as ``.request_timing``; ``metrics_text()``
+    renders the service counters and the engine's runtime snapshot as a
+    Prometheus text exposition."""
+
+    def __init__(self, engine):
+        self.engine = engine
+        self._pending: list[tuple[int, dict]] = []
+        self._next = 0
+        self.histories: dict[int, object] = {}   # request -> ScanHistory
+        self.timings: dict[int, dict] = {}       # request -> latency dict
+        self._counters = {"requests_total": 0, "drains_total": 0,
+                          "segments_streamed_total": 0,
+                          "updates_streamed_total": 0,
+                          "rounds_streamed_total": 0,
+                          "drain_busy_seconds_total": 0.0}
+
+    def submit(self, **cell_kwargs) -> int:
+        """Queue one sweep-cell request; returns its ticket."""
+        rid = self._next
+        self._next += 1
+        self._pending.append((rid, self.engine.cell(**cell_kwargs)))
+        self.timings[rid] = {"submit_time": time.time()}
+        self._counters["requests_total"] += 1
+        return rid
+
+    def _segment_metrics(self, t0: int, j: int) -> dict | None:
+        """This segment's per-request telemetry slice, if the engine just
+        kept one (telemetry-off runs stream ``None``)."""
+        parts = getattr(self.engine, "_tel_parts", None)
+        if parts and parts[-1][0] == t0:
+            return {k: v[j] for k, v in parts[-1][2].items()}
+        return None
+
+    def drain(self, *, segment: int = 0, ckpt_path=None, resume=False):
+        """Run every pending request as one batch, yielding a
+        ``SegmentUpdate`` per (request, segment) as soon as that segment's
+        trajectory lands on the host.  ``segment=0`` runs the whole horizon
+        as one segment.  The final ``ScanHistory`` objects land in
+        ``self.histories``."""
+        if not self._pending:
+            return
+        ids = [rid for rid, _ in self._pending]
+        cells = [c for _, c in self._pending]
+        self._pending = []
+        t_start = time.time()
+        self._counters["drains_total"] += 1
+        parts = []
+        for t0, k, traj in self.engine.run_batch_stream(
+                cells, ckpt_every=segment, ckpt_path=ckpt_path,
+                resume=resume):
+            parts.append(traj)
+            self._counters["segments_streamed_total"] += 1
+            self._counters["rounds_streamed_total"] += k * len(ids)
+            now = time.time()
+            for j, rid in enumerate(ids):
+                self.timings[rid].setdefault(
+                    "first_segment_s",
+                    now - self.timings[rid]["submit_time"])
+                self._counters["updates_streamed_total"] += 1
+                yield SegmentUpdate(
+                    request=rid, t0=t0, rounds=k,
+                    val_loss=traj["val_loss"][j], val_acc=traj["val_acc"][j],
+                    sel=traj["sel"][j], valid=traj["valid"][j],
+                    metrics=self._segment_metrics(t0, j))
+        full = {key: np.concatenate([p[key] for p in parts], axis=1)
+                for key in parts[0]}
+        hists = self.engine._histories(cells, full,
+                                       self.engine._assemble_telemetry())
+        done = time.time()
+        self._counters["drain_busy_seconds_total"] += done - t_start
+        for rid, hist in zip(ids, hists):
+            self.timings[rid]["complete_s"] = \
+                done - self.timings[rid]["submit_time"]
+            hist.request_timing = dict(self.timings[rid])
+            self.histories[rid] = hist
+            if self.engine.sink is not None:
+                self.engine.sink.emit(
+                    "request", {"request": rid, **self.timings[rid]})
+
+    def stats(self) -> dict:
+        """Service counters merged over the engine's runtime snapshot
+        (plan-cache / checkpoint-writer / span counters)."""
+        return {**self.engine.runtime_stats(), "service": dict(self._counters)}
+
+    def metrics_text(self) -> str:
+        """Prometheus text exposition (format 0.0.4) of the service
+        counters, per-request latencies and the engine's runtime
+        counters."""
+        from repro_torch.obs import render_prometheus
+        eng = self.engine.runtime_stats()
+        wall = max(self._counters["drain_busy_seconds_total"], 1e-9)
+        fams = {
+            "requests_total": {
+                "type": "counter", "help": "Sweep-cell requests submitted.",
+                "samples": [({}, self._counters["requests_total"])]},
+            "segments_streamed_total": {
+                "type": "counter", "help": "Scan segments streamed.",
+                "samples": [({},
+                             self._counters["segments_streamed_total"])]},
+            "rounds_streamed_total": {
+                "type": "counter",
+                "help": "Cell-rounds streamed to clients.",
+                "samples": [({}, self._counters["rounds_streamed_total"])]},
+            "rounds_per_second": {
+                "type": "gauge",
+                "help": "Cell-rounds per busy drain second.",
+                "samples": [({}, self._counters["rounds_streamed_total"]
+                             / wall)]},
+            "program_cache_hit_rate": {
+                "type": "gauge",
+                "help": "Plan cache hits / (hits + misses).",
+                "samples": [({}, eng["hits"] / max(
+                    eng["hits"] + eng["misses"], 1))]},
+            "compile_ms_total": {
+                "type": "counter",
+                "help": "Kernel-library build and load wall-clock (ms).",
+                "samples": [({}, eng["compile_ms"])]},
+            "request_queue_seconds": {
+                "type": "gauge",
+                "help": "submit -> first streamed segment latency.",
+                "samples": [({"request": str(r)}, tm["first_segment_s"])
+                            for r, tm in sorted(self.timings.items())
+                            if "first_segment_s" in tm]},
+            "request_complete_seconds": {
+                "type": "gauge",
+                "help": "submit -> reassembled history latency.",
+                "samples": [({"request": str(r)}, tm["complete_s"])
+                            for r, tm in sorted(self.timings.items())
+                            if "complete_s" in tm]},
+        }
+        return render_prometheus(fams)
+
+
+def _fedsim_main(args):
+    from repro_torch.core.availability_device import make_process
+    from repro_torch.data.synthetic import make_synthetic
+    from repro_torch.fed.models import logistic_regression
+    from repro_torch.fed.scan_engine import ScanConfig, ScanEngine
+
+    ds = make_synthetic(n_clients=args.n_clients, alpha=0.5, beta=0.5,
+                        seed=args.seed)
+    cfg = ScanConfig(rounds=args.rounds, m=4, local_steps=2, batch_size=8,
+                     eval_every=1, sampler="uniform",
+                     compile_cache_dir=args.compile_cache_dir,
+                     telemetry=bool(args.telemetry))
+    tracer, sink = make_observability(args)
+    try:
+        svc = SimService(ScanEngine(ds, logistic_regression(), cfg,
+                                    device=args.device, tracer=tracer,
+                                    sink=sink))
+        scenarios = ("GE", "CLUSTER", "DRIFT", "DEADLINE")
+        tickets = [svc.submit(
+            seed=i, avail_seed=100 + i,
+            process=make_process(scenarios[i % 4], n_clients=ds.n_clients,
+                                 data_sizes=ds.sizes,
+                                 label_sets=ds.label_sets(),
+                                 num_labels=ds.num_classes,
+                                 rounds=args.rounds, seed=7 + i))
+            for i in range(args.cells)]
+        t0 = time.time()
+        n_updates = 0
+        for upd in svc.drain(segment=args.segment):
+            n_updates += 1
+            loss = upd.val_loss[np.isfinite(upd.val_loss)]
+            print(f"req {upd.request} rounds "
+                  f"[{upd.t0}, {upd.t0 + upd.rounds}) "
+                  f"loss {loss[-1]:.4f}" if loss.size else
+                  f"req {upd.request} rounds "
+                  f"[{upd.t0}, {upd.t0 + upd.rounds})")
+        wall = time.time() - t0
+        st = svc.stats()
+        print(f"fedsim: {len(tickets)} cells x {args.rounds} rounds, "
+              f"{n_updates} streamed updates in {wall:.2f}s "
+              f"({len(tickets) * args.rounds / max(wall, 1e-9):.1f} "
+              f"cell-rounds/s)")
+        print(f"plans: {st['misses']} built, {st['hits']} cache hits; "
+              f"kernel libraries: {st['compiles']} built or loaded "
+              f"({st['compile_ms']:.0f} ms)")
+        print(svc.metrics_text(), end="")
+    finally:
+        trace = finish_observability(tracer, sink, args)
+        if trace:
+            print(f"trace: {trace}")
+    return [svc.histories[t] for t in tickets]
 
 
 def _sync(dev: torch.device) -> None:
@@ -77,14 +303,23 @@ def main(argv=None) -> np.ndarray:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default=None,
                     help="torch device (default: CUDA, raising without it)")
+    # federated-simulation service mode (SimService over one ScanEngine)
     ap.add_argument("--fedsim", action="store_true",
-                    help="serve federated sweep cells instead of LM decode "
-                         "(not ported yet)")
+                    help="serve federated sweep cells instead of LM decode")
+    ap.add_argument("--cells", type=int, default=4)
+    ap.add_argument("--rounds", type=int, default=24)
+    ap.add_argument("--segment", type=int, default=8,
+                    help="streaming segment length (0 = one segment)")
+    ap.add_argument("--n-clients", type=int, default=16)
+    ap.add_argument("--compile-cache-dir", default=None,
+                    help="no torch meaning (the kernel libraries persist "
+                         "under build/): raises unless left unset")
+    ap.add_argument("--telemetry", action="store_true",
+                    help="per-round health metrics (ScanConfig.telemetry)")
+    add_observability_args(ap)
     args = ap.parse_args(argv)
     if args.fedsim:
-        raise NotImplementedError(
-            "--fedsim serves sweep cells through the batched ScanEngine, "
-            "which the port does not have yet")
+        return _fedsim_main(args)
     if args.gen < 1:
         raise ValueError(f"--gen must be >= 1, got {args.gen}")
 

@@ -105,7 +105,10 @@ def test_guard_covers_every_port_module():
                  "repro_torch.models.ffn", "repro_torch.models.lm",
                  "repro_torch.launch.serve",
                  "repro_torch.core.availability_device",
-                 "repro_torch.fed.scan_engine"):
+                 "repro_torch.fed.scan_engine",
+                 "repro_torch.checkpoint.ckpt", "repro_torch.fed.runtime",
+                 "repro_torch.fed.telemetry", "repro_torch.obs.sinks",
+                 "repro_torch.obs.prom", "repro_torch.launch.obs_cli"):
         assert need in mods, need
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"

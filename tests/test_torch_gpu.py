@@ -1406,6 +1406,7 @@ def test_scan_dynamic_3dg_launches_on_card(cuda):
     per cell.  Each round replayed on the CPU from the card's state selects
     the card's sets, and the rebuilt H is the card's within rtol 1e-4."""
     from repro_torch.core import sampler_device as tsamp
+    from repro_torch.fed.runtime import CarryHandle
     from repro_torch.fed.scan_engine import (ScanConfig, ScanEngine,
                                              precompute_masks)
     ds = make_synthetic(n_clients=30, alpha=0.5, beta=0.5, seed=0)
@@ -1437,10 +1438,133 @@ def test_scan_dynamic_3dg_launches_on_card(cuda):
         return x
     carry = engines["card"].init_carry(cells["card"])
     for t in range(rounds):
-        start = to_cpu(carry)
+        start = CarryHandle(to_cpu(carry.tree))
         carry, tc = engines["card"].run_segment(cells["card"], carry, t, 1)
         nxt, tp = engines["cpu"].run_segment(cells["cpu"], start, t, 1)
         assert torch.equal(tc["sel"].cpu(), tp["sel"])
-        for hc, hp in zip(carry["h"], nxt["h"]):
+        for hc, hp in zip(carry.tree["h"], nxt.tree["h"]):
             np.testing.assert_allclose(hc.cpu().numpy(), hp.numpy(),
                                        rtol=1e-4, atol=1e-7)
+
+
+# ---------------------------------------- checkpoints, runtime, telemetry
+def _npz_arrays(path):
+    with np.load(path, allow_pickle=False) as z:
+        return {k: z[k] for k in z.files}
+
+
+def _scan_bitwise(a, b, msg):
+    for f in ("sel", "valid", "counts", "gini", "count_var", "val_loss",
+              "val_acc"):
+        assert np.array_equal(getattr(a, f), getattr(b, f),
+                              equal_nan=True), f"{msg}: {f}"
+    assert (a.chosen is None) == (b.chosen is None)
+    if a.chosen is not None:
+        assert np.array_equal(a.chosen, b.chosen), f"{msg}: chosen"
+
+
+@pytest.mark.parametrize("draws", ["host", "device"])
+def test_scan_resume_and_runtime_knobs_bitwise_on_card(cuda, tmp_path,
+                                                       draws):
+    """The 3-cell mixed batch (memory: memagg overwrites its panel in
+    place; Krum under sign-flip; FedGS) on the card, checkpointed every 3
+    of 6 rounds: a fresh engine's resume, ``donate_carry=False``,
+    ``async_pipeline=False`` and telemetry on are each bitwise the default
+    run, histories and checkpoint arrays alike, on host draws and on the
+    engine's own device draws; the resumed tail launches exactly what the
+    unbroken run's last segment does."""
+    from repro_torch.fed.scan_engine import ScanConfig, ScanEngine, oracle_h
+    ds = make_synthetic(n_clients=30, alpha=0.5, beta=0.5, seed=0)
+    h = oracle_h(ds.opt_params, device=cuda)
+
+    def run(name, resume=False, **kw):
+        cfg = ScanConfig(rounds=6, m=6, local_steps=5, batch_size=10,
+                         max_sweeps=16, **kw)
+        eng = ScanEngine(ds, logistic_regression(), cfg, device=cuda)
+        cells = _scan_cells(eng, ds, h, cuda)
+        if draws == "device":
+            cells = [eng.cell(seed=i, process=c["process"],
+                              avail_seed=50 + i, h=h,
+                              sampler_process=c["sampler_process"],
+                              aggregator_process=c["aggregator_process"],
+                              fault_process=c["fault_process"])
+                     for i, c in enumerate(cells)]
+        ck = str(tmp_path / name)
+        return eng.run_batch(cells, ckpt_path=ck, ckpt_every=3,
+                             resume=resume), ck
+    tops.reset_launches()
+    want, ck = run("default")
+    whole_launches = tops.launches()
+    want_ck = _npz_arrays(ck + ".npz")
+    assert int(want_ck["round"]) == 3
+    for name, kw in (("no_donate", {"donate_carry": False}),
+                     ("inline", {"async_pipeline": False}),
+                     ("telemetry", {"telemetry": True})):
+        got, ck2 = run(name, **kw)
+        for i, (a, b) in enumerate(zip(got, want)):
+            _scan_bitwise(a, b, f"{name} cell {i}")
+        got_ck = _npz_arrays(ck2 + ".npz")
+        assert sorted(got_ck) == sorted(want_ck)
+        for k in want_ck:
+            assert got_ck[k].dtype == want_ck[k].dtype and \
+                got_ck[k].tobytes() == want_ck[k].tobytes(), f"{name}: {k}"
+        if name == "telemetry":
+            assert all(np.isfinite(x.telemetry["update_norm_mean"]).all()
+                       for x in got)
+    import shutil
+    shutil.copy(ck + ".npz", str(tmp_path / "resume.npz"))
+    tops.reset_launches()
+    res, _ = run("resume", resume=True)
+    tail = tops.launches()
+    for i, (a, b) in enumerate(zip(res, want)):
+        _scan_bitwise(a, b, f"resumed cell {i}")
+    # the tail is half the run: half of each per-round kernel's launches
+    for k in ("greedy_argmax", "swap_best_fused", "memagg", "krum"):
+        assert 2 * tail[k] == whole_launches[k] > 0, k
+
+
+def test_flengine_resume_bitwise_on_card(cuda, tmp_path):
+    """The quickstart's FedGS with the memory family on the card, saved at
+    round 4 of 8: the resumed tail's sets, val_loss, counts and final
+    params are bitwise the unbroken run's (the memory panel, which memagg
+    overwrites in place, is copied to the host before the next round)."""
+    ds = make_synthetic(n_clients=30, alpha=0.5, beta=0.5, seed=0)
+
+    def engine():
+        eng = FLEngine(ds, logistic_regression(), FedGSSampler(alpha=1.0),
+                       make_mode("LN", n_clients=30, beta=0.5, seed=99),
+                       FLConfig(rounds=8, sample_frac=0.2, local_steps=5,
+                                batch_size=10, eval_every=1, seed=0),
+                       device=cuda, aggregator=tad.make_aggregator_process(
+                           "memory", gamma=0.9))
+        eng.install_oracle_graph(ds.opt_params)
+        return eng
+    full = engine()
+    h_full = full.run()
+    ck = str(tmp_path / "ck")
+    head = engine()
+    head.cfg.rounds = 4
+    head.run(ckpt_path=ck, ckpt_every=4)
+    res = engine()
+    tops.reset_launches()
+    h_res = res.run(ckpt_path=ck, resume=True)
+    assert tops.launches()["memagg"] == 4
+    assert h_res.all_sampled == h_full.all_sampled[4:]
+    assert h_res.val_loss == h_full.val_loss[4:]
+    assert np.array_equal(res.counts, full.counts)
+    for k in full.params:
+        assert torch.equal(res.params[k], full.params[k]), k
+
+
+def test_host_snapshot_is_taken_in_stream_order(cuda):
+    """A pinned, non-blocking snapshot followed by an in-place write on the
+    same stream holds the values from before the write."""
+    from repro_torch.fed.runtime import host_snapshot
+    x = torch.arange(1 << 20, dtype=torch.float32, device=cuda)
+    snap = host_snapshot({"mem": x, "rows": [x[:4], None]})
+    x.mul_(-1.0)
+    got = snap.wait()
+    assert got["mem"].is_pinned() and got["rows"][1] is None
+    assert torch.equal(got["mem"], torch.arange(1 << 20,
+                                                dtype=torch.float32))
+    assert torch.equal(got["rows"][0], torch.arange(4, dtype=torch.float32))

@@ -485,9 +485,14 @@ def test_other_families_raise(arch, family):
 
 
 def test_fedsim_and_cpu_default_raise(monkeypatch):
-    with pytest.raises(NotImplementedError, match="ScanEngine"):
-        serve.main(["--fedsim", "--device", "cpu"])
+    # --fedsim runs (tests/test_torch_runtime.py); its compile cache has no
+    # torch meaning and raises away from the default
+    with pytest.raises(NotImplementedError, match="no torch meaning"):
+        serve.main(["--fedsim", "--device", "cpu", "--compile-cache-dir",
+                    "x"])
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serve.main(["--fedsim"])
     with pytest.raises(RuntimeError, match="no CUDA device"):
         serve.main(["--reduced"])
     with pytest.raises(RuntimeError, match="no CUDA device"):

@@ -297,10 +297,10 @@ def dynamic_runs(synthetic_ds):
                           graph_batch_indices=_key_indices(ikey, ds.sizes),
                           **seams(seed))
         carry = teng.init_carry([tcell])
-        th, tsel = [carry["h"][0].numpy()], []
+        th, tsel = [carry.tree["h"][0].numpy()], []
         for t0 in range(0, DYN_ROUNDS, REFRESH):
             carry, traj = teng.run_segment([tcell], carry, t0, REFRESH)
-            th.append(carry["h"][0].numpy())
+            th.append(carry.tree["h"][0].numpy())
             tsel.append(traj["sel"][0].numpy())
         out[name] = {"jh": jh, "jsel": np.concatenate(jsel), "th": th,
                      "tsel": np.concatenate(tsel), "cell": tcell}
@@ -410,7 +410,7 @@ def test_segments_bitwise_whole_run(synthetic_ds, h_ref):
         assert np.array_equal(torch.cat([a["val_loss"][i],
                                          b["val_loss"][i]]).numpy(),
                               h.val_loss)
-        assert np.array_equal(carry["counts"][i].numpy(), h.counts)
+        assert np.array_equal(carry.tree["counts"][i].numpy(), h.counts)
     seg = eng.run_batch(cells, ckpt_every=3)
     for x, y in zip(seg, whole):
         _bitwise(x, y)
@@ -542,11 +542,15 @@ def test_scan_config_validation():
                {"cell_sharding": False}):
         with pytest.raises(NotImplementedError, match="item 12"):
             tse.ScanConfig(**kw)
+    # the runtime knobs are ported; the compile cache has no torch meaning
     for kw in ({"telemetry": True}, {"donate_carry": False},
-               {"async_pipeline": False}, {"compile_cache_dir": "x"},
-               {"program_cache_size": 4}):
-        with pytest.raises(NotImplementedError, match="item 11"):
-            tse.ScanConfig(**kw)
+               {"async_pipeline": False}, {"program_cache_size": 4}):
+        cfg = tse.ScanConfig(**kw)
+        assert all(getattr(cfg, k) == v for k, v in kw.items())
+    with pytest.raises(NotImplementedError, match="no torch meaning"):
+        tse.ScanConfig(compile_cache_dir="x")
+    with pytest.raises(ValueError):
+        tse.ScanConfig(program_cache_size=0)
     assert tse.ScanConfig().max_sweeps == jse.ScanConfig().max_sweeps
 
 
@@ -559,8 +563,10 @@ def test_engine_without_device_raises_when_cuda_is_absent(monkeypatch,
         tse.oracle_h(synthetic_ds.opt_params)
     eng = tse.ScanEngine(synthetic_ds, logistic_regression(),
                          tse.ScanConfig(rounds=2), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 11"):
-        eng.run_batch([], ckpt_path="x")
+    with pytest.raises(NotImplementedError, match="no torch meaning"):
+        eng.lower_batch([])
+    with pytest.raises(NotImplementedError, match="item 12"):
+        eng.carry_shapes([])
 
 
 def test_package_exports():
