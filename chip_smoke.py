@@ -169,7 +169,47 @@ Phases, each printing one JSON line (any failure exits non-zero):
               exact, the float metrics within rtol 1e-4.  Prints the
               writer's write_ms / blocked_ms / queue high-watermark, the
               inline and pipelined walls and the checkpoint's bytes.
- 10. the ``{"kernels": [...]}`` line (times at the main path's shapes:
+ 10. plans    the committed plan table (``kernels/tuned_plans.json``, card
+              entries only): each entry's wrapper call with plan=None
+              agrees with its plain version and its default-plan function
+              returns the table's winner; at both edges of each entry's
+              tier the default plan is the winner where the winner takes
+              the shape, else the heuristic; one small spec per kernel
+              tuned afresh into a temp file (each candidate held against
+              its plain version first; the committed file unchanged); the
+              winners printed beside the heuristic plans, ms per
+              candidate.
+ 11. fedsim   ``launch.fedsim.run`` at N = 4096 (M = 410, E = B = 10,
+              n_max 512, 32 sweeps, memory aggregator): the round, server
+              pipeline and aggregator programs, each once cold and once
+              measured; B1 = B2 = 1, B3 = 410, B4 = 32 and B6 = 1 launches
+              per measured call; the pipeline's set bitwise
+              ``fedgs_select``'s on the same H built outside the twin;
+              each program's memory and device ms; B1, B2, B3, B4 and B6
+              at the programs' shapes, each call's device ms (a CUDA graph
+              of calls) beside its bound.
+ 12. mesh     the (cells, silo) mesh on ``torch.distributed``, on the
+              scan phase's 8 mixed cells (host draws), 10 rounds: (a) a
+              one-rank NCCL world, mesh (1, 1), bitwise the unmeshed run;
+              (b) two ranks sharing the card over gloo (CUDA tensors
+              staged through the host): (2, 1) gather, (1, 2) gather and
+              (1, 2) psum, sets, pad masks, counts and Krum rows bitwise
+              the single-device run, val_loss within 1e-5, every rank the
+              same whole batch; B3/B4/B6/B7 launches summed over the
+              (2, 1) ranks, and on each (1, 2) rank, equal to the
+              single-device run's; (c) the (2, 1) run's checkpoint (saved
+              every round) resumed with no mesh: the checkpointed rounds
+              bitwise the unbroken (2, 1) run's, the resumed round's
+              decisions bitwise and its val_loss within 1e-5 (CUDA's
+              batched products are not batch-invariant).
+ 13. examples the four example twins on the card, as users run them:
+              the quickstart's FedGS and uniform sets equal the slice
+              phase's runs round for round; the availability scenarios'
+              five cells, run as one batch, equal their own runs; the
+              vision twin (3 rounds, 20 clients) and serve_llm (batch 4,
+              8 tokens) exit cleanly.  Their printouts go to
+              ``chiprun_out/examples/``.
+ 14. the ``{"kernels": [...]}`` line (times at the main path's shapes:
      N = 30, M = 6, P = 610; the similarity also at the vision phase's
      (100, 13946) update-cosine 3DG, with that call's launches; the dense
      swap at the vision solve's (m, N) = (10, 100); window attention at
@@ -1352,10 +1392,12 @@ def quickstart_cfg(FLConfig, rounds=40):
                     batch_size=10, lr=0.1, eval_every=4, seed=0)
 
 
-def slice_run(np, torch, dev, kept: dict) -> tuple[dict, dict]:
+def slice_run(np, torch, dev, kept: dict,
+              sets: dict) -> tuple[dict, dict]:
     """The quickstart (see the module docstring).  Keeps its unbroken
     FedGS run in ``kept["fedgs"]`` as (history, final params, a factory of
-    the same engine) for the runtime phase."""
+    the same engine) for the runtime phase, and its FedGS and uniform sets
+    in ``sets`` for the examples phase."""
     from repro_torch.core.availability import make_mode
     from repro_torch.core.fairness import count_variance, gini
     from repro_torch.core.sampler import FedGSSampler, UniformSampler
@@ -1392,6 +1434,7 @@ def slice_run(np, torch, dev, kept: dict) -> tuple[dict, dict]:
     uni = FLEngine(ds, logistic_regression(), UniformSampler(), mode(),
                    quickstart_cfg(FLConfig), device=dev)
     h_uni = uni.run()
+    sets["fedgs"], sets["uniform"] = h_card.all_sampled, h_uni.all_sampled
     for nm, hh in (("fedgs", h_card), ("uniform", h_uni)):
         if not (np.all(np.isfinite(hh.val_loss)) and len(hh.val_loss) == 11):
             raise AssertionError(f"{nm}: val_loss {hh.val_loss}")
@@ -2618,6 +2661,402 @@ def runtime_run(np, torch, dev, kept: dict) -> dict:
     return info
 
 
+# ------------------------------------------------------------ phase 10
+def plans_run(np, torch, dev) -> dict:
+    """The plan table (see the module docstring)."""
+    import tempfile
+    from repro_torch.kernels import autotune as tat
+
+    t_phase = time.perf_counter()
+    table = tat.load_table()
+    if not table:
+        raise AssertionError("plans: the committed plan table is empty")
+    rows, edges, moved = {}, 0, []
+    for key, entry in sorted(table.items()):
+        kernel, tier, platform = key.split("|")
+        if platform != "cuda" or not entry.get("device") or \
+                not entry.get("power_limit"):
+            raise AssertionError(f"plans: {key} is not a card entry")
+        winner = entry["tiles"]["plan"]
+        dims = tat.call_dims(kernel, **entry["spec"])
+        reg = tat.KERNELS[kernel]
+        inputs = reg["setup"](dev, **entry["spec"])
+        # the wrapper with plan=None takes the table's plan, and agrees
+        # with the plain version
+        if not reg["check"](reg["run"](None, *inputs), reg["plain"](*inputs)):
+            raise AssertionError(f"plans: {key}'s default call disagrees "
+                                 "with its plain version")
+        got = tat.default_plan(kernel, **dims)
+        if got != winner:
+            raise AssertionError(f"plans: {key} takes {got}, the table "
+                                 f"says {winner}")
+        # at the tier's edges: the winner where it takes the shape, else
+        # the heuristic
+        tdims = {k[0]: int(k[1:]) for k in tier.split(",")}
+        for pick in (0, 1):
+            shape = {k: tat.tier_range(v)[pick] for k, v in tdims.items()}
+            shape = {**dims, **shape}
+            want = winner if reg["takes"](winner, **{
+                k: shape[k] for k in tdims}) else \
+                tat.heuristic(kernel, **shape)
+            if tat.default_plan(kernel, **shape) != want:
+                raise AssertionError(f"plans: {key} at {shape}: "
+                                     f"{tat.default_plan(kernel, **shape)}"
+                                     f", want {want}")
+            edges += 1
+        heur = tat.heuristic(kernel, **dims)
+        if heur != winner:
+            moved.append(key)
+        rows[key] = {"winner": winner, "heuristic": heur,
+                     "ms": entry["ms"], "candidates_ms": {
+                         c["plan"]: v for c, v in entry["candidates"]}}
+    # tune one small spec per kernel into a temp path (each candidate held
+    # against its plain version first); the committed table is untouched
+    specs = [("floyd_warshall", {"n": 128}), ("fused_3dg", {"n": 128}),
+             ("greedy_argmax", {"n": 1024}), ("swap_gain", {"m": 64,
+                                                           "n": 1024}),
+             ("memory_aggregate", {"n": 256, "p": 1024}),
+             ("krum_pairwise", {"m": 128, "p": 1024})]
+    before = tat.TABLE_PATH.read_bytes()
+    with tempfile.TemporaryDirectory() as tmp:
+        tuned = tat.tune(specs, device=dev, base_table={}, verbose=False)
+        tat.save_table(tuned, Path(tmp) / "plans.json")
+    if tat.TABLE_PATH.read_bytes() != before:
+        raise AssertionError("plans: the committed table was written")
+    fresh = {k: {"winner": v["tiles"]["plan"], "heuristic": tat.heuristic(
+        k.split("|")[0], **tat.call_dims(k.split("|")[0], **v["spec"])),
+        "candidates_ms": {c["plan"]: ms for c, ms in v["candidates"]}}
+        for k, v in sorted(tuned.items())}
+    return {"phase": "plans", "card": smi_line(), "entries": len(table),
+            "edges_checked": edges, "winners_away_from_heuristic": moved,
+            "table": rows, "tuned_now": fresh,
+            "seconds": time.perf_counter() - t_phase}
+
+
+# ------------------------------------------------------------ phase 11
+FEDSIM = {"clients": 4096, "aggregator": "memory"}
+
+
+def fedsim_run(np, torch, dev) -> dict:
+    """The fedsim launcher at N = 4096 (see the module docstring)."""
+    from repro_torch.core.graph_device import GraphConfig, build_h
+    from repro_torch.core.sampler_device import fedgs_select
+    from repro_torch.launch import fedsim
+
+    t_phase = time.perf_counter()
+    n = FEDSIM["clients"]
+    rec = fedsim.run(n, aggregator=FEDSIM["aggregator"], force=True)
+    if not rec["ok"]:
+        raise AssertionError(f"fedsim: {rec.get('error')}\n"
+                             f"{rec.get('traceback', '')}")
+    m = rec["round"]["m_sampled"]
+    sp, ag = rec["server_pipeline"], rec["aggregator"]
+    want = {"fused_adjacency": 1, "floyd_warshall": 1, "greedy_argmax": m,
+            "swap_best_fused": sp["max_sweeps"]}
+    if sp["launches"] != want or m != 410:
+        raise AssertionError(f"fedsim: pipeline launches {sp['launches']}, "
+                             f"want {want} (M = {m})")
+    if ag["launches"] != {"memagg": 1}:
+        raise AssertionError(f"fedsim: aggregator launches "
+                             f"{ag['launches']}")
+    # the set, bitwise, from fedgs_select on the same H outside the twin
+    feats, counts, avail = fedsim.pipeline_inputs(n, device=dev)
+    h = build_h(feats, GraphConfig())
+    s = fedgs_select(h, counts, avail, 1.0, m=m, max_sweeps=sp["max_sweeps"])
+    if torch.nonzero(s).flatten().tolist() != sp["selected"]:
+        raise AssertionError("fedsim: the pipeline's set is not "
+                             "fedgs_select's on the same H")
+    # each kernel's device ms per call at the programs' shapes (20 calls
+    # replayed from a CUDA graph), the planned plan, beside its bound
+    from repro_torch.core.sampler_device import balance_z
+    from repro_torch.kernels import aggregate as ag_k
+    from repro_torch.kernels import floyd_warshall as fw_k
+    from repro_torch.kernels import graph_fused as gf_k
+    from repro_torch.kernels import solver as sv_k
+    g = torch.Generator(device=dev).manual_seed(0)
+    r, _ = gf_k.fused_adjacency_cuda(feats, eps=0.1, sigma2=0.01)
+    z = balance_z(counts, m)
+    sel = torch.as_tensor(sp["selected"], device=dev)
+    valid = torch.ones(m, dtype=torch.bool, device=dev)
+    a_m = torch.randn(m, generator=g, device=dev)
+    b_n = torch.randn(n, generator=g, device=dev)
+    p = ag["p"]
+    mem = torch.randn(n, p, generator=g, device=dev)
+    upd = torch.randn(m, p, generator=g, device=dev)
+    w = torch.rand(n, generator=g, device=dev) / n
+    calls = {"fused_adjacency": lambda: gf_k.fused_adjacency_cuda(
+                 feats, eps=0.1, sigma2=0.01),
+             "floyd_warshall": lambda: fw_k.floyd_warshall_cuda(r),
+             "greedy_argmax": lambda: sv_k.masked_argmax_cuda(
+                 b_n, b_n, avail, None),
+             "swap_best_fused": lambda: sv_k.swap_best_fused_cuda(
+                 h, z, 1.0 / n, sel, valid, a_m, b_n),
+             "memagg": lambda: ag_k.memory_aggregate_cuda(mem, upd, sel,
+                                                          valid, w)}
+    plans = {"fused_adjacency": gf_k.fused_adjacency_plan(n, fedsim.CLASSES),
+             "floyd_warshall": fw_k.floyd_warshall_plan(n),
+             "greedy_argmax": sv_k.masked_argmax_plan(n),
+             "swap_best_fused": sv_k.swap_best_fused_plan(m, n),
+             "memagg": ag_k.memagg_plan(n, p, m)}
+    work = fedsim.kernel_work(n, m, fedsim.CLASSES, p)
+    kernels = {}
+    for name, fn in calls.items():
+        launched = ag["launches"] if name == "memagg" else sp["launches"]
+        per_call = device_ms(torch, fn, reps=5 if name == "floyd_warshall"
+                             else 20)
+        t_bound, by = bound(work[name][1], work[name][0])
+        kernels[name] = {"plan": plans[name], "launches": launched[name],
+                         "device_ms_per_call": per_call,
+                         "device_ms_per_program": per_call * launched[name],
+                         "bound_ms_per_call": t_bound, "bound_by": by}
+    out = {"phase": "fedsim", "card": smi_line(), "n": n, "m": m,
+           "p": ag["p"]}
+    for part in ("round", "server_pipeline", "aggregator"):
+        r = rec[part]
+        out[part] = {k: r[k] for k in ("launches", "device_ms", "wall_ms",
+                                       "first_call_ms", "mem", "flops")}
+        if r["device_ms"] <= 0 or not r["mem"]["peak_bytes"]:
+            raise AssertionError(f"fedsim {part}: {r['device_ms']}")
+    out["kernels"] = kernels
+    out["round_terms_s"] = {k: rec[k] for k in ("compute_term_s",
+                                                 "memory_term_s")}
+    out["seconds"] = time.perf_counter() - t_phase
+    return out
+
+
+# ------------------------------------------------------------ phase 12
+MESH = {"rounds": 10, "loss_bound": 1e-5}
+MESH_RUNS = (((2, 1), "gather"), ((1, 2), "gather"), ((1, 2), "psum"))
+
+
+def mesh_cells(engine, dev):
+    """The scan phase's 8 mixed cells on ``engine``, host draws."""
+    from repro_torch.data.synthetic import make_synthetic
+    from repro_torch.fed.scan_engine import oracle_h
+    ds = make_synthetic(n_clients=30, alpha=0.5, beta=0.5, seed=0)
+    h = oracle_h(ds.opt_params, device=dev)
+    return scan_mixed_cells(engine, scan_mixed(ds, engine.cfg.rounds), h)
+
+
+def mesh_engine(dev, sizes, **kw):
+    """The scan phase's engine at ``sizes`` = (rounds, max_sweeps)."""
+    from repro_torch.data.synthetic import make_synthetic
+    from repro_torch.fed.models import logistic_regression
+    from repro_torch.fed.scan_engine import ScanConfig, ScanEngine
+    ds = make_synthetic(n_clients=30, alpha=0.5, beta=0.5, seed=0)
+    return ScanEngine(ds, logistic_regression(), ScanConfig(
+        rounds=sizes[0], m=MAIN_M, local_steps=10, batch_size=10, lr=0.1,
+        eval_every=1, max_sweeps=sizes[1], **kw), device=dev)
+
+
+def mesh_hist(h) -> dict:
+    return {"sel": h.sel, "valid": h.valid, "counts": h.counts,
+            "val_loss": h.val_loss, "chosen": h.chosen,
+            "gini": h.gini, "count_var": h.count_var, "val_acc": h.val_acc}
+
+
+def mesh_rank(rank, world, job):
+    """One of two ranks sharing the card over gloo: every mesh of
+    MESH_RUNS on the 8 cells, launches counted around each run; the (2, 1)
+    run checkpointed every round into ``job["ckpt"]``."""
+    import torch
+    from repro_torch.kernels import ops
+    dev = torch.device(job["device"])
+    if dev.type == "cuda":
+        dev = torch.device("cuda", dev.index or 0)
+        torch.cuda.set_device(dev)
+    out = {}
+    for mesh, reduce in MESH_RUNS:
+        eng = mesh_engine(dev, job["sizes"], mesh=mesh, silo_reduce=reduce)
+        cells = mesh_cells(eng, dev)
+        kw = {"ckpt_path": job["ckpt"], "ckpt_every": 1} \
+            if mesh == (2, 1) else {}
+        torch.cuda.synchronize()
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        hists = eng.run_batch(cells, **kw)
+        torch.cuda.synchronize()
+        out[f"{mesh[0]}x{mesh[1]}/{reduce}"] = {
+            "hists": [mesh_hist(h) for h in hists],
+            "launches": ops.launches(),
+            "seconds": time.perf_counter() - t0}
+    return out
+
+
+def mesh_run(np, torch, dev) -> dict:
+    """The (cells, silo) mesh on the card (see the module docstring)."""
+    import shutil
+    import tempfile
+
+    import torch.distributed as dist
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import run_ranks
+
+    t_phase = time.perf_counter()
+    work = OUT / "mesh"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    per_round = ("greedy_argmax", "swap_best_fused", "memagg", "krum")
+    info = {"phase": "mesh", "card": smi_line(), "rounds": MESH["rounds"],
+            "cells": 8}
+
+    def same(a, b, *, loss_bound=None, what=""):
+        for f in ("sel", "valid", "counts"):
+            if not np.array_equal(a[f], b[f]):
+                raise AssertionError(f"mesh {what}: {f} differs")
+        if (a["chosen"] is None) != (b["chosen"] is None) or (
+                a["chosen"] is not None and
+                not np.array_equal(a["chosen"], b["chosen"])):
+            raise AssertionError(f"mesh {what}: Krum rows differ")
+        gap = float(np.nanmax(np.abs(a["val_loss"] - b["val_loss"])))
+        if loss_bound is None and not all(
+                np.array_equal(a[f], b[f], equal_nan=True)
+                for f in ("val_loss", "gini", "count_var", "val_acc")):
+            raise AssertionError(f"mesh {what}: not bitwise ({gap})")
+        if loss_bound is not None and gap > loss_bound:
+            raise AssertionError(f"mesh {what}: val_loss gap {gap}")
+        return gap
+
+    # the single-device run the meshes are held to
+    sizes = (MESH["rounds"], SCAN["max_sweeps"])
+    eng = mesh_engine(dev, sizes)
+    cells = mesh_cells(eng, dev)
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    single = [mesh_hist(h) for h in eng.run_batch(cells)]
+    torch.cuda.synchronize()
+    info["single_s"] = time.perf_counter() - t0
+    single_l = {k: ops.launches()[k] for k in per_round}
+    info["single_launches"] = single_l
+
+    # (a) a one-rank NCCL world, mesh (1, 1): bitwise the unmeshed run
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group("nccl" if dev.type == "cuda" else "gloo",
+                                init_method=f"file://{tmp}/init",
+                                world_size=1, rank=0)
+        try:
+            eng1 = mesh_engine(dev, sizes, mesh=(1, 1))
+            t0 = time.perf_counter()
+            one = [mesh_hist(h) for h in eng1.run_batch(
+                mesh_cells(eng1, dev))]
+            info["a_nccl_1x1_s"] = time.perf_counter() - t0
+        finally:
+            dist.destroy_process_group()
+    for i, (a, b) in enumerate(zip(one, single)):
+        same(a, b, what=f"(a) (1, 1) cell {i}")
+    info["a_nccl_1x1"] = "bitwise the unmeshed run"
+
+    # (b) two ranks sharing the card over gloo, CUDA tensors staged
+    ck = str(work / "ck_2x1")
+    t0 = time.perf_counter()
+    ranks = run_ranks(mesh_rank, 2, ({"ckpt": ck, "device": str(dev),
+                                       "sizes": sizes},),
+                      backend="gloo",
+                      init_file=str(work / "init"), timeout=900)
+    info["b_seconds"] = time.perf_counter() - t0
+    for name, _ in ((f"{m[0]}x{m[1]}/{r}", None) for m, r in MESH_RUNS):
+        runs = [r[name] for r in ranks]
+        gaps = [same(a, b, loss_bound=MESH["loss_bound"], what=name)
+                for a, b in zip(runs[0]["hists"], single)]
+        for other in runs[1:]:      # every rank has the whole batch
+            for a, b in zip(other["hists"], runs[0]["hists"]):
+                same(a, b, what=f"{name} rank 1 vs rank 0")
+        got = [{k: r["launches"][k] for k in per_round} for r in runs]
+        if name.startswith("2x1"):
+            tot = {k: sum(g[k] for g in got) for k in per_round}
+            if tot != single_l:
+                raise AssertionError(f"mesh {name}: launches over the "
+                                     f"ranks {tot}, single {single_l}")
+        elif any(g != single_l for g in got):
+            raise AssertionError(f"mesh {name}: launches per rank {got}, "
+                                 f"single {single_l}")
+        info[name] = {"val_loss_gap": max(gaps), "launches": got,
+                      "seconds": [r["seconds"] for r in runs]}
+
+    # (c) the (2, 1) checkpoint (round R - 1, every round saved) resumed
+    # with no mesh: the saved rounds bitwise the unbroken (2, 1) run's, the
+    # resumed round's decisions bitwise and its val_loss within the (b)
+    # bound (CUDA's batched products are not batch-invariant: the round
+    # runs 8 cells here, 4 a rank there; ROADMAP Queue C)
+    res_eng = mesh_engine(dev, sizes)
+    resumed = [mesh_hist(h) for h in res_eng.run_batch(
+        mesh_cells(res_eng, dev), ckpt_path=ck, resume=True, ckpt_every=1)]
+    last = MESH["rounds"] - 1
+    gaps = []
+    for i, (a, b) in enumerate(zip(resumed, ranks[0]["2x1/gather"]["hists"])):
+        gaps.append(same(a, b, loss_bound=MESH["loss_bound"],
+                         what=f"(c) resumed cell {i}"))
+        head = ({k: v[:last] for k, v in a.items() if k != "counts" and
+                 v is not None},
+                {k: v[:last] for k, v in b.items() if k != "counts" and
+                 v is not None})
+        if not all(np.array_equal(head[0][k], head[1][k], equal_nan=True)
+                   for k in head[0]):
+            raise AssertionError(f"mesh (c) cell {i}: the checkpointed "
+                                 "rounds are not the (2, 1) run's")
+    info["c_resume_2x1_to_none"] = {
+        "checkpointed_rounds": "bitwise", "decisions": "bitwise",
+        "val_loss_gap_resumed_round": max(gaps)}
+    info["seconds"] = time.perf_counter() - t_phase
+    return info
+
+
+# ------------------------------------------------------------ phase 13
+def examples_run(np, torch, dev, slice_sets: dict) -> dict:
+    """The example twins on the card (see the module docstring).
+    ``slice_sets``: the slice phase's FedGS and uniform sets."""
+    import contextlib
+    import io
+    from repro_torch.examples import availability_scenarios as av
+    from repro_torch.examples import federated_vision, quickstart, serve_llm
+
+    t_phase = time.perf_counter()
+    info = {"phase": "examples", "card": smi_line()}
+    logs = OUT / "examples"
+    logs.mkdir(exist_ok=True)
+    # as users run them: on CUDA by default
+    on = [] if dev.type == "cuda" else ["--device", str(dev)]
+
+    def twin(name, fn, argv):
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            out = fn(argv)
+        (logs / f"{name}.txt").write_text(buf.getvalue())
+        info[f"{name}_s"] = time.perf_counter() - t0
+        return out
+
+    runs = twin("quickstart", quickstart.main, on)
+    for label in ("uniform", "fedgs"):
+        hist, _ = runs[label]
+        if hist.all_sampled != slice_sets[label]:
+            raise AssertionError(f"examples: the quickstart twin's {label} "
+                                 "sets are not the slice phase's")
+    info["quickstart"] = "FedGS and uniform sets = the slice phase's, " \
+        "40 of 40 rounds"
+    hists = twin("availability_scenarios", av.main, on)
+    eng, labels, cells = av.build(None if dev.type == "cuda" else dev)
+    for label, cell in zip(labels, cells):
+        own = eng.run(cell)
+        if not (np.array_equal(own.sel, hists[label].sel) and
+                np.array_equal(own.counts, hists[label].counts)):
+            raise AssertionError(f"examples: scenario {label!r}: the "
+                                 "batch's sets are not its own run's")
+    info["availability_scenarios"] = f"{len(labels)} scenarios' sets = " \
+        "their own runs'"
+    vis = twin("federated_vision", federated_vision.main,
+               ["--rounds", "3", "--clients", "20", *on])
+    if not all(np.isfinite(h.best_loss) for h, _ in vis.values()):
+        raise AssertionError("examples: the vision twin's losses")
+    tok = twin("serve_llm", serve_llm.main, ["--batch", "4", "--gen", "8",
+                                             *on])
+    if tok.shape != (4, 8):
+        raise AssertionError(f"examples: serve_llm tokens {tok.shape}")
+    info["seconds"] = time.perf_counter() - t_phase
+    return info
+
+
 # ------------------------------------------------------------ phase 7
 def visible_pairs(s: int, window: int) -> int:
     """Σ_i min(i + 1, window) over i < s: the (query, key) pairs one head
@@ -2976,7 +3415,8 @@ def main() -> int:
           "rows": robust_rows})
 
     kept: dict = {}
-    info, launches = slice_run(np, torch, dev, kept)
+    slice_sets: dict = {}
+    info, launches = slice_run(np, torch, dev, kept, slice_sets)
     slice_launches = dict(launches)
     emit(info)
     info, robust_launches = robust_run(np, torch, dev, kept)
@@ -2996,6 +3436,10 @@ def main() -> int:
     info, scan_launches = scan_run(np, torch, dev, slice_launches)
     emit(info)
     emit(runtime_run(np, torch, dev, kept))
+    emit(plans_run(np, torch, dev))
+    emit(fedsim_run(np, torch, dev))
+    emit(mesh_run(np, torch, dev))
+    emit(examples_run(np, torch, dev, slice_sets))
     t0 = time.perf_counter()
     attn_rows = attention_kernel_checks(np, torch, dev)
     emit({"phase": "kernels", "attention": True, "card": smi,

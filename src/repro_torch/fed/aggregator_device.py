@@ -142,18 +142,22 @@ def fedavg_cells(stacked_params: dict, weights: torch.Tensor,
 
 
 def init_agg_state(params0: dict, n_clients: int,
-                   memory_rows: int | None = None) -> dict:
+                   memory_rows: int | None = None,
+                   tau_rows: int | None = None) -> dict:
     """The carried state every family shares: ``prev`` (the global params),
     ``m1`` / ``m2`` (moments, zeros), ``mem`` (rows, P) with every row
-    flat(params0) and ``tau`` (rows,) zeros.  ``memory_rows`` overrides the
-    panel's rows (the host path passes 0 for non-memory families)."""
+    flat(params0) and ``tau`` (tau_rows,) zeros.  ``memory_rows`` overrides
+    the panel's rows (the host path passes 0 for non-memory families, a
+    silo rank under ``psum`` its N/silo rows), ``tau_rows`` the staleness
+    vector's (by default the panel's; global under ``psum``)."""
     rows = n_clients if memory_rows is None else memory_rows
+    tau_rows = rows if tau_rows is None else tau_rows
     ravel, _, _ = _flat_template(params0)
     flat0 = ravel(params0)
     zeros = {k: torch.zeros_like(v) for k, v in params0.items()}
     return {"prev": params0, "m1": zeros, "m2": dict(zeros),
             "mem": flat0[None, :].repeat(rows, 1),
-            "tau": torch.zeros(rows, dtype=torch.float32,
+            "tau": torch.zeros(tau_rows, dtype=torch.float32,
                                device=flat0.device)}
 
 
@@ -231,7 +235,7 @@ def krum_combine(updf: torch.Tensor, valid: torch.Tensor, f_byz: int,
 
 # --------------------------------------------------------- the family step
 def make_aggregator_step(n: int, m: int, params_like: dict, *,
-                         family: str, data_sizes=None):
+                         family: str, data_sizes=None, panel=None):
     """The per-round server update of one family,
 
         ``step(aparams, state, key, stacked_updates, weights, s, avail, t,
@@ -240,7 +244,14 @@ def make_aggregator_step(n: int, m: int, params_like: dict, *,
     ``params_like`` fixes the flat layout; ``data_sizes`` the (N,) sizes of
     the memory family's weights (all ones when omitted).  ``aparams`` is a
     process's :meth:`AggregatorProcess.params`; its ``theta`` is read on the
-    host.  ``sel`` / ``valid`` default to ``select_k(s, m)``."""
+    host.  ``sel`` / ``valid`` default to ``select_k(s, m)``.
+
+    ``panel`` (an ``launch.mesh.EngineMesh``, ``silo_reduce="psum"``): the
+    memory panel in the state holds this silo rank's N/silo rows only, s·N/
+    silo onward.  The rank runs memagg on those rows (``sel − off``, and
+    ``valid`` masked to the rows it holds), then sums the (P,) partials over
+    its silo group — the reference's partial tensordot + ``psum``: equal
+    within f32 round-off, not bitwise."""
     if family not in FAMILIES:
         raise ValueError(f"family must be one of {FAMILIES}, not {family!r}")
     ravel, unravel, _ = _flat_template(params_like)
@@ -288,8 +299,17 @@ def make_aggregator_step(n: int, m: int, params_like: dict, *,
         wmem = sizes * torch.pow(gamma, age)
         total = torch.sum(wmem)
         wn = wmem / torch.clamp_min(total, 1e-12)
-        mem, red = ops.memory_aggregate(state["mem"], ravel(upd),
-                                        sel, valid, wn)
+        if panel is None:
+            mem, red = ops.memory_aggregate(state["mem"], ravel(upd),
+                                            sel, valid, wn)
+        else:
+            rows = state["mem"].shape[0]
+            off = panel.silo_rank * rows
+            lsel = sel - off
+            hit = valid & (lsel >= 0) & (lsel < rows)
+            mem, red = ops.memory_aggregate(state["mem"], ravel(upd), lsel,
+                                            hit, wn[off:off + rows])
+            red = panel.all_reduce_silo(red)
         new = guard_zero_weight(unravel(red), state["prev"], total)
         return new, {**state, "prev": new, "mem": mem, "tau": tau}
 

@@ -69,12 +69,28 @@ saved and a resume replays the unbroken run bit for bit.  Telemetry
 the history fields and the checkpoints are those of a run without it.
 ``ProgramCache`` bounds the per-batch plans (``program_cache_size``).
 
-Not in this port: the mesh, ``cell_sharding`` and ``silo_reduce`` (ROADMAP
-item 12, which raise ``NotImplementedError``, as do ``carry_shapes`` and
-the compile-only dry-run it serves); ``compile_cache_dir`` and
-``lower_batch``, which have no torch meaning (no traced programs; the
-kernel libraries persist under ``build/``, keyed by their sources' hash),
-so they raise away from their defaults.  The reference's
+Mesh scale-out (DESIGN.md §13).  ``ScanConfig.mesh=(cells,)`` or
+``(cells, silo)`` runs ``run_batch`` on the ranks of an initialized
+``torch.distributed`` world (``launch/mesh.make_engine_mesh``; rank c·silo
++ s): the cells-rank c runs its contiguous block of the batch (padded by
+repeating the last cell, the pads dropped on return; with
+``cell_sharding=False`` every rank runs every cell), and each silo rank
+of a cells-row trains its ceil(M/silo) chunk of every cell's M clients
+from the cell's own draws, then all-gathers the updates in slot order, so
+every client's update is the one an unmeshed run gives it.  The sampler
+runs on every silo rank (each computes the same set).
+``silo_reduce="psum"`` also splits each memory panel's rows over silo: a
+rank runs memagg on its N/silo rows and the (P,) partials are summed over
+the silo group (equal within f32 round-off, not bitwise).  Every rank
+gets the whole batch's results; a checkpoint holds the whole gathered
+carry, written by rank 0, so a run resumes on the same mesh, another or
+none.  ``carry_shapes`` gives a rank's carry's shapes without allocating
+it.
+
+Not in this port: ``compile_cache_dir`` and ``lower_batch``, which have no
+torch meaning (no traced programs; the kernel libraries persist under
+``build/``, keyed by their sources' hash), so they raise away from their
+defaults.  The reference's
 ``graph_backend``, ``solver_backend`` and ``agg_backend`` knobs are left
 out: the tensors' device picks kernel or plain version, as everywhere in
 the port.
@@ -125,20 +141,21 @@ from repro_torch.fed.runtime import (AsyncCheckpointWriter, CarryHandle,
                                      ProgramCache, clone_tree, host_snapshot)
 from repro_torch.fed.telemetry import (NULL_TRACER, fault_corruption_norm,
                                        round_telemetry, runtime_snapshot)
+from repro_torch.launch.mesh import make_engine_mesh
+from repro_torch.sharding.rules import engine_carry_specs
 
 SILO_REDUCES = ("gather", "psum")
 _NO_TORCH_MEANING = ("has no torch meaning: the port traces no programs, "
                      "and its kernel libraries persist under build/, keyed "
                      "by a hash of their sources")
-_ITEM12 = "the mesh scale-out (ROADMAP item 12)"
 
 
 @dataclass(frozen=True)
 class ScanConfig:
     """The batched engine's configuration: the reference's field names,
-    defaults and validation.  The scale-out fields and
-    ``compile_cache_dir`` keep their defaults in this port; a value away
-    from it raises."""
+    defaults and validation.  ``compile_cache_dir`` keeps its default in
+    this port; a value away from it raises.  ``mesh`` is normalized to
+    (cells, silo)."""
     rounds: int = 200
     m: int = 3                     # sampled clients per round (static M)
     local_steps: int = 10          # E
@@ -159,10 +176,11 @@ class ScanConfig:
     fault_frac: float = 0.0
     probe_size: int = 64
     probe_seed: int = 777
-    # ROADMAP item 12: one device, no mesh
+    # mesh scale-out (DESIGN.md §13): (cells,) or (cells, silo) ranks of
+    # torch.distributed for run_batch; None = one device (the default)
     mesh: Optional[tuple] = None
-    cell_sharding: bool = True
-    silo_reduce: str = "gather"
+    cell_sharding: bool = True     # split the cell batch over "cells"
+    silo_reduce: str = "gather"    # gather (bitwise) | psum (panel rows)
     # the runtime layer (fed/runtime.py): consume the carry handle (the
     # segment updates it in place; False: run on a clone), overlap the
     # trajectory's fetch and the checkpoint write with the next segment,
@@ -200,10 +218,8 @@ class ScanConfig:
             if len(shape) not in (1, 2) or any(s < 1 for s in shape):
                 raise ValueError(f"mesh must be (cells,) or (cells, silo) "
                                  f"with positive sizes, not {self.mesh!r}")
-        if (self.mesh is not None or not self.cell_sharding
-                or self.silo_reduce != "gather"):
-            raise NotImplementedError(f"mesh / cell_sharding / silo_reduce "
-                                      f"away from their defaults: {_ITEM12}")
+            object.__setattr__(self, "mesh",
+                               shape if len(shape) == 2 else shape + (1,))
         if self.compile_cache_dir is not None:
             raise NotImplementedError(f"compile_cache_dir {_NO_TORCH_MEANING}")
 
@@ -291,8 +307,25 @@ class _Plan:
     agg_steps: dict = field(default_factory=dict)  # cell -> step
     fault_steps: dict = field(default_factory=dict)  # cell -> (step, fp,
     #                                                   flat layout)
-    krum: bool = False
     memory: list = field(default_factory=list)     # memory cells
+    # the whole batch's families (a meshed rank's block may lack one; the
+    # trajectory's krum rows and the telemetry follow the whole batch)
+    krum: bool = False
+    memory_any: bool = False
+    fault_any: bool = False
+    whole: list = field(default_factory=list)      # the whole padded batch
+    mesh: object = None        # launch.mesh.EngineMesh of a meshed run
+    psum: bool = False         # memory panels split into rows over silo
+
+
+def _family_groups(cells: list[dict]) -> list[tuple[str, list[int]]]:
+    """(availability family, the positions of its cells) in first-seen
+    order: how a carry stacks the process states."""
+    by_family: dict = {}
+    for i, c in enumerate(cells):
+        if "process" in c:
+            by_family.setdefault(c["process"].family, []).append(i)
+    return list(by_family.items())
 
 
 def _host(x, dtype, device) -> torch.Tensor:
@@ -349,6 +382,7 @@ class ScanEngine:
                 dtype=torch.float32, device=dev)
         # per-batch round plans: a bounded LRU (fed/runtime.ProgramCache)
         self._programs = ProgramCache(maxsize=cfg.program_cache_size)
+        self._mesh_obj = None         # launch.mesh.EngineMesh, made lazily
         self.tracer = tracer if tracer is not None else NULL_TRACER
         self.sink = sink
         self._tel_parts: list = []    # [(t0, k, telemetry_host)] per run
@@ -522,21 +556,36 @@ class ScanEngine:
                            dtype=torch.float32)
 
     # ------------------------------------------------------------ the plan
-    def _plan(self, cells: list[dict]) -> _Plan:
+    def _plan(self, cells: list[dict], whole: Optional[list] = None,
+              mesh=None) -> _Plan:
+        """The plan of ``cells``; on a mesh, of this rank's block of the
+        ``whole`` padded batch."""
+        whole = cells if whole is None else whole
         # a plan holds its cells, so their ids stay unique while it lives
-        return self._programs.get(tuple(id(c) for c in cells),
-                                  lambda: self._build_plan(cells))
+        key = (tuple(id(c) for c in cells), tuple(id(c) for c in whole),
+               None if mesh is None else mesh.rank)
+        return self._programs.get(
+            key, lambda: self._build_plan(cells, whole, mesh))
 
-    def _build_plan(self, cells: list[dict]) -> _Plan:
+    def _build_plan(self, cells: list[dict], whole: list[dict],
+                    mesh=None) -> _Plan:
         cfg, dev, n, m = self.cfg, self.device, self.n, self.cfg.m
-        plan = _Plan(cells=list(cells))
+        plan = _Plan(cells=list(cells), whole=list(whole), mesh=mesh)
+        plan.psum = mesh is not None and mesh.silo > 1 and \
+            cfg.silo_reduce == "psum"
+        fams = {c["aggregator_process"].family for c in whole}
+        plan.krum = "krum" in fams
+        plan.memory_any = "memory" in fams
+        plan.fault_any = any(c["fault_process"].family != "none"
+                             for c in whole)
+        if plan.psum and plan.memory_any and n % mesh.silo:
+            raise ValueError(f"silo_reduce='psum' row-shards the (N, P) "
+                             f"memory panel: N={n} must divide by "
+                             f"silo={mesh.silo}")
         if self.use_masks:
             plan.masks = torch.stack([c["masks"] for c in cells])
         else:
-            by_family: dict = {}
-            for i, c in enumerate(cells):
-                by_family.setdefault(c["process"].family, []).append(i)
-            for fam, idx in by_family.items():
+            for fam, idx in _family_groups(cells):
                 plan.groups.append((fam, idx, avd.stack_params(
                     [cells[i]["proc"] for i in idx], dev)))
         probe = self._probe_losses
@@ -551,8 +600,8 @@ class ScanEngine:
             else:
                 plan.agg_steps[i] = make_aggregator_step(
                     n, m, c["params0"], family=afam,
-                    data_sizes=self.ds.sizes)
-                plan.krum |= afam == "krum"
+                    data_sizes=self.ds.sizes,
+                    panel=mesh if plan.psum and afam == "memory" else None)
                 if afam == "memory":
                     plan.memory.append(i)
             ffam = c["fault_process"].family
@@ -572,9 +621,18 @@ class ScanEngine:
         each cell's H and dynamic-3DG embeddings (None where a cell has
         none) and each availability family group's stacked process state.
         ``run_segment`` consumes the handle and advances the carry in
-        place."""
-        plan = self._plan(cells)
-        n = self.n
+        place.  On a mesh each rank builds its block's carry and every
+        rank gets the whole batch's (the memory panels whole too)."""
+        plan = self._batch_plan(cells)
+        tree = self._init_tree(plan)
+        if plan.mesh is not None:
+            tree = self._gather_carry(tree, plan, len(cells))
+        return CarryHandle(tree)
+
+    def _init_tree(self, plan: _Plan) -> dict:
+        """The carry of a plan's cells before round 0 (a rank's block)."""
+        cells, n = plan.cells, self.n
+        rows_mem = n // plan.mesh.silo if plan.psum else n
         carry = {"params": {k: torch.stack([c["params0"][k] for c in cells])
                             for k in cells[0]["params0"]},
                  "counts": torch.zeros(len(cells), n, dtype=torch.float32,
@@ -582,8 +640,10 @@ class ScanEngine:
                  "agg": {}, "fault": {}, "h": [], "emb": [], "proc": {}}
         for i, c in enumerate(cells):
             if i in plan.agg_steps:
-                rows = n if c["aggregator_process"].family == "memory" else 0
-                st = init_agg_state(c["params0"], n, memory_rows=rows)
+                memory = c["aggregator_process"].family == "memory"
+                st = init_agg_state(c["params0"], n,
+                                    memory_rows=rows_mem if memory else 0,
+                                    tau_rows=n if memory else 0)
                 carry["agg"][i] = {k: v for k, v in st.items() if k != "prev"}
             if i in plan.fault_steps:
                 stale = c["fault_process"].family == "straggler_stale"
@@ -604,7 +664,7 @@ class ScanEngine:
         for fam, idx, _ in plan.groups:
             carry["proc"][fam] = avd.stack_state(
                 [cells[i]["proc_state"] for i in idx])
-        return CarryHandle(carry)
+        return carry
 
     # --------------------------------------------------------------- draws
     def _sampler_draw(self, cell, t):
@@ -690,10 +750,15 @@ class ScanEngine:
         sel, valid = select_k(s, m)
 
         # 3. local training: every cell's M gathered clients in one call
-        flat = sel.reshape(-1)
+        # (on a silo'd mesh, this rank's chunk of them)
         lr = float(np.float32(cfg.lr * cfg.lr_decay ** t))
-        local = self._trainer.cells(params, self._x[flat], self._y[flat], lr,
-                                    self._batch_indices(cells, t, sel))
+        idx = self._batch_indices(cells, t, sel)
+        if plan.mesh is not None and plan.mesh.silo > 1:
+            local = self._silo_train(plan.mesh, params, sel, idx, lr)
+        else:
+            flat = sel.reshape(-1)
+            local = self._trainer.cells(params, self._x[flat],
+                                        self._y[flat], lr, idx)
         per_cell = [{k: v[i * m:(i + 1) * m] for k, v in local.items()}
                     for i in range(b)]
 
@@ -791,6 +856,34 @@ class ScanEngine:
                 params, w, fault_mag)
         return out
 
+    def _silo_train(self, mesh, params, sel, idx, lr) -> dict:
+        """Local training on a silo'd mesh: the M slots of every cell, padded
+        with the last one to ceil(M/silo)·silo, cut into silo chunks; this
+        rank trains its chunk of each cell from the cell's own (M, E, B)
+        draw, then the chunks are all-gathered in slot order (the
+        reference's ``all_gather(..., tiled=True)[:m]``).  Each client's
+        update is the one the unsplit call gives it."""
+        b, m = sel.shape
+        silo = mesh.silo
+        chunk = -(-m // silo)
+        pad = chunk * silo - m
+        idx = idx.reshape(b, m, *idx.shape[1:])
+        if pad:
+            sel = torch.cat([sel, sel[:, -1:].expand(b, pad)], 1)
+            idx = torch.cat([idx, idx[:, -1:].expand(b, pad,
+                                                     *idx.shape[2:])], 1)
+        i0 = mesh.silo_rank * chunk
+        sel_l = sel[:, i0:i0 + chunk].reshape(-1)
+        idx_l = idx[:, i0:i0 + chunk].reshape(b * chunk, *idx.shape[2:])
+        part = self._trainer.cells(params, self._x[sel_l], self._y[sel_l],
+                                   lr, idx_l.contiguous())
+        ravel, unravel, p = _flat_template({k: v[0] for k, v in
+                                            params.items()})
+        full = mesh.all_gather_silo(ravel(part))       # (silo·b·chunk, P)
+        full = full.reshape(silo, b, chunk, p).transpose(0, 1)
+        return unravel(full.reshape(b, silo * chunk, p)[:, :m]
+                       .reshape(b * m, p))
+
     def _telemetry(self, plan, carry, t, avail, sel, valid, per_cell,
                    params_prev, params, w, fault_mag) -> dict:
         """The round's (B, ...) health metrics, as the reference's per-cell
@@ -803,12 +896,12 @@ class ScanEngine:
             if any(h is None for h in carry["h"]) else None
         hs = torch.stack([zero_h if h is None else h for h in carry["h"]])
         tau = None
-        if plan.memory:
+        if plan.memory_any:
             zeros = torch.zeros(n, dtype=torch.float32, device=dev)
             tau = torch.stack([carry["agg"][i]["tau"] if i in plan.memory
                                else zeros for i in range(b)])
         mag = None
-        if plan.fault_steps:
+        if plan.fault_any:
             zero = torch.zeros((), dtype=torch.float32, device=dev)
             mag = torch.stack([fault_mag.get(i, zero) for i in range(b)])
         local = {k: torch.stack([r[k] for r in per_cell]) for k in params}
@@ -827,13 +920,30 @@ class ScanEngine:
         ``(new_handle, traj)``: ``traj`` holds (B, seg_len, ...) device
         tensors, nothing read back to the host.  Every per-round draw is
         keyed by the round index alone, so a ``(k) + (T − k)`` split
-        replays the uninterrupted run bit for bit."""
+        replays the uninterrupted run bit for bit.  On a mesh the handle
+        holds the whole batch's carry (``init_carry``'s); each rank runs
+        its block, and every rank gets the whole new carry and
+        trajectory."""
         with self.tracer.span("program_get", seg_len=seg_len):
-            plan = self._plan(cells)
+            plan = self._batch_plan(cells)
+        if plan.mesh is None:
+            return self._segment(plan, carry, t0, seg_len)
+        tree = carry.consume() if self.cfg.donate_carry \
+            else clone_tree(carry.tree)
+        local = CarryHandle(self._local_carry(tree, plan, len(cells)))
+        local, traj = self._segment(plan, local, t0, seg_len)
+        traj = self._gather_traj(_numpy_tree(host_snapshot(traj).wait()),
+                                 plan, len(cells))
+        return (CarryHandle(self._gather_carry(local.tree, plan, len(cells))),
+                _device_tree(traj, self.device))
+
+    def _segment(self, plan: _Plan, carry: CarryHandle, t0: int,
+                 seg_len: int):
+        """``run_segment`` on a plan's own cells (a rank's block)."""
         with self.tracer.span("dispatch_segment", t0=t0, rounds=seg_len):
             tree = carry.consume() if self.cfg.donate_carry \
                 else clone_tree(carry.tree)
-            b = len(cells)
+            b = len(plan.cells)
             nan = torch.full((b,), float("nan"), device=self.device)
             rounds = [self._round(plan, tree, t)
                       for t in range(t0, t0 + seg_len)]
@@ -849,15 +959,18 @@ class ScanEngine:
         return CarryHandle(tree), traj
 
     # ----------------------------------------------------- host plumbing
-    def _fetch_segment(self, t0: int, k: int, snap, b: int) -> dict:
+    def _fetch_segment(self, t0: int, k: int, snap, b: int,
+                       plan: _Plan) -> dict:
         """A segment's trajectory on the host (``snap`` from
         ``host_snapshot``, started when the segment was dispatched), as
-        numpy with ``sel`` int32.  The telemetry subtree is split off —
-        kept for the histories and streamed to the sink — so what flows
-        into checkpoints and stream consumers is the telemetry-off
-        trajectory."""
+        numpy with ``sel`` int32, the whole batch's on a mesh.  The
+        telemetry subtree is split off — kept for the histories and
+        streamed to the sink — so what flows into checkpoints and stream
+        consumers is the telemetry-off trajectory."""
         with self.tracer.span("device_get", t0=t0, rounds=k):
             traj_h = _numpy_tree(snap.wait())
+            if plan.mesh is not None:
+                traj_h = self._gather_traj(traj_h, plan, b)
         traj_h["sel"] = traj_h["sel"].astype(np.int32)
         tel_h = traj_h.pop("telemetry", None)
         if tel_h is not None:
@@ -934,10 +1047,146 @@ class ScanEngine:
                 "h": cells_list(node["h"]), "emb": cells_list(node["emb"]),
                 "proc": tree(node["proc"])}
 
+    # ----------------------------------------------------------------- mesh
+    def _mesh(self):
+        """This rank's ``EngineMesh`` (made at the first meshed run, as the
+        reference makes its mesh), or None without ``cfg.mesh``."""
+        if self.cfg.mesh is None:
+            return None
+        if self._mesh_obj is None:
+            self._mesh_obj = make_engine_mesh(self.cfg.mesh)
+        return self._mesh_obj
+
+    def _pad_cells(self, cells: list[dict], mesh) -> list[dict]:
+        """Pad an uneven batch to a multiple of the "cells" axis by
+        repeating the last cell (pad trajectories are dropped on return)."""
+        if mesh is None or not self.cfg.cell_sharding:
+            return list(cells)
+        r = len(cells) % mesh.cells
+        return list(cells) + [cells[-1]] * ((mesh.cells - r) % mesh.cells)
+
+    def _block(self, n_padded: int, mesh) -> range:
+        """The positions of the padded batch that this rank runs: its
+        cells-row's contiguous block, or all with ``cell_sharding=False``."""
+        if not self.cfg.cell_sharding:
+            return range(n_padded)
+        per = n_padded // mesh.cells
+        return range(mesh.cell_rank * per, (mesh.cell_rank + 1) * per)
+
+    def _batch_plan(self, cells: list[dict], mesh=False) -> _Plan:
+        """The plan of a batch: of all of it, or on a mesh (``cfg.mesh``
+        unless ``mesh`` is given), of this rank's block of it padded."""
+        mesh = self._mesh() if mesh is False else mesh
+        if mesh is None:
+            return self._plan(cells)
+        whole = self._pad_cells(cells, mesh)
+        block = self._block(len(whole), mesh)
+        return self._plan([whole[i] for i in block], whole, mesh)
+
+    def _carry_specs(self, tree: dict, plan: _Plan) -> dict:
+        return engine_carry_specs(tree, cell_sharding=self.cfg.cell_sharding,
+                                  panel_sharded=plan.psum)
+
+    @staticmethod
+    def _pieces(tree: dict, groups, b: int) -> list[dict]:
+        """A carry cut into its cells' own parts (views), in cell order."""
+        where = {i: (fam, j) for fam, idx in groups
+                 for j, i in enumerate(idx)}
+        out = []
+        for i in range(b):
+            piece = {"params": {k: v[i] for k, v in tree["params"].items()},
+                     "counts": tree["counts"][i], "agg": tree["agg"].get(i),
+                     "fault": tree["fault"].get(i), "h": tree["h"][i],
+                     "emb": tree["emb"][i], "proc": None}
+            if i in where:
+                fam, j = where[i]
+                piece["proc"] = {k: v[j] for k, v in
+                                 tree["proc"][fam].items()}
+            out.append(piece)
+        return out
+
+    @staticmethod
+    def _join(pieces: list[dict], groups) -> dict:
+        """Cells' own parts (tensors, or numpy) back into one carry (the
+        inverse of :meth:`_pieces`)."""
+        return {"params": {k: _stack([p["params"][k] for p in pieces])
+                           for k in pieces[0]["params"]},
+                "counts": _stack([p["counts"] for p in pieces]),
+                "agg": {i: p["agg"] for i, p in enumerate(pieces)
+                        if p["agg"] is not None},
+                "fault": {i: p["fault"] for i, p in enumerate(pieces)
+                          if p["fault"] is not None},
+                "h": [p["h"] for p in pieces],
+                "emb": [p["emb"] for p in pieces],
+                "proc": {fam: {k: _stack([pieces[i]["proc"][k]
+                                          for i in idx])
+                               for k in pieces[idx[0]]["proc"]}
+                         for fam, idx in groups}}
+
+    def _gather_carry(self, tree: dict, plan: _Plan, b: int, *,
+                      on_device: bool = True) -> dict:
+        """The whole batch's carry from every rank's block (collective:
+        every rank calls it): the memory panels' rows all-gathered over
+        silo under ``psum`` (``sharding.rules``), the blocks over the
+        world, pads dropped — the layout of the unmeshed run's carry.  On
+        the device, or as numpy (``on_device=False``)."""
+        mesh = plan.mesh
+        groups = [(fam, idx) for fam, idx, _ in plan.groups]
+        pieces = self._pieces(tree, groups, len(plan.cells))
+        specs = self._carry_specs(pieces, plan)
+        for piece, spec in zip(pieces, specs):
+            # the memory panels' rows (same cells, so the same calls, on
+            # every silo rank of a cells-row)
+            if spec["agg"] is not None and "silo" in spec["agg"]["mem"] \
+                    and piece["agg"]["mem"].shape[0]:
+                piece["agg"] = {**piece["agg"], "mem": mesh.all_gather_silo(
+                    piece["agg"]["mem"])}
+        every = mesh.gather_objects(_host_tree(pieces))
+        rows = [every[c * mesh.silo] for c in range(mesh.cells)] \
+            if self.cfg.cell_sharding else [every[0]]
+        whole = [p for r in rows for p in r][:b]
+        if on_device:
+            whole = _device_tree(whole, self.device)
+        return self._join(whole, _family_groups(plan.whole[:b]))
+
+    def _local_carry(self, tree: dict, plan: _Plan, b: int) -> dict:
+        """This rank's block of a whole batch's carry (the inverse of
+        :meth:`_gather_carry`): pads take copies of the last cell's state,
+        and under ``psum`` a memory panel keeps this silo rank's rows."""
+        pieces = self._pieces(tree, _family_groups(plan.whole[:b]), b)
+        pieces += [clone_tree(pieces[-1]) for _ in range(len(plan.whole) - b)]
+        block = self._block(len(plan.whole), plan.mesh)
+        mine = [pieces[i] for i in block]
+        rows = self.n // plan.mesh.silo
+        off = plan.mesh.silo_rank * rows
+        for piece, spec in zip(mine, self._carry_specs(mine, plan)):
+            if spec["agg"] is not None and "silo" in spec["agg"]["mem"] \
+                    and piece["agg"]["mem"].shape[0]:
+                piece["agg"] = {**piece["agg"], "mem": piece["agg"]["mem"][
+                    off:off + rows].clone()}
+        return self._join(mine, [(fam, idx) for fam, idx, _ in plan.groups])
+
+    def _gather_traj(self, traj_h: dict, plan: _Plan, b: int) -> dict:
+        """The whole batch's host trajectory from every rank's block, pads
+        dropped (collective)."""
+        mesh = plan.mesh
+        every = mesh.gather_objects(traj_h)
+        rows = [every[c * mesh.silo] for c in range(mesh.cells)] \
+            if self.cfg.cell_sharding else [every[0]]
+
+        def cat(parts):
+            if isinstance(parts[0], dict):
+                return {k: cat([p[k] for p in parts]) for k in parts[0]}
+            return np.concatenate(parts, axis=0)[:b]
+        return cat(rows)
+
     # ----------------------------------------------------------------- runs
     def run(self, cell: dict) -> ScanHistory:
-        """One cell (the batch path with a batch of one)."""
-        hist = self.run_batch([cell])[0]
+        """One cell (the batch path with a batch of one, on this rank
+        alone: the mesh applies to ``run_batch``)."""
+        parts = [traj for _, _, traj in self._stream([cell], mesh=None)]
+        hist = self._histories([cell], _concat(parts),
+                               self._assemble_telemetry())[0]
         self.params = {k: v[0] for k, v in self.params.items()}
         return hist
 
@@ -960,7 +1209,19 @@ class ScanEngine:
         segment k's trajectory is fetched after segment k + 1 is
         dispatched.  The rounds run are the same either way, so the
         results are bitwise equal.  Afterwards ``self.params`` (on the
-        device) and ``self.final_counts`` (numpy) hold the final state."""
+        device) and ``self.final_counts`` (numpy) hold the final state.
+
+        On a mesh (``cfg.mesh``) each rank runs its block of the padded
+        batch, every rank yields the whole batch's trajectory, and
+        checkpoints are written inline: the whole gathered carry (the
+        memory panels whole), by rank 0 while the others wait at a barrier.
+        So a run resumes on the same mesh, on another one, or on none."""
+        return self._stream(cells, mesh=self._mesh(), ckpt_path=ckpt_path,
+                            ckpt_every=ckpt_every, resume=resume)
+
+    def _stream(self, cells: list[dict], *, mesh,
+                ckpt_path: Optional[str] = None, ckpt_every: int = 0,
+                resume: bool = False):
         cfg, b, rounds = self.cfg, len(cells), self.cfg.rounds
         every = int(ckpt_every) if ckpt_every else rounds
         self._tel_parts = []
@@ -970,6 +1231,7 @@ class ScanEngine:
                            {"cells": b, "rounds": rounds, "mesh": cfg.mesh,
                             "telemetry": bool(cfg.telemetry),
                             "ckpt_every": int(ckpt_every)})
+        plan = self._batch_plan(cells, mesh)
         t0, parts, handle = 0, [], None
         if resume and ckpt_path is not None and os.path.exists(
                 ckpt_path if ckpt_path.endswith(".npz")
@@ -977,15 +1239,20 @@ class ScanEngine:
             with self.tracer.span("checkpoint_load"):
                 state = load_checkpoint(ckpt_path)
                 t0 = int(state["round"])
-                handle = CarryHandle(self._carry_from_ckpt(state["carry"],
-                                                           b))
+                tree = self._carry_from_ckpt(state["carry"], b)
+                if mesh is not None:
+                    tree = self._local_carry(tree, plan, b)
+                handle = CarryHandle(tree)
             parts.append(state["traj"])
             yield 0, t0, state["traj"]
         if handle is None:
             with self.tracer.span("init_carry", cells=b):
-                handle = self.init_carry(cells)
+                handle = CarryHandle(self._init_tree(plan))
+        # a meshed run's checkpoints gather the carry: inline, on every rank
+        inline = not cfg.async_pipeline or (mesh is not None and
+                                            ckpt_path is not None)
         writer = AsyncCheckpointWriter() \
-            if (ckpt_path is not None and cfg.async_pipeline) else None
+            if (ckpt_path is not None and not inline) else None
         pending = None                      # (t_start, seg_len, snapshot)
 
         def meta_of(t_next):
@@ -995,34 +1262,49 @@ class ScanEngine:
         def ckpt_tree(carry_h, sn, t_next):
             return {"carry": carry_h, "round": np.int64(t_next),
                     "traj": _concat(sn)}
+
+        def whole_carry():
+            if mesh is None:
+                return handle.tree
+            return self._gather_carry(handle.tree, plan, b, on_device=False)
         try:
             while t0 < rounds:
                 k = min(every, rounds - t0)
-                handle, traj_dev = self.run_segment(cells, handle, t0, k)
+                if mesh is None and self.cfg.mesh is None:
+                    handle, traj_dev = self.run_segment(cells, handle, t0, k)
+                else:
+                    with self.tracer.span("program_get", seg_len=k):
+                        plan = self._batch_plan(cells, mesh)
+                    handle, traj_dev = self._segment(plan, handle, t0, k)
                 # the trajectory's copy is queued right behind the segment
                 snap = host_snapshot(traj_dev)
                 t1 = t0 + k
                 need_ckpt = ckpt_path is not None and t1 < rounds
-                if not cfg.async_pipeline:
-                    traj_h = self._fetch_segment(t0, k, snap, b)
+                if inline:
+                    traj_h = self._fetch_segment(t0, k, snap, b, plan)
                     parts.append(traj_h)
                     if need_ckpt:
-                        with self.tracer.span("checkpoint_write", round=t1):
-                            save_checkpoint(
-                                ckpt_path, ckpt_tree(
-                                    self._ckpt_carry(handle.tree), parts, t1),
-                                metadata=meta_of(t1))
+                        carry_w = self._ckpt_carry(whole_carry())
+                        if mesh is None or mesh.rank == 0:
+                            with self.tracer.span("checkpoint_write",
+                                                  round=t1):
+                                save_checkpoint(
+                                    ckpt_path,
+                                    ckpt_tree(carry_w, parts, t1),
+                                    metadata=meta_of(t1))
+                        if mesh is not None:
+                            mesh.barrier()
                     yield t0, k, traj_h
                 elif need_ckpt:
                     if pending is not None:
-                        ph = self._fetch_segment(*pending, b)
+                        ph = self._fetch_segment(*pending, b, plan)
                         parts.append(ph)
                         yield pending[0], pending[1], ph
                         pending = None
                     # the carry's copy, queued before the next segment
                     # overwrites it in place; the writer waits for it
                     carry_snap = host_snapshot(self._ckpt_carry(handle.tree))
-                    traj_h = self._fetch_segment(t0, k, snap, b)
+                    traj_h = self._fetch_segment(t0, k, snap, b, plan)
                     parts.append(traj_h)
                     snapshot = list(parts)
 
@@ -1037,16 +1319,17 @@ class ScanEngine:
                     # free-running: fetch the PREVIOUS segment now that
                     # this one is dispatched
                     if pending is not None:
-                        ph = self._fetch_segment(*pending, b)
+                        ph = self._fetch_segment(*pending, b, plan)
                         parts.append(ph)
                         yield pending[0], pending[1], ph
                     pending = (t0, k, snap)
                 t0 = t1
             if pending is not None:
-                ph = self._fetch_segment(*pending, b)
+                ph = self._fetch_segment(*pending, b, plan)
                 parts.append(ph)
                 yield pending[0], pending[1], ph
-            final = handle.tree
+            final = handle.tree if mesh is None else \
+                self._gather_carry(handle.tree, plan, b)
             self.params = final["params"]
             self.final_counts = final["counts"].cpu().numpy()
         finally:
@@ -1094,9 +1377,74 @@ class ScanEngine:
     def lower_batch(self, *a, **kw):
         raise NotImplementedError(f"lower_batch {_NO_TORCH_MEANING}")
 
-    def carry_shapes(self, *a, **kw):
-        raise NotImplementedError(f"carry_shapes serves the compile-only "
-                                  f"mesh dry-run: {_ITEM12}")
+    # ------------------------------------------------------------ dry run
+    def carry_shapes(self, cells: list[dict]) -> dict:
+        """The per-rank carry's leaves as ``LeafShape`` (shape, dtype), in
+        :meth:`init_carry`'s layout (None where a cell has no H or
+        embeddings), derived from the configuration and the cells alone:
+        no carry is allocated and no process group is needed (only
+        ``cfg.mesh`` is read).  On a mesh it is the first cells-row's block
+        of the padded batch; under ``psum`` a memory panel holds N/silo
+        rows — the dry run's pin on the carry's footprint."""
+        cfg, n = self.cfg, self.n
+        ncells, silo = cfg.mesh if cfg.mesh is not None else (1, 1)
+        whole = list(cells)
+        if cfg.mesh is not None and cfg.cell_sharding:
+            whole += [cells[-1]] * ((ncells - len(cells) % ncells) % ncells)
+            whole = whole[:len(whole) // ncells]
+        psum = silo > 1 and cfg.silo_reduce == "psum"
+        memory = [c["aggregator_process"].family == "memory" for c in cells]
+        if psum and any(memory) and n % silo:
+            raise ValueError(f"silo_reduce='psum' row-shards the (N, P) "
+                             f"memory panel: N={n} must divide by "
+                             f"silo={silo}")
+        f32, b = torch.float32, len(whole)
+
+        def like(x, lead=()):
+            return LeafShape(tuple(lead) + tuple(x.shape), x.dtype)
+        p0 = whole[0]["params0"]
+        p = sum(v.numel() for v in p0.values())
+        out = {"params": {k: like(v, (b,)) for k, v in p0.items()},
+               "counts": LeafShape((b, n), f32), "agg": {}, "fault": {},
+               "h": [], "emb": [], "proc": {}}
+        if self._probe is not None:
+            meta = {k: torch.empty((1,) + tuple(v.shape), dtype=v.dtype,
+                                   device="meta") for k, v in p0.items()}
+            x = torch.empty((1, 1) + tuple(self.ds.x_val.shape[1:]),
+                            device="meta")
+            emb_dim = self.model.embed(meta, x).shape[-1]
+        for i, c in enumerate(whole):
+            afam = c["aggregator_process"].family
+            if afam != "fedavg":
+                rows = (n // silo if psum else n) if afam == "memory" else 0
+                zeros = {k: like(v) for k, v in c["params0"].items()}
+                out["agg"][i] = {
+                    "m1": zeros, "m2": dict(zeros),
+                    "mem": LeafShape((rows, p), f32),
+                    "tau": LeafShape((n if afam == "memory" else 0,), f32)}
+            ffam = c["fault_process"].family
+            if ffam != "none":
+                out["fault"][i] = {
+                    **{k: like(v) for k, v in c["fault_state"].items()},
+                    "stale": LeafShape(
+                        (n if ffam == "straggler_stale" else 0, p), f32)}
+            if self._probe is not None:
+                out["h"].append(LeafShape((n, n), f32))
+                out["emb"].append(LeafShape((n, emb_dim), f32))
+            else:
+                out["h"].append(None if c["h"] is None else like(c["h"]))
+                out["emb"].append(None)
+        for fam, idx in _family_groups(whole):
+            out["proc"][fam] = {k: like(v, (len(idx),)) for k, v in
+                                whole[idx[0]]["proc_state"].items()}
+        return out
+
+
+@dataclass(frozen=True)
+class LeafShape:
+    """A carry leaf's shape and dtype (``ScanEngine.carry_shapes``)."""
+    shape: tuple
+    dtype: torch.dtype
 
 
 def _numpy_tree(x):
@@ -1104,6 +1452,32 @@ def _numpy_tree(x):
     if isinstance(x, torch.Tensor):
         return x.numpy()
     return {k: _numpy_tree(v) for k, v in x.items()}
+
+
+def _host_tree(x):
+    """A tree (dicts, lists, None) with every tensor copied to numpy."""
+    if isinstance(x, torch.Tensor):
+        return x.detach().cpu().numpy()
+    if isinstance(x, dict):
+        return {k: _host_tree(v) for k, v in x.items()}
+    if isinstance(x, list):
+        return [_host_tree(v) for v in x]
+    return x
+
+
+def _device_tree(x, device):
+    """A tree (dicts, lists, None) with every numpy array on ``device``."""
+    if isinstance(x, np.ndarray):
+        return torch.as_tensor(x).to(device)
+    if isinstance(x, dict):
+        return {k: _device_tree(v, device) for k, v in x.items()}
+    if isinstance(x, list):
+        return [_device_tree(v, device) for v in x]
+    return x
+
+
+def _stack(xs: list):
+    return np.stack(xs) if isinstance(xs[0], np.ndarray) else torch.stack(xs)
 
 
 def _concat(parts: list[dict]) -> dict:

@@ -32,6 +32,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import autotune
 from repro_torch.kernels._build import I, P, Kernel
 
 KERNEL = Kernel("aggregate", "memagg_launch",
@@ -51,15 +52,28 @@ def memory_scatter_reduce_ref(mem: torch.Tensor, upd: torch.Tensor,
                               w: torch.Tensor):
     """Plain version (the reference's ref backend): the masked row scatter
     ``mem[sel] = where(valid, upd, mem[sel])``, in place, then one
-    (N,)·(N, P) tensordot.  Returns (mem, red (P,))."""
-    mem[sel] = torch.where(valid[:, None], upd, mem[sel])
+    (N,)·(N, P) tensordot.  As in the kernel, a slot whose row lies
+    outside [0, N) is skipped (a silo rank's panel under ``psum`` gets
+    the rows of other ranks' clients so).  Returns (mem, red (P,))."""
+    take = valid & (sel >= 0) & (sel < mem.shape[0])
+    keep = torch.nonzero(take).squeeze(1)
+    mem[sel[keep]] = upd[keep]
     return mem, torch.tensordot(w, mem, dims=([0], [0]))
 
 
 def memagg_plan(n: int, p: int, m: int) -> str:
     """The plan memory_aggregate_cuda takes for an (n, p) panel and m
-    updates: ``small`` (one launch, one block per column tile over all n
-    rows) up to :data:`SMALL_ROWS` rows, else ``cluster``."""
+    updates: the plan table's winner for the (n, p) tier where one is
+    recorded (``autotune.resolve``; both plans take any n from 2), else
+    :func:`memagg_heuristic`'s."""
+    return autotune.resolve(
+        "memory_aggregate", {"plan": memagg_heuristic(n, p, m)},
+        takes=lambda q: q in memagg_plans(n, p, m), n=n, p=p)["plan"]
+
+
+def memagg_heuristic(n: int, p: int, m: int) -> str:
+    """``small`` (one launch, one block per column tile over all n rows)
+    up to :data:`SMALL_ROWS` rows, ``cluster`` beyond."""
     return "small" if n <= SMALL_ROWS else "cluster"
 
 

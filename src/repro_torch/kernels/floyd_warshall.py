@@ -34,6 +34,7 @@ import ctypes
 
 import torch
 
+from repro_torch.kernels import autotune
 from repro_torch.kernels._build import I, P, Kernel, library, stream_of
 from repro_torch.kernels.ref import floyd_warshall_ref
 
@@ -47,12 +48,21 @@ floyd_warshall_plain = floyd_warshall_ref
 _plans: dict[int, str] = {}
 
 
+def floyd_warshall_heuristic(n: int) -> str:
+    """The plan the C heuristic picks for n (``floyd_warshall_plan_kind``)."""
+    fn = library("floyd_warshall").floyd_warshall_plan_kind
+    fn.argtypes, fn.restype = [I], ctypes.c_int
+    return PLANS[fn(n)]
+
+
 def floyd_warshall_plan(n: int) -> str:
-    """The plan floyd_warshall_cuda takes for an (n, n) matrix."""
+    """The plan floyd_warshall_cuda takes for an (n, n) matrix: the plan
+    table's winner for n's tier where it takes n (``autotune.resolve``),
+    else :func:`floyd_warshall_heuristic`'s, resolved once."""
     if n not in _plans:
-        fn = library("floyd_warshall").floyd_warshall_plan_kind
-        fn.argtypes, fn.restype = [I], ctypes.c_int
-        _plans[n] = PLANS[fn(n)]
+        _plans[n] = autotune.resolve(
+            "floyd_warshall", {"plan": floyd_warshall_heuristic(n)},
+            takes=lambda q: autotune.fw_takes(q, n), n=n)["plan"]
     return _plans[n]
 
 

@@ -33,6 +33,7 @@ import ctypes
 
 import torch
 
+from repro_torch.kernels import autotune
 from repro_torch.kernels._build import F, I, P, Kernel, library, stream_of
 from repro_torch.kernels.solver import grid_state
 
@@ -76,9 +77,9 @@ def fused_adjacency_cuda(u: torch.Tensor, *, eps: float, sigma2: float,
     if n == 0:
         return (torch.empty((0, 0), dtype=torch.float32, device=u.device),
                 torch.full((2,), float("nan"), device=u.device))
-    kind = -1 if plan is None else PLANS.index(plan)
     epi = -1 if epilogue is None else EPILOGUES.index(epilogue)
     with torch.cuda.device(u.device):
+        kind = PLANS.index(plan or fused_adjacency_plan(n, d))
         if plan is not None and plan not in fused_adjacency_plans(n, d):
             raise ValueError(f"fused_adjacency_cuda: plan {plan!r} does not "
                              f"take {(n, d)}")
@@ -111,9 +112,27 @@ def _ask(symbol: str, *args: int, restype=ctypes.c_int) -> int:
     return _answers[key]
 
 
+# (n, d, device index) -> the resolved plan
+_plans: dict[tuple[int, int, int], str] = {}
+
+
 def fused_adjacency_plan(n: int, d: int) -> str:
     """The plan fused_adjacency_cuda's tile pass takes for (n, d) on the
-    current device: ``small``, ``split``, ``serial`` or ``big``."""
+    current device: ``small``, ``split``, ``serial`` or ``big`` — the plan
+    table's winner for n's tier where it takes (n, d)
+    (``autotune.resolve``), else :func:`fused_adjacency_heuristic`'s,
+    resolved once."""
+    key = (n, d, torch.cuda.current_device())
+    if key not in _plans:
+        _plans[key] = autotune.resolve(
+            "fused_3dg", {"plan": fused_adjacency_heuristic(n, d)},
+            takes=lambda q: q in fused_adjacency_plans(n, d), n=n)["plan"]
+    return _plans[key]
+
+
+def fused_adjacency_heuristic(n: int, d: int) -> str:
+    """The plan the C heuristic picks for (n, d) on the current device
+    (``fused_adjacency_plan_kind``)."""
     return PLANS[_ask("fused_adjacency_plan_kind", n, d)]
 
 

@@ -31,6 +31,7 @@ import ctypes
 
 import torch
 
+from repro_torch.kernels import autotune
 from repro_torch.kernels._build import I, P, Kernel, library, stream_of
 
 KERNEL = Kernel("krum", "krum_distances_launch", [P, I, I, I, P, P, P])
@@ -73,9 +74,18 @@ def krum_distances_cuda(x: torch.Tensor, *, plan: str | None = None
     return d
 
 
+def krum_heuristic(m: int, p: int) -> str:
+    """The plan the C heuristic picks for (m, P) (``krum_plan_kind``)."""
+    fn = library("krum").krum_plan_kind
+    fn.argtypes, fn.restype = [I, I], ctypes.c_int
+    return PLANS[fn(m, p)]
+
+
 def krum_plan(m: int, p: int) -> str:
     """The plan krum_distances_cuda takes for (m, P) on the current
-    device."""
+    device: the plan table's winner for the (m, P) tier where it takes the
+    shape (``autotune.resolve``), else the heuristic
+    (``krum_plan_kind``)."""
     return PLANS[_plan(m, p, torch.cuda.current_device(), None)[0]]
 
 
@@ -84,14 +94,18 @@ _plans: dict[tuple, tuple[int, int]] = {}
 
 def _plan(m: int, p: int, device_index, plan: str | None) -> tuple[int, int]:
     """The kernel's plan for (m, P), or the one forced, and its scratch
-    bytes on the device (they depend on the SM count), asked once."""
+    bytes on the device (they depend on the SM count), asked and resolved
+    once."""
     key = (m, p, device_index, plan)
     if key not in _plans:
-        lib = library("krum")
-        kind_of, nbytes = lib.krum_plan_kind, lib.krum_scratch_bytes
-        kind_of.argtypes, kind_of.restype = [I, I], ctypes.c_int
+        nbytes = library("krum").krum_scratch_bytes
         nbytes.argtypes, nbytes.restype = [I, I, I], ctypes.c_longlong
-        kind = kind_of(m, p) if plan is None else PLANS.index(plan)
+        if plan is None:
+            plan = autotune.resolve(
+                "krum_pairwise", {"plan": krum_heuristic(m, p)},
+                takes=lambda q: autotune.krum_takes(q, m, p), m=m,
+                p=p)["plan"]
+        kind = PLANS.index(plan)
         _plans[key] = (kind, int(nbytes(m, p, kind)))
     return _plans[key]
 

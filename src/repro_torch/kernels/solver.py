@@ -41,6 +41,7 @@ import ctypes
 
 import torch
 
+from repro_torch.kernels import autotune
 from repro_torch.kernels._build import F, I, P, Kernel, library, stream_of
 
 NEG = -1e18         # the solver's masked-entry sentinel
@@ -48,6 +49,7 @@ NEG = -1e18         # the solver's masked-entry sentinel
 ARGMAX_KERNEL = Kernel("solver", "masked_argmax_launch",
                        [P, P, P, P, I, I, P, P, P])
 ARGMAX_PLANS = ("warp", "block")
+ARGMAX_WARP_MOST = 128         # csrc kArgmaxWarpMost: the warp plan's most
 SWAP_FUSED_KERNEL = Kernel("solver", "swap_best_launch",
                            [P, P, F, P, P, P, P, I, I, I, P, P, P, P, P])
 SWAP_FUSED_PLANS = ("small", "tiled")
@@ -94,7 +96,8 @@ def masked_argmax_plain(diag, r, mask, taken=None):
 def masked_argmax_cuda(diag, r, mask, taken=None, *, plan: str | None = None):
     """The CUDA kernel; ``plan`` forces the ``"warp"`` or the ``"block"``
     path, to time the two against each other; None takes
-    :func:`masked_argmax_plan`'s (chosen in C, with no lookup here).  The
+    :func:`masked_argmax_plan`'s (resolved once per n; a call looks its
+    index up in a dict).  The
     inputs must already be contiguous (N,) tensors on one CUDA device,
     diag and r float32, mask and taken bool.  The greedy step calls it m
     times a solve, so its host path is short: it converts nothing, asks for
@@ -122,9 +125,15 @@ def masked_argmax_cuda(diag, r, mask, taken=None, *, plan: str | None = None):
         raise ValueError("masked_argmax_cuda takes contiguous tensors")
     val = diag.new_empty(())
     idx = diag.new_empty((), dtype=torch.int64)
+    if plan is None:
+        kind = _argmax_kinds.get(n)
+        if kind is None:
+            kind = _argmax_kinds[n] = ARGMAX_PLANS.index(
+                masked_argmax_plan(n))
+    else:
+        kind = ARGMAX_PLANS.index(plan)
     args = (diag.data_ptr(), r.data_ptr(), mask.data_ptr(),
-            None if taken is None else taken.data_ptr(), n,
-            -1 if plan is None else ARGMAX_PLANS.index(plan),
+            None if taken is None else taken.data_ptr(), n, kind,
             val.data_ptr(), idx.data_ptr())
     if dev == torch.cuda.current_device():
         ARGMAX_KERNEL(*args, torch.cuda.current_stream(dev).cuda_stream)
@@ -134,18 +143,28 @@ def masked_argmax_cuda(diag, r, mask, taken=None, *, plan: str | None = None):
     return val, idx
 
 
-# n -> the greedy argmax's plan
+# n -> the greedy argmax's plan, and its index for the launch
 _argmax_plans: dict[int, str] = {}
+_argmax_kinds: dict[int, int] = {}
 
 
 def masked_argmax_plan(n: int) -> str:
     """The path masked_argmax_cuda takes for n entries: ``warp`` (one warp,
-    shuffles only) or ``block``."""
+    shuffles only) or ``block`` — the plan table's winner for n's tier
+    where it takes n (``autotune.resolve``), else
+    :func:`masked_argmax_heuristic`'s, resolved once."""
     if n not in _argmax_plans:
-        fn = library("solver").masked_argmax_plan_kind
-        fn.argtypes, fn.restype = [I], ctypes.c_int
-        _argmax_plans[n] = ARGMAX_PLANS[fn(n)]
+        _argmax_plans[n] = autotune.resolve(
+            "greedy_argmax", {"plan": masked_argmax_heuristic(n)},
+            takes=lambda q: autotune.argmax_takes(q, n), n=n)["plan"]
     return _argmax_plans[n]
+
+
+def masked_argmax_heuristic(n: int) -> str:
+    """The path the C heuristic picks for n (``masked_argmax_plan_kind``)."""
+    fn = library("solver").masked_argmax_plan_kind
+    fn.argtypes, fn.restype = [I], ctypes.c_int
+    return ARGMAX_PLANS[fn(n)]
 
 
 def masked_argmax_warp_most() -> int:
@@ -244,9 +263,26 @@ def swap_best_fused_plan(m: int, n: int) -> str:
     return _plan("swap_best_plan_kind", SWAP_FUSED_PLANS, m, n)
 
 
+# (m, n) -> the dense swap's resolved plan
+_gain_plans: dict[tuple[int, int], str] = {}
+
+
 def swap_gain_plan(m: int, n: int) -> str:
     """The path swap_gain_cuda takes for an (m, N) panel: ``small`` (one
-    block, one launch) or ``grid``."""
+    block, one launch) or ``grid`` — the plan table's winner for the (m,
+    N) tier where it takes the panel (``autotune.resolve``), else
+    :func:`swap_gain_heuristic`'s, resolved once."""
+    if (m, n) not in _gain_plans:
+        _gain_plans[m, n] = autotune.resolve(
+            "swap_gain", {"plan": swap_gain_heuristic(m, n)},
+            takes=lambda q: autotune.swap_gain_takes(q, m, n), m=m,
+            n=n)["plan"]
+    return _gain_plans[m, n]
+
+
+def swap_gain_heuristic(m: int, n: int) -> str:
+    """The path the C heuristic picks for an (m, N) panel
+    (``swap_gain_plan_kind``)."""
     return _plan("swap_gain_plan_kind", SWAP_GAIN_PLANS, m, n)
 
 

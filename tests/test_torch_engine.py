@@ -85,10 +85,11 @@ def test_port_imports_no_jax_and_no_repro(target):
 def test_guard_covers_every_port_module():
     """The scan above reaches every module of the port, the robust
     server-update modules, the staged-3DG, vision and SSPP modules, the LM
-    serving path's configs, models, attention kernel and launcher, and the
-    batched sweep engine with its availability processes included, and
-    importing all of them in a fresh interpreter loads neither jax nor
-    repro."""
+    serving path's configs, models, attention kernel and launcher, the
+    batched sweep engine with its availability processes, the plan table,
+    the engine mesh and its rules, the fedsim launcher and the four
+    example twins included, and importing all of them in a fresh
+    interpreter loads neither jax nor repro."""
     pkg = ROOT / "src" / "repro_torch"
     mods = sorted(".".join(f.relative_to(pkg.parent).with_suffix("").parts)
                   for f in pkg.rglob("*.py"))
@@ -108,7 +109,13 @@ def test_guard_covers_every_port_module():
                  "repro_torch.fed.scan_engine",
                  "repro_torch.checkpoint.ckpt", "repro_torch.fed.runtime",
                  "repro_torch.fed.telemetry", "repro_torch.obs.sinks",
-                 "repro_torch.obs.prom", "repro_torch.launch.obs_cli"):
+                 "repro_torch.obs.prom", "repro_torch.launch.obs_cli",
+                 "repro_torch.kernels.autotune", "repro_torch.launch.mesh",
+                 "repro_torch.launch.fedsim", "repro_torch.sharding.rules",
+                 "repro_torch.examples.quickstart",
+                 "repro_torch.examples.federated_vision",
+                 "repro_torch.examples.availability_scenarios",
+                 "repro_torch.examples.serve_llm"):
         assert need in mods, need
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"

@@ -1568,3 +1568,79 @@ def test_host_snapshot_is_taken_in_stream_order(cuda):
     assert torch.equal(got["mem"], torch.arange(1 << 20,
                                                 dtype=torch.float32))
     assert torch.equal(got["rows"][0], torch.arange(4, dtype=torch.float32))
+
+
+# ------------------------------------------------------------ the plan table
+def test_table_winners_are_the_wrappers_plans(cuda):
+    """Each committed entry's winner is the plan its wrapper takes with
+    plan=None at the entry's spec shape (the tier's top), and that call
+    agrees with the kernel's plain version."""
+    from repro_torch.kernels import autotune as tat
+    table = tat.load_table()
+    assert table
+    for key, entry in sorted(table.items()):
+        kernel = key.split("|")[0]
+        dims = entry["spec"]
+        reg = tat.KERNELS[kernel]
+        inputs = reg["setup"](cuda, **dims)
+        assert tat.default_plan(kernel, **tat.call_dims(kernel, **dims)) \
+            == entry["tiles"]["plan"], key
+        assert reg["check"](reg["run"](None, *inputs),
+                            reg["plain"](*inputs)), key
+
+
+def test_table_plans_against_their_plain_versions(cuda):
+    """Every plan each entry timed, forced, against the plain version at
+    the tier's top size (bitwise; memagg's and krum's round-off bounds)."""
+    from repro_torch.kernels import autotune as tat
+    for key, entry in sorted(tat.load_table().items()):
+        kernel = key.split("|")[0]
+        reg = tat.KERNELS[kernel]
+        inputs = reg["setup"](cuda, **entry["spec"])
+        want = reg["plain"](*inputs)
+        for cand, _ in entry["candidates"]:
+            assert reg["check"](reg["run"](cand["plan"], *inputs), want), \
+                (key, cand)
+
+
+def test_argmax_warp_limit_matches_the_library(cuda):
+    assert tsolver.masked_argmax_warp_most() == tsolver.ARGMAX_WARP_MOST
+
+
+# ------------------------------------------------------------------ the mesh
+def _nccl_rank(rank, world):
+    """A one-rank NCCL world: the (1, 1) mesh's run of four mixed cells
+    and the unmeshed run of the same cells, both on the card."""
+    from repro_torch.core.availability_device import make_process
+    from repro_torch.core.sampler_device import make_sampler_process
+    from repro_torch.fed.scan_engine import ScanConfig, ScanEngine, oracle_h
+    ds = make_synthetic(n_clients=30, alpha=0.5, beta=0.5, seed=0)
+    h = oracle_h(ds.opt_params)
+    out = []
+    for mesh in ((1, 1), None):
+        eng = ScanEngine(ds, logistic_regression(), ScanConfig(
+            rounds=6, m=6, local_steps=5, batch_size=10, max_sweeps=16,
+            mesh=mesh))
+        cells = [eng.cell(
+            seed=i, h=h, avail_seed=40 + i,
+            process=make_process(("GE", "CLUSTER", "DRIFT", "DEADLINE")[i],
+                                 n_clients=30, data_sizes=ds.sizes,
+                                 label_sets=ds.label_sets(), rounds=6),
+            sampler_process=make_sampler_process(
+                ("fedgs", "uniform", "md", "fedgs")[i]),
+            aggregator_process=tad.make_aggregator_process(
+                ("fedavg", "memory", "krum", "fedavg")[i]))
+            for i in range(4)]
+        out.append([(x.sel, x.valid, x.val_loss, x.counts)
+                    for x in eng.run_batch(cells)])
+    return out
+
+
+def test_one_rank_nccl_mesh_is_the_unmeshed_run(cuda, tmp_path):
+    from repro_torch.launch.mesh import run_ranks
+    (meshed, single), = run_ranks(_nccl_rank, 1, (), backend="nccl",
+                                  init_file=str(tmp_path / "init"),
+                                  timeout=300)
+    for a, b in zip(meshed, single):
+        for x, y in zip(a, b):
+            assert np.array_equal(x, y)

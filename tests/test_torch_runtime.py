@@ -304,8 +304,11 @@ def test_runtime_stats_shape_and_rejections(ds16, tmp_path):
         ScanConfig(compile_cache_dir=str(tmp_path))
     with pytest.raises(NotImplementedError, match="no torch meaning"):
         eng.lower_batch(cells)
-    with pytest.raises(NotImplementedError, match="item 12"):
-        eng.carry_shapes(cells)
+    # carry_shapes is ported: the memory panel (N, P) as init_carry has it
+    shapes = eng.carry_shapes(cells)
+    tree = eng.init_carry(cells).tree
+    for i, st in tree["agg"].items():
+        assert shapes["agg"][i]["mem"].shape == tuple(st["mem"].shape)
 
 
 # --------------------------------------------------------------- SimService

@@ -538,10 +538,14 @@ def test_scan_config_validation():
         tse.ScanConfig(fault_frac=1.5)
     with pytest.raises(ValueError):
         tse.ScanConfig(mesh=(0,))
-    for kw in ({"mesh": (2,)}, {"silo_reduce": "psum"},
+    # the mesh fields are ported: normalized and validated as the reference
+    for kw in ({"mesh": (2,)}, {"mesh": [2, 4]}, {"silo_reduce": "psum"},
                {"cell_sharding": False}):
-        with pytest.raises(NotImplementedError, match="item 12"):
-            tse.ScanConfig(**kw)
+        cfg, ref = tse.ScanConfig(**kw), jse.ScanConfig(**kw)
+        assert (cfg.mesh, cfg.silo_reduce, cfg.cell_sharding) == \
+            (ref.mesh, ref.silo_reduce, ref.cell_sharding)
+    with pytest.raises(ValueError):
+        tse.ScanConfig(silo_reduce="allreduce")
     # the runtime knobs are ported; the compile cache has no torch meaning
     for kw in ({"telemetry": True}, {"donate_carry": False},
                {"async_pipeline": False}, {"program_cache_size": 4}):
@@ -565,8 +569,14 @@ def test_engine_without_device_raises_when_cuda_is_absent(monkeypatch,
                          tse.ScanConfig(rounds=2), device="cpu")
     with pytest.raises(NotImplementedError, match="no torch meaning"):
         eng.lower_batch([])
-    with pytest.raises(NotImplementedError, match="item 12"):
-        eng.carry_shapes([])
+    # carry_shapes is ported: a cell's carry as init_carry allocates it
+    cell = eng.cell(seed=0, mode=make_mode("IDL", n_clients=30), h=None,
+                    sampler_process=tsd.make_sampler_process("uniform"))
+    shapes = eng.carry_shapes([cell])
+    tree = eng.init_carry([cell]).tree
+    assert shapes["counts"].shape == tuple(tree["counts"].shape)
+    assert {k: v.shape for k, v in shapes["params"].items()} == \
+        {k: tuple(v.shape) for k, v in tree["params"].items()}
 
 
 def test_package_exports():
