@@ -120,18 +120,19 @@ Phases, each printing one JSON line (any failure exits non-zero):
               (c) and (d) print their gaps beside the earlier readings.
   8. scan     the batched sweep engine (``fed/scan_engine.ScanEngine``)
               at the quickstart's width: N = 30, P = 610, M = 6, E = 10, B
-              = 10, 40 rounds, max_sweeps 64.  (a) the seven Table-1 modes
+              = 10, 20 rounds (cut from 40 for time), max_sweeps 64.  (a)
+              the seven Table-1 modes
               x FedGS alpha = 1 on host masks as one ``run_batch``, each
               cell against FLEngine on the card with the same masks, init
               and batch indices: the same sets and counts every round,
               val_loss within 1e-4, B3/B4 launches exactly 7 x the slice
-              phase's FLEngine run's.  (b) eight cells on the device
+              phase's FLEngine run's a round.  (b) eight cells on the device
               processes (LN table, Gilbert–Elliott, cluster, drift,
               deadline; the four samplers; FedAvg, memory, multi-Krum; one
               20% sign-flip cell), every draw made on the host from a seed:
               the batch equals each cell's own run on the card (sets,
               val_loss within 1e-5) and the CPU batch (sets and Krum rows
-              over the 40 rounds; val_loss within 1e-4 round by round,
+              over the 20 rounds; val_loss within 1e-4 round by round,
               each card round replayed on the CPU from the card's state:
               free-running, some cells amplify round-off to ~1e-3, as a
               one-ulp change of their init does on the CPU alone, both
@@ -140,17 +141,17 @@ Phases, each printing one JSON line (any failure exits non-zero):
               draws: wall ms per round, host syncs (torch's sync debug
               mode), launches per round and one profiled batch round.
               (c) two FedGS cells on the dynamic 3DG (rebuilt every 5
-              rounds): B1 = B2 = 2 x (1 + 8); replayed on the CPU from the
+              rounds): B1 = B2 = 2 x (1 + 4); replayed on the CPU from the
               card's state, the same sets every round and each rebuilt H
               within rtol 1e-4 (the round where free-running sets part,
               printed).  Batch and one-by-one seconds printed.
   9. runtime  checkpoints, the stream, telemetry and the service at the
               scan phase's width.  (a) the scan phase's 8 mixed cells on
-              the engine's own device draws, 40 rounds checkpointed every
+              the engine's own device draws, 20 rounds checkpointed every
               10: the default run (pipelined, the carry handle consumed),
               async_pipeline=False, donate_carry=False and telemetry on,
               each bitwise the default in every history field and every
-              checkpoint array; a fresh engine resumed from the round-30
+              checkpoint array; a fresh engine resumed from the round-10
               file, bitwise the unbroken run, launching B3 = 3 x 6 x 10
               and B3/B4/B6/B7 exactly as the unbroken run's last segment
               (counted at the inline stream's yields); the pipelined
@@ -161,7 +162,7 @@ Phases, each printing one JSON line (any failure exits non-zero):
               rounds saved at round 20, a resumed tail bitwise the
               unbroken 40 rounds (sets, val_loss, final params), B3 =
               120, B4 = 1,280 (and memagg 20) in the tail.  (c) SimService:
-              4 FedGS cells, drain(segment=10) streams 16 updates whose
+              4 FedGS cells, drain(segment=10) streams 8 updates whose
               histories are bitwise run_batch's; metrics_text() parses as
               Prometheus text.  (d) telemetry card vs CPU over 10 rounds on
               host draws, each card round replayed on the CPU from the
@@ -202,18 +203,49 @@ Phases, each printing one JSON line (any failure exits non-zero):
               bitwise the unbroken (2, 1) run's, the resumed round's
               decisions bitwise and its val_loss within 1e-5 (CUDA's
               batched products are not batch-invariant).
- 13. examples the four example twins on the card, as users run them:
+ 13. examples the five example twins on the card, as users run them:
               the quickstart's FedGS and uniform sets equal the slice
               phase's runs round for round; the availability scenarios'
               five cells, run as one batch, equal their own runs; the
               vision twin (3 rounds, 20 clients) and serve_llm (batch 4,
-              8 tokens) exit cleanly.  Their printouts go to
-              ``chiprun_out/examples/``.
- 14. the ``{"kernels": [...]}`` line (times at the main path's shapes:
+              8 tokens) exit cleanly; train_federated_lm (its reduced
+              defaults, 2 rounds) has ``launch.train.main``'s sets and
+              counts.  Their printouts go to ``chiprun_out/examples/``.
+ 14. train    federated LM training, ``launch.train.main`` as users run
+              it: (a) smollm-135m at full width (bf16, P = 134,515,008),
+              16 clients, M = 4, E = B = 4, S = 64, FedGS under SLN, the
+              memory aggregator over the (16, P) panel (more than 2^31
+              entries), 5 rounds: every parameter finite; each round's
+              set equal to the plain ``fedgs_select`` on the CPU from the
+              card's H, counts and mask; launches B5a = B5b = B2 = 1,
+              B3 = min(M, |A_t|) and B4 = 64 a round, B6 = 1 a round,
+              B9 = 0; memagg's first call against its plain version on
+              the same panel (panel bitwise, red within 1e-5); s a
+              round, ms a local step, tokens/s, the server update's ms,
+              peak memory, one more round profiled (busy share); memagg
+              at (16, P, 4) timed beside its bound.  (b) Krum under a 25%
+              sign-flip, 3 rounds: each round's rows bitwise the plain
+              selection's on the CPU from the same stacked updates; B7 at
+              (4, P) timed beside its bound.  (c) one local step at full
+              width, card vs CPU from the same weights and batch: f32
+              loss within 1e-5 and the gradient's norm of difference
+              within 1e-4 relative, bf16 printed; the AdamW update's gap
+              printed.  (d) the reduced f32 config, 5 rounds, memory and
+              Krum (sign-flip), card vs CPU on the same host batch rows:
+              sets, counts and Krum rows bitwise; val_loss within 1e-4
+              each round from the card's state (the round replayed on the
+              CPU from the card's params and server state), the
+              free-running gap printed.  (e) granite-moe-1b-a400m at full
+              width: ``serve.main`` (24 B9 launches, 8 decode steps) and
+              its logits card vs CPU within atol 5e-2, rtol 2e-2; one
+              train step (remat, AdamW with bf16 moments) finite, and
+              again, bit for bit.
+ 15. the ``{"kernels": [...]}`` line (times at the main path's shapes:
      N = 30, M = 6, P = 610; the similarity also at the vision phase's
      (100, 13946) update-cosine 3DG, with that call's launches; the dense
      swap at the vision solve's (m, N) = (10, 100); window attention at
-     smollm's prefill; ``scan_launches``: the scan phase's gated runs).
+     smollm's prefill; ``scan_launches``: the scan phase's gated runs;
+     ``train_launches``: the train phase's (a) and (b)).
 The last line is ``{"ok": true, "device": {...}}``.  The script needs a CUDA
 device and the repository's ``src/`` beside it; without either it exits
 non-zero and prints no result.  Full output also goes to
@@ -294,7 +326,10 @@ KRUM_MULTI = max(2, 6 // 2)
 MAIN_N = ENGINE_RUNS[0][0]
 # phase 8: the batched sweep engine at the quickstart's width (FedGSSampler's
 # max_sweeps; the dynamic 3DG rebuilt every 5 rounds)
-SCAN = {"rounds": 40, "max_sweeps": 64, "graph_refresh_every": 5}
+SCAN = {"rounds": 20, "max_sweeps": 64, "graph_refresh_every": 5}
+# the slice phase's FLEngine rounds (the scan phase's launch gates scale
+# its per-round counts)
+SLICE_ROUNDS = 40
 # phase 9: the runtime layer on the scan phase's cells: checkpoints every 10
 # rounds (a fresh engine resumes from round 30), FLEngine's head of 20
 # rounds, the service's 4 FedGS cells, telemetry card vs CPU over 10 rounds
@@ -2094,14 +2129,14 @@ def scan_run(np, torch, dev, one_run: dict) -> tuple[dict, dict]:
              for i, mo in enumerate(modes)]
     batch, sec_a, la = counted(lambda: eng.run_batch(cells))
     add(la)
-    want = {"greedy_argmax": len(modes) * one_run["greedy_argmax"],
-            "swap_best_fused": len(modes) * one_run["swap_best_fused"]}
-    if one_run["greedy_argmax"] != rounds * m or \
-            one_run["swap_best_fused"] != rounds * sweeps or \
+    want = {k: len(modes) * one_run[k] * rounds // SLICE_ROUNDS
+            for k in ("greedy_argmax", "swap_best_fused")}
+    if one_run["greedy_argmax"] != SLICE_ROUNDS * m or \
+            one_run["swap_best_fused"] != SLICE_ROUNDS * sweeps or \
             any(la[k] != v for k, v in want.items()):
         raise AssertionError(f"scan (a): launches {la}, want {want} "
                              f"(7 x the slice phase's FLEngine run "
-                             f"{one_run})")
+                             f"{one_run} a round)")
     gaps, fl_launches, one_s = [], [], 0.0
     for i, (mo, hist) in enumerate(zip(modes, batch)):
         fl = FLEngine(ds, model, FedGSSampler(alpha=1.0, device=dev), mo,
@@ -2567,7 +2602,7 @@ def runtime_run(np, torch, dev, kept: dict) -> dict:
         h_tail, sec = timed(lambda e=eng, p=path: e.run(ckpt_path=p,
                                                        resume=True))
         lt = ops.launches()
-        tail_rounds = rounds - head_rounds
+        tail_rounds = len(h_full.all_sampled) - head_rounds
         want_l = {"greedy_argmax": tail_rounds * m,
                   "swap_best_fused": tail_rounds * sweeps,
                   "memagg": tail_rounds if key.startswith("memory") else 0}
@@ -3053,6 +3088,18 @@ def examples_run(np, torch, dev, slice_sets: dict) -> dict:
                                              *on])
     if tok.shape != (4, 8):
         raise AssertionError(f"examples: serve_llm tokens {tok.shape}")
+    from repro_torch.examples import train_federated_lm as tfl
+    from repro_torch.launch import train
+    argv = ["--rounds", "2", *on]
+    _, counts, sets = twin("train_federated_lm", tfl.main, argv)
+    own = []
+    with contextlib.redirect_stdout(io.StringIO()):
+        _, own_counts = train.main(tfl.with_defaults(argv), on_round=lambda
+                                   r: own.append(r["sel"].tolist()))
+    if sets != own or not np.array_equal(counts, own_counts):
+        raise AssertionError("examples: the training twin's sets are not "
+                             "train.main's")
+    info["train_federated_lm"] = "2 rounds' sets and counts = train.main's"
     info["seconds"] = time.perf_counter() - t_phase
     return info
 
@@ -3361,6 +3408,648 @@ def serve_run(np, torch, dev) -> tuple[dict, int]:
     return info, launched["window_attention"]
 
 
+# ------------------------------------------------------------ phase 14
+# federated LM training (launch/train.py) at smollm-135m's full width: the
+# reference docstring's accelerator run (--reduced dropped)
+TRAIN_ARCH = "smollm-135m"
+TRAIN_ARGV = ["--arch", TRAIN_ARCH, "--clients", "16", "--sample-frac",
+              "0.25", "--local-steps", "4", "--batch", "4", "--seq", "64",
+              "--sampler", "fedgs", "--mode", "SLN", "--seed", "0"]
+TRAIN = {"rounds": 5, "krum_rounds": 3, "byz_frac": 0.25, "max_sweeps": 64,
+         "loss_rtol": 1e-5, "grad_rtol": 1e-4, "val_bound": 1e-4}
+MOE_ARCH = "granite-moe-1b-a400m"
+MOE_SERVE = {"batch": 2, "prompt": 32, "gen": 9}
+MOE_TRAIN_BATCH = (4, 64)
+
+
+def _to_cpu(torch, tree):
+    """A nested dict / list of tensors copied to the CPU."""
+    if isinstance(tree, dict):
+        return {k: _to_cpu(torch, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_to_cpu(torch, v) for v in tree)
+    if isinstance(tree, torch.Tensor):
+        return tree.detach().to("cpu", copy=True)
+    return tree
+
+
+def _host_rows(np, n_seq: int, steps: int, batch: int):
+    """batch_indices(t, slot, client): (E, B) rows from a numpy stream keyed
+    by (t, slot), the same on the card and on the CPU."""
+    def rows(t, j, k):
+        rng = np.random.default_rng(np.random.SeedSequence([7, t, j]))
+        return rng.integers(0, n_seq, (steps, batch))
+    return rows
+
+
+def _fedgs_plain_set(np, torch, info, max_sweeps: int) -> list:
+    """The round's FedGS set from the card's H, counts and mask, solved by
+    the plain versions on the CPU."""
+    from repro_torch.core.sampler_device import fedgs_select
+    sampler, avail = info["setup"].sampler, info["avail"]
+    m = info["setup"].m
+    s = fedgs_select(sampler._h.cpu(),
+                     torch.as_tensor(info["counts"], dtype=torch.float32),
+                     torch.as_tensor(avail), sampler.alpha,
+                     m=int(min(m, avail.sum())), max_sweeps=max_sweeps,
+                     m_target=m)
+    return np.flatnonzero(s.numpy()).tolist()
+
+
+def _krum_plain_rows(torch, info) -> list:
+    """The Krum rows the plain version picks on the CPU from the round's
+    stacked updates (as aggregated); the card's are the server's."""
+    from repro_torch.fed.aggregator_device import _flat_template, krum_select
+    server = info["server"]
+    ravel, _, _ = _flat_template(server.state["prev"])
+    x = ravel(info["stacked"]).cpu()
+    th = [float(v) for v in server.process.params()["theta"]]
+    chosen, _ = krum_select(x, torch.ones(x.shape[0], dtype=torch.bool),
+                            int(round(th[0])), int(round(th[1])))
+    return chosen.tolist()
+
+
+def _round_rows(info, train_argv) -> dict:
+    """A round's printed numbers."""
+    args = {train_argv[i]: train_argv[i + 1]
+            for i in range(0, len(train_argv) - 1, 2)}
+    steps = len(info["sel"]) * int(args["--local-steps"])
+    tokens = steps * int(args["--batch"]) * int(args["--seq"])
+    wall = info["train_s"] + info["aggregate_s"] + info["eval_s"]
+    return {"t": info["t"], "sel": info["sel"].tolist(),
+            "val_loss": info["val_loss"], "round_s": wall,
+            "local_step_ms": info["train_s"] * 1e3 / steps,
+            "train_tokens_per_s": tokens / info["train_s"],
+            "aggregate_ms": info["aggregate_s"] * 1e3,
+            "eval_ms": info["eval_s"] * 1e3}
+
+
+def train_full_width(np, torch, dev, info: dict) -> dict:
+    """(a) the memory aggregator over the (16, 134.5M) panel and (b) Krum
+    under a 25% sign-flip, both through ``launch.train.main`` as users run
+    it.  Returns the launches of (a) + (b)."""
+    from repro_torch.kernels import aggregate as ag
+    from repro_torch.kernels import krum as kr
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train
+
+    # (a) memory: every round's set against the plain solve, memagg's first
+    # call against its plain version on the same panel
+    argv = TRAIN_ARGV + ["--aggregator", "memory", "--rounds",
+                         str(TRAIN["rounds"])]
+    rounds, last, check = [], {}, {}
+    orig = ops.memory_aggregate
+
+    def memagg_checked(mem, upd, sel, valid, w):
+        if check:
+            out = orig(mem, upd, sel, valid, w)
+        else:
+            before = mem.clone()
+            out = orig(mem, upd, sel, valid, w)
+            pm, pr = ag.memory_scatter_reduce_ref(before, upd, sel, valid, w)
+            torch.cuda.synchronize()
+            if not torch.equal(out[0], pm):
+                raise AssertionError("train (a): memagg's panel is not the "
+                                     "plain scatter's")
+            e = (out[1] - pr).abs()
+            check.update(
+                entries=mem.numel(), max_abs_err=float(e.max()),
+                within=bool((e <= 1e-5 + 1e-5 * pr.abs()).all()),
+                tolerance="panel bitwise, red atol = rtol = 1e-5")
+            del before, pm, pr
+            if not check["within"]:
+                raise AssertionError(f"train (a): memagg's reduction beyond "
+                                     f"1e-5 ({check['max_abs_err']})")
+        last.update(args=(mem, upd, sel, valid, w))
+        return out
+
+    def on_round(r):
+        want = _fedgs_plain_set(np, torch, r, TRAIN["max_sweeps"])
+        if r["sel"].tolist() != want:
+            raise AssertionError(f"train (a) round {r['t']}: set "
+                                 f"{r['sel'].tolist()} != the plain solve's "
+                                 f"{want}")
+        rounds.append({**_round_rows(r, argv),
+                       "available": int(r["avail"].sum())})
+        last.update(info=r)
+
+    ops.memory_aggregate = memagg_checked
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        params, counts = train.main(argv, on_round=on_round)
+        torch.cuda.synchronize()
+        main_s = time.perf_counter() - t0
+        launched = ops.launches()
+    finally:
+        ops.memory_aggregate = orig
+    peak = torch.cuda.max_memory_allocated()
+    n_rounds, m = len(rounds), last["info"]["setup"].m
+    want = {"pairwise_similarity": 1, "adjacency": 1, "floyd_warshall": 1,
+            "greedy_argmax": sum(min(m, r["available"]) for r in rounds),
+            "swap_best_fused": TRAIN["max_sweeps"] * n_rounds,
+            "memagg": n_rounds, "window_attention": 0}
+    others = {k: v for k, v in launched.items() if k not in want and v}
+    if any(launched[k] != v for k, v in want.items()) or others or \
+            n_rounds != TRAIN["rounds"]:
+        raise AssertionError(f"train (a): launches {launched}, expected "
+                             f"{want} over {n_rounds} rounds")
+    if not all(bool(torch.isfinite(v.float()).all()) for v in params.values()):
+        raise AssertionError("train (a): a parameter is not finite")
+    n_params = sum(v.numel() for v in params.values())
+    # one more round, profiled (device activity only: a round launches
+    # ~1e5 kernels, and the host ops' events would cost more than the
+    # round): its device busy share
+    r = last["info"]
+    acts = [torch.profiler.ProfilerActivity.CUDA]
+    args = train.parse_args(argv)
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        train.train_round(r["setup"], args, params, r["server"], None,
+                          TRAIN["rounds"], r["sel"], r["avail"])
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    on_dev = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    dev_us = sum(e.self_device_time_total for e in on_dev)
+    top = sorted(((e.key, e.self_device_time_total, e.count)
+                  for e in on_dev), key=lambda x: -x[1])[:6]
+    # memagg at this shape: times beside its bound
+    mem, upd, sel, valid, w = last["args"]
+    n, p = mem.shape
+    mm = sel.shape[0]
+    b, by = bound(4 * (mm * p + n * p + n + p) + 9 * mm, 2 * n * p)
+
+    def library():
+        mem.index_copy_(0, sel, upd)
+        return torch.mv(mem.T, w)
+    memagg_row = dict(
+        n=n, p=p, m=mm, plan=ag.memagg_plan(n, p, mm), **check,
+        ms=cuda_ms(torch, lambda: ag.memory_aggregate_cuda(
+            mem, upd, sel, valid, w), max_reps=20),
+        device_ms=device_ms(torch, lambda: ag.memory_aggregate_cuda(
+            mem, upd, sel, valid, w), reps=5),
+        plain_ms=cuda_ms(torch, lambda: ag.memory_scatter_reduce_ref(
+            mem, upd, sel, valid, w), max_reps=5),
+        bound_ms=b, bound_by=by,
+        library_ms=cuda_ms(torch, library, max_reps=5),
+        library="index_copy_ + torch.mv")
+    memagg_row["x_bound"] = memagg_row["device_ms"] / b
+    del mem, upd, sel, valid, w, library
+    last.clear()
+    r = None
+    info["a"] = {"argv": argv, "n_params": n_params,
+                 "panel_entries": check["entries"],
+                 "panel_over_2p31": check["entries"] > 2 ** 31,
+                 "main_s": main_s, "rounds": rounds,
+                 "launches": {k: launched[k] for k in want},
+                 "launch_gates": want, "peak_mem_bytes": int(peak),
+                 "counts": counts.tolist(), "memagg": memagg_row,
+                 "profiled_round": {
+                     "wall_ms": wall_ms, "device_ms": dev_us / 1e3,
+                     "device_busy_share": dev_us / 1e3 / wall_ms,
+                     "kernel_launches": sum(e.count for e in on_dev),
+                     "top_device_ms": [[k[:90], us / 1e3, c]
+                                       for k, us, c in top]}}
+    del params
+    torch.cuda.empty_cache()
+
+    # (b) Krum under a 25% sign-flip: every round's rows against the plain
+    # selection on the CPU from the same stacked updates
+    argv_b = TRAIN_ARGV + ["--aggregator", "krum", "--fault", "sign_flip",
+                           "--byzantine-frac", str(TRAIN["byz_frac"]),
+                           "--rounds", str(TRAIN["krum_rounds"])]
+    rows_b, xs = [], {}
+
+    def on_round_b(r):
+        card = r["server"].last_chosen.cpu().tolist()
+        plain = _krum_plain_rows(torch, r)
+        if card != plain:
+            raise AssertionError(f"train (b) round {r['t']}: Krum rows "
+                                 f"{card} != the plain selection's {plain}")
+        rows_b.append({**_round_rows(r, argv_b), "krum_rows": card})
+        from repro_torch.fed.aggregator_device import _flat_template
+        xs["x"] = _flat_template(r["server"].state["prev"])[0](r["stacked"])
+
+    ops.reset_launches()
+    params, _ = train.main(argv_b, on_round=on_round_b)
+    launched_b = ops.launches()
+    if launched_b["krum"] != TRAIN["krum_rounds"] or launched_b["memagg"]:
+        raise AssertionError(f"train (b): launches {launched_b}")
+    if not all(bool(torch.isfinite(v.float()).all()) for v in params.values()):
+        raise AssertionError("train (b): a parameter is not finite")
+    x = xs.pop("x").contiguous()
+    mk, pk = x.shape
+    b, by = bound(4 * (mk * pk + mk * mk), mk * (mk + 1) * pk)
+    krum_row = dict(
+        m=mk, p=pk, plan=kr.krum_plan(mk, pk),
+        ms=cuda_ms(torch, lambda: kr.krum_distances_cuda(x), max_reps=20),
+        device_ms=device_ms(torch, lambda: kr.krum_distances_cuda(x),
+                            reps=5),
+        plain_ms=cuda_ms(torch, lambda: kr.krum_pairwise_ref(x), max_reps=5),
+        bound_ms=b, bound_by=by,
+        library_ms=cuda_ms(torch, lambda: torch.cdist(x, x).square(),
+                           max_reps=5),
+        library="torch.cdist(x, x).square()")
+    krum_row["x_bound"] = krum_row["device_ms"] / b
+    info["b"] = {"argv": argv_b, "rounds": rows_b, "krum": krum_row,
+                 "launches": {k: v for k, v in launched_b.items() if v},
+                 "krum_rows": "bitwise the plain selection's, every round"}
+    del x, params
+    torch.cuda.empty_cache()
+    return {k: launched[k] + launched_b[k] for k in launched}
+
+
+def train_step_card_vs_cpu(np, torch, dev) -> dict:
+    """(c) one local AdamW step at full width from the same weights and
+    batch, card against CPU: f32 gated (loss, the gradient's global norm of
+    difference), bf16 printed."""
+    import dataclasses
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch import steps
+    from repro_torch.models import lm
+    from repro_torch.optim.optimizers import adamw
+    from repro_torch.utils.tree import global_norm
+
+    out = {"tf32_matmul": torch.backends.cuda.matmul.allow_tf32}
+    toks = torch.as_tensor(np.random.default_rng(11).integers(0, 512, (4,
+                                                                      65)))
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    for dt in ("float32", "bfloat16"):
+        cfg = dataclasses.replace(get_config(TRAIN_ARCH), dtype=dt)
+        p_cpu = lm.init_params(cfg, seed=0, device="cpu")
+        p_dev = {k: v.to(dev) for k, v in p_cpu.items()}
+
+        def loss_fn(p, b):
+            return lm.train_loss(p, cfg, b, remat=False)
+        t0 = time.perf_counter()
+        l_cpu, g_cpu = steps.value_and_grad(loss_fn, p_cpu, batch)
+        cpu_s = time.perf_counter() - t0
+        l_dev, g_dev = steps.value_and_grad(
+            loss_fn, p_dev, {k: v.to(dev) for k, v in batch.items()})
+        gap = {k: g_dev[k].cpu().float() - g_cpu[k].float() for k in g_cpu}
+        row = {"loss_cpu": float(l_cpu), "loss_card": float(l_dev),
+               "loss_rel_gap": abs(float(l_dev) - float(l_cpu)) /
+               abs(float(l_cpu)),
+               "grad_norm": float(global_norm(g_cpu)),
+               "grad_gap_rel": float(global_norm(gap)) /
+               float(global_norm(g_cpu)), "cpu_step_s": cpu_s}
+        opt = adamw()
+        with torch.no_grad():
+            n_cpu, _ = opt.update(g_cpu, opt.init(p_cpu), p_cpu, 3e-3)
+            n_dev, _ = opt.update(g_dev, opt.init(p_dev), p_dev, 3e-3)
+        d = [(n_dev[k].cpu().float() - n_cpu[k].float()).abs() for k in n_cpu]
+        row["adamw_param_max_gap"] = max(float(x.max()) for x in d)
+        row["adamw_params_off_by_1e-4"] = sum(int((x > 1e-4).sum())
+                                              for x in d)
+        out[dt] = row
+        del p_cpu, p_dev, g_cpu, g_dev, n_cpu, n_dev, gap, d
+    f32 = out["float32"]
+    if f32["loss_rel_gap"] > TRAIN["loss_rtol"] or \
+            f32["grad_gap_rel"] > TRAIN["grad_rtol"]:
+        raise AssertionError(f"train (c): f32 step card vs CPU: loss "
+                             f"{f32['loss_rel_gap']}, gradient "
+                             f"{f32['grad_gap_rel']}")
+    out["bounds"] = (f"f32: loss rel <= {TRAIN['loss_rtol']}, |g_card - "
+                     f"g_cpu| / |g_cpu| <= {TRAIN['grad_rtol']}; bf16 "
+                     "printed")
+    torch.cuda.empty_cache()
+    return out
+
+
+def train_reduced_card_vs_cpu(np, torch, dev) -> dict:
+    """(d) the reduced f32 config, 5 rounds, memory and Krum (under the
+    25% sign-flip), card against CPU on the same host batch rows: sets,
+    counts and Krum rows bitwise free-running; val_loss within 1e-4 each
+    round from the card's state (the round replayed on the CPU from the
+    card's params and server state), the free-running gap printed."""
+    from repro_torch.fed.faults_device import (HostFaultInjector,
+                                               make_fault_process)
+    from repro_torch.fed.aggregator_device import make_aggregator_process
+    from repro_torch.fed.server import ServerAggregator
+    from repro_torch.launch import train
+
+    out = {}
+    for agg in ("memory", "krum"):
+        argv = TRAIN_ARGV + ["--reduced", "--aggregator", agg, "--rounds",
+                             str(TRAIN["rounds"])]
+        if agg == "krum":
+            argv += ["--fault", "sign_flip", "--byzantine-frac",
+                     str(TRAIN["byz_frac"])]
+        args_cpu = train.parse_args(argv + ["--device", "cpu"])
+        rows = _host_rows(np, args_cpu.batch * 8 - 1, args_cpu.local_steps,
+                          args_cpu.batch)
+        runs = {}
+        for side, extra in (("card", []), ("cpu", ["--device", "cpu"])):
+            rec = []
+
+            def keep(r, rec=rec, side=side):
+                rec.append({"t": r["t"], "sel": r["sel"].tolist(),
+                            "avail": r["avail"], "val_loss": r["val_loss"],
+                            "chosen": None if r["server"].last_chosen is None
+                            else r["server"].last_chosen.cpu().tolist(),
+                            "after": None if side == "cpu" else _to_cpu(
+                                torch, {"params": r["params"],
+                                        "server": r["server"].state,
+                                        "faults": None if r["faults"] is None
+                                        else r["faults"].state})})
+            _, counts = train.main(argv + extra, batch_indices=rows,
+                                   on_round=keep)
+            runs[side] = (rec, counts)
+        (card, c_card), (cpu, c_cpu) = runs["card"], runs["cpu"]
+        if [r["sel"] for r in card] != [r["sel"] for r in cpu] or \
+                not np.array_equal(c_card, c_cpu):
+            raise AssertionError(f"train (d) {agg}: sets or counts differ")
+        if [r["chosen"] for r in card] != [r["chosen"] for r in cpu]:
+            raise AssertionError(f"train (d) {agg}: Krum rows differ")
+        # each round t > 0 again on the CPU from the card's state after t-1
+        s = train.setup(args_cpu)
+        replay = [abs(cpu[0]["val_loss"] - card[0]["val_loss"])]
+        for prev, now in zip(card, card[1:]):
+            st = prev["after"]
+            server = ServerAggregator(make_aggregator_process(agg),
+                                      n_clients=s.n, data_sizes=s.sizes)
+            server.init(st["params"])
+            server.state = st["server"]
+            faults = None
+            if st["faults"] is not None:
+                faults = HostFaultInjector(
+                    make_fault_process("sign_flip", s.n,
+                                       frac=TRAIN["byz_frac"]),
+                    fault_seed=args_cpu.seed + 0xFA17)
+                faults.init(st["params"])
+                faults.state = st["faults"]
+            got = train.train_round(s, args_cpu, st["params"], server, faults,
+                                    now["t"], np.asarray(now["sel"]),
+                                    now["avail"], batch_indices=rows)
+            if agg == "krum" and server.last_chosen.tolist() != now["chosen"]:
+                raise AssertionError(f"train (d) krum round {now['t']}: "
+                                     "replayed Krum rows differ")
+            replay.append(abs(got["val_loss"] - now["val_loss"]))
+        if max(replay) > TRAIN["val_bound"]:
+            raise AssertionError(f"train (d) {agg}: val_loss from the card's "
+                                 f"state {replay} beyond {TRAIN['val_bound']}")
+        out[agg] = {"sets": [r["sel"] for r in card],
+                    "counts": c_card.tolist(),
+                    "krum_rows": [r["chosen"] for r in card],
+                    "val_loss_card": [r["val_loss"] for r in card],
+                    "val_gap_free_running": [abs(a["val_loss"] -
+                                                 b["val_loss"])
+                                             for a, b in zip(card, cpu)],
+                    "val_gap_from_card_state": replay}
+    out["bound"] = (f"sets, counts, Krum rows bitwise; val_loss <= "
+                    f"{TRAIN['val_bound']} a round from the card's state")
+    return out
+
+
+def train_moe(np, torch, dev) -> dict:
+    """(e) granite-moe-1b-a400m at full width, random weights: serve.main
+    (B9 prefill + 8 decode steps); each layer's output and each step's
+    logits on the CPU from the card's state within the serve gates, the
+    card's tokens and expert choices forced (a random router's top-8 of 32
+    sits on near-ties that bf16 round-off flips; the CPU's own choice must
+    agree wherever its margin exceeds twice the probabilities' gap); the
+    free-running gaps and both sides' gaps to an f32 run printed; one
+    train step on the card, finite, and again, bitwise."""
+    import contextlib
+    import dataclasses
+    import io
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve, steps
+    from repro_torch.models import ffn, lm
+
+    cfg = get_config(MOE_ARCH)
+    out = {"arch": MOE_ARCH, "layers": cfg.n_layers, "d_model": cfg.d_model,
+           "experts": [cfg.moe.num_experts, cfg.moe.top_k],
+           "dtype": cfg.dtype}
+    argv = ["--arch", MOE_ARCH, "--batch", str(MOE_SERVE["batch"]),
+            "--prompt-len", str(MOE_SERVE["prompt"]), "--gen",
+            str(MOE_SERVE["gen"]), "--seed", "0"]
+    # one draw of the weights (24 s on the CPU at this width) serves both
+    # sides: serve.main's own ``lm.init_params(cfg, seed=0, device=card)``
+    # draws on the CPU and moves the result, so it gets these moved
+    t0 = time.perf_counter()
+    params_cpu = lm.init_params(cfg, seed=0, device="cpu")
+    out["init_s"] = time.perf_counter() - t0
+    params = {k: v.to(dev) for k, v in params_cpu.items()}
+    real_init = lm.init_params
+
+    def drawn(c, *, seed=0, device=None):
+        if c != cfg or seed != 0:
+            raise AssertionError("train (e): serve.main asked for other "
+                                 "weights")
+        return params
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    lm.init_params = drawn
+    try:
+        with contextlib.redirect_stdout(io.StringIO()):
+            served = serve.main(argv)
+    finally:
+        lm.init_params = real_init
+    out["serve_main_s"] = time.perf_counter() - t0
+    launched = ops.launches()
+    if launched["window_attention"] != cfg.n_layers or \
+            any(v for k, v in launched.items() if k != "window_attention"):
+        raise AssertionError(f"train (e): serve launches {launched}")
+    out["n_params"] = sum(v.numel() for v in params.values())
+    toks = torch.as_tensor(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (MOE_SERVE["batch"], MOE_SERVE["prompt"])))
+    n_gen = MOE_SERVE["gen"]
+
+    def steps_of(p, c, tk, forced, tap=None):
+        """Prefill, then n_gen - 1 decode steps (the card's greedy tokens,
+        or ``forced``'s): every step's logits."""
+        logits, cache = lm.prefill(p, c, {"tokens": tk},
+                                   max_len=tk.shape[1] + n_gen, tap=tap)
+        res = [logits]
+        for i in range(1, n_gen):
+            nxt = logits.argmax(-1) if forced is None else forced[:, i - 1]
+            logits, cache = lm.decode_step(p, c, nxt, cache, tap=tap)
+            res.append(logits)
+        return res
+
+    def over_gate(a, b):
+        e = (a.float().cpu() - b.float().cpu()).abs()
+        return float(e.max()), float(
+            (e / (LM_ATOL + LM_RTOL * b.float().cpu().abs())).max())
+
+    # the card's run records each layer's output and each MoE call's
+    # expert choices
+    real_top_k, calls, layers = ffn._top_k, [], []
+
+    def recorded(probs, k):
+        vals, idx = real_top_k(probs, k)
+        calls.append((idx.cpu(), probs.detach().float().cpu()))
+        return vals, idx
+
+    def record(i, x):
+        layers.append(x.cpu())
+        return x
+    ffn._top_k = recorded
+    try:
+        card = steps_of(params, cfg, toks.to(dev), None, tap=record)
+    finally:
+        ffn._top_k = real_top_k
+    card_toks = torch.stack([x.argmax(-1) for x in card], 1).cpu()
+    if not np.array_equal(card_toks.numpy(), served):
+        raise AssertionError("train (e): serve.main's tokens are not the "
+                             "step loop's")
+    # the CPU from the card's state: each layer from the card's input to
+    # it, the card's expert choices forced, its own choice held where its
+    # margin exceeds twice the probabilities' gap
+    route = {"calls": 0, "tokens": 0, "flips": 0, "gated": 0,
+             "gated_flips": 0}
+    queue, layer_q, layer_err = iter(calls), iter(layers), []
+
+    def forced(probs, k):
+        idx, p_card = next(queue)
+        _, own = real_top_k(probs, k)
+        top = torch.sort(probs.float(), dim=-1, descending=True).values
+        margin = top[..., k - 1] - top[..., k]
+        gap = (probs.float() - p_card).abs().amax(-1)
+        flip = (torch.sort(own, -1).values !=
+                torch.sort(idx, -1).values).any(-1)
+        gated = margin > 2 * gap
+        route["calls"] += 1
+        route["tokens"] += flip.numel()
+        route["flips"] += int(flip.sum())
+        route["gated"] += int(gated.sum())
+        route["gated_flips"] += int((flip & gated).sum())
+        return probs.gather(-1, idx), idx
+
+    def from_card(i, x):
+        want = next(layer_q)
+        layer_err.append(over_gate(x, want))
+        return want.to(x.dtype)
+    ffn._top_k = forced
+    t0 = time.perf_counter()
+    try:
+        cpu = steps_of(params_cpu, cfg, toks, card_toks, tap=from_card)
+    finally:
+        ffn._top_k = real_top_k
+    out["cpu_serve_s"] = time.perf_counter() - t0
+    logit_err = [over_gate(a, b) for a, b in zip(card, cpu)]
+    layer_route = dict(route)
+    # findings, not gated: the CPU free-running (the card's tokens only;
+    # then its expert choices too), and both sides against an f32 run of
+    # the same weights on the CPU
+    free = steps_of(params_cpu, cfg, toks, card_toks)
+    queue = iter(calls)
+    route.update({k: 0 for k in route})
+    ffn._top_k = forced
+    try:
+        routed = steps_of(params_cpu, cfg, toks, card_toks)
+    finally:
+        ffn._top_k = real_top_k
+    p32 = {k: v.float() for k, v in params_cpu.items()}
+    truth = steps_of(p32, dataclasses.replace(cfg, dtype="float32"), toks,
+                     card_toks)
+    del p32
+    if layer_route["gated_flips"]:
+        raise AssertionError(f"train (e): the CPU routes otherwise where its "
+                             f"margin exceeds twice the gap: {layer_route}")
+    worst = max(o for _, o in layer_err + logit_err)
+    if worst > 1:
+        raise AssertionError(f"train (e): a layer or the logits beyond atol "
+                             f"{LM_ATOL}, rtol {LM_RTOL} from the card's "
+                             f"state ({worst} of the gate)")
+    agree = [_gated_agreement(torch, a.cpu(), b) for a, b in zip(card, cpu)]
+    out["serve"] = {
+        "argv": argv, "launches": launched["window_attention"],
+        "bound": f"atol {LM_ATOL}, rtol {LM_RTOL}, each layer and each "
+                 "step's logits on the CPU from the card's state, the "
+                 "card's tokens and expert choices forced",
+        "logits_max_abs_err": [e for e, _ in logit_err],
+        "logits_of_gate": [o for _, o in logit_err],
+        "layers_max_abs_err": max(e for e, _ in layer_err),
+        "layers_of_gate": max(o for _, o in layer_err),
+        "layers_checked": len(layer_err), "routing": layer_route,
+        "free_running": [over_gate(a, b) for a, b in zip(card, free)],
+        "routing_forced_only": [over_gate(a, b) for a, b in
+                                zip(card, routed)],
+        "routing_free_running_from_card_choices": dict(route),
+        "card_vs_f32": [over_gate(a, b)[0] for a, b in zip(card, truth)],
+        "cpu_vs_f32": [over_gate(a, b)[0] for a, b in zip(free, truth)],
+        "greedy_agree": sum(a[0] for a in agree),
+        "greedy_total": sum(a[1] for a in agree),
+        "greedy_gated": sum(a[2] for a in agree)}
+    del params_cpu, card, cpu, free, routed, truth, calls, layers
+    # one train step, twice
+    b, s = MOE_TRAIN_BATCH
+    tk = torch.as_tensor(np.random.default_rng(12).integers(
+        0, cfg.vocab_size, (b, s + 1)), device=dev)
+    batch = {"tokens": tk[:, :-1], "labels": tk[:, 1:]}
+
+    def loss_fn(p, bb):
+        return lm.train_loss(p, cfg, bb)
+    ops.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    l1, g1 = steps.value_and_grad(loss_fn, params, batch)
+    torch.cuda.synchronize()
+    grad_s = time.perf_counter() - t0
+    l2, g2 = steps.value_and_grad(loss_fn, params, batch)
+    if any(ops.launches().values()):
+        raise AssertionError(f"train (e): the train step launched "
+                             f"{ops.launches()}")
+    finite = bool(torch.isfinite(l1)) and all(
+        bool(torch.isfinite(g.float()).all()) for g in g1.values())
+    same = torch.equal(l1, l2) and all(torch.equal(g1[k], g2[k]) for k in g1)
+    del g1, g2
+    step, opt = steps.make_train_step(cfg)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    n1, _, s1 = step(params, opt.init(params), batch, 1e-3)
+    torch.cuda.synchronize()
+    step_s = time.perf_counter() - t0
+    n2, _, s2 = step(params, opt.init(params), batch, 1e-3)
+    same_step = torch.equal(s1, s2) and all(torch.equal(n1[k], n2[k])
+                                            for k in n1)
+    finite = finite and all(bool(torch.isfinite(v.float()).all())
+                            for v in n1.values())
+    out["train"] = {"batch": [b, s], "loss": float(l1),
+                    "value_and_grad_s": grad_s, "train_step_s": step_s,
+                    "finite": finite, "repeat_bitwise": same and same_step}
+    if not finite:
+        raise AssertionError("train (e): a loss, gradient or parameter is "
+                             "not finite")
+    if not (same and same_step):
+        raise AssertionError("train (e): the train step does not repeat bit "
+                             "for bit on the card")
+    del n1, n2, params
+    torch.cuda.empty_cache()
+    return out
+
+
+def train_run(np, torch, dev) -> tuple[dict, dict]:
+    """Phase 14 (see the module docstring), one JSON line per part as it
+    ends.  Returns (the phase's summary, the launches of (a) and (b))."""
+    t_phase = time.perf_counter()
+    card = smi_line()
+    parts = {}
+    t0 = time.perf_counter()
+    info: dict = {}
+    launches = train_full_width(np, torch, dev, info)
+    parts["ab"] = time.perf_counter() - t0
+    for part in ("a", "b"):
+        emit({"phase": "train", "part": part, "card": card,
+              "arch": TRAIN_ARCH, part: info[part]})
+    for part, fn in (("c", train_step_card_vs_cpu),
+                     ("d", train_reduced_card_vs_cpu), ("e", train_moe)):
+        t0 = time.perf_counter()
+        row = fn(np, torch, dev)
+        parts[part] = time.perf_counter() - t0
+        emit({"phase": "train", "part": part, "card": card, part: row,
+              "seconds": parts[part]})
+    return {"phase": "train", "card": card, "seconds_per_part": parts,
+            "seconds": time.perf_counter() - t_phase}, launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3446,6 +4135,8 @@ def main() -> int:
           "seconds": time.perf_counter() - t0, "rows": attn_rows})
     info, launches["window_attention"] = serve_run(np, torch, dev)
     emit(info)
+    info, train_launches = train_run(np, torch, dev)
+    emit(info)
     main_rows = {
         "pairwise_similarity": staged_rows[
             "pairwise_similarity/{}x{}".format(*STAGED_SHAPES[0])],
@@ -3469,6 +4160,7 @@ def main() -> int:
         kernels.append({"name": name, "route": "cuda", "source": source,
                         "replaces": replaces, "launches": launches[name],
                         "scan_launches": scan_launches.get(name, 0),
+                        "train_launches": train_launches.get(name, 0),
                         "max_abs_err": row["max_abs_err"], "ms": row["ms"],
                         "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
                         "bound_by": row["bound_by"],

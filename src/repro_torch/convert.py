@@ -37,15 +37,18 @@ def lm_params_from_jax(params, *, device="cpu") -> dict[str, torch.Tensor]:
     """``repro.models.lm.init_params``' pytree (as numpy) -> the port's LM
     parameter dict (``repro_torch.models.lm``: dotted keys, per-layer leaves
     stacked on the leading L axis), bit for bit.  Raises on a pytree that is
-    not a dense LM's."""
+    not a dense or an MoE LM's."""
     out = params_from_jax(params, device=device)
+    part = "moe" if any(k.startswith("blocks.moe.") for k in out) else "ffn"
     need = {"embed", "final_norm", "blocks.attn.norm", "blocks.attn.wq",
             "blocks.attn.wk", "blocks.attn.wv", "blocks.attn.wo",
-            "blocks.ffn.norm", "blocks.ffn.w_in", "blocks.ffn.w_out"}
-    known = need | {"lm_head", "blocks.ffn.w_gate"}
+            f"blocks.{part}.norm", f"blocks.{part}.w_in",
+            f"blocks.{part}.w_out"} | (
+                {"blocks.moe.router"} if part == "moe" else set())
+    known = need | {"lm_head", f"blocks.{part}.w_gate"}
     if not need <= out.keys() <= known:
-        raise KeyError(f"not a dense LM's parameters: missing "
-                       f"{sorted(need - out.keys())}, unknown "
+        raise KeyError(f"not a dense LM's or an MoE LM's parameters: "
+                       f"missing {sorted(need - out.keys())}, unknown "
                        f"{sorted(out.keys() - known)}")
     return out
 

@@ -71,10 +71,15 @@ def _flat_template(params_like):
     ``ravel_pytree`` order (keys sorted), float32.  Both maps also take a
     leading stack axis: ``ravel`` sends (M, ...) params to the (M, P)
     panel and ``unravel`` sends it back.  ``unravel`` returns the keys in
-    ``params_like``'s order, as views of the flat tensor."""
+    ``params_like``'s order.  As ``ravel_pytree``'s unravel: when the
+    leaves have more than one dtype (a bf16 LM's f32 norms), each leaf is
+    cast back to its own dtype; when they share one, the leaves are views
+    of the flat tensor, in its dtype."""
     keys = sorted(params_like)
     shapes = [tuple(params_like[k].shape) for k in keys]
     sizes = [math.prod(s) for s in shapes]
+    dtypes = [params_like[k].dtype for k in keys]
+    mixed = len(set(dtypes)) > 1
     order = list(params_like)
 
     def ravel(pt):
@@ -84,8 +89,9 @@ def _flat_template(params_like):
 
     def unravel(flat):
         out, off = {}, 0
-        for k, shp, sz in zip(keys, shapes, sizes):
-            out[k] = flat[..., off:off + sz].reshape(*flat.shape[:-1], *shp)
+        for k, shp, sz, dt in zip(keys, shapes, sizes, dtypes):
+            leaf = flat[..., off:off + sz].reshape(*flat.shape[:-1], *shp)
+            out[k] = leaf.to(dt) if mixed else leaf
             off += sz
         return {k: out[k] for k in order}
 
@@ -93,6 +99,11 @@ def _flat_template(params_like):
 
 
 # ----------------------------------------------------------- shared helpers
+def _f32(x: torch.Tensor) -> torch.Tensor:
+    """x in float32 (a no-op for an f32 leaf)."""
+    return x.to(torch.float32)
+
+
 def guard_zero_weight(avg: dict, prev: dict, total: torch.Tensor) -> dict:
     """Keep ``avg`` when any weight fired; fall back to the previous params
     on an all-zero round (assumption log #15)."""
@@ -264,10 +275,14 @@ def make_aggregator_step(n: int, m: int, params_like: dict, *,
         new = fedavg_combine(upd, w, state["prev"])
         return new, {**state, "prev": new}
 
+    # The knobs are float32 arrays in the reference, so a product with one
+    # promotes a bf16 leaf to f32 there, and XLA then keeps the bf16
+    # difference feeding it in f32 too (its excess precision): the ``_f32``
+    # casts below do both (a torch scalar would keep bf16).
     def _fedavgm(th, state, upd, w, s, t, sel, valid):
         lr_s, beta = th[0], th[1]
         avg = fedavg_combine(upd, w, state["prev"])
-        m1 = {k: beta * state["m1"][k] + (p0 - avg[k])
+        m1 = {k: beta * _f32(state["m1"][k]) + (_f32(p0) - _f32(avg[k]))
               for k, p0 in state["prev"].items()}
         new = {k: p0 - lr_s * m1[k] for k, p0 in state["prev"].items()}
         return new, {**state, "prev": new, "m1": m1}
@@ -276,9 +291,10 @@ def make_aggregator_step(n: int, m: int, params_like: dict, *,
         lr_s, b1, b2, eps = th[0], th[1], th[2], th[3]
         avg = fedavg_combine(upd, w, state["prev"])
         prev = state["prev"]
-        delta = {k: avg[k] - prev[k] for k in prev}
-        m1 = {k: b1 * state["m1"][k] + (1.0 - b1) * delta[k] for k in prev}
-        m2 = {k: b2 * state["m2"][k] + (1.0 - b2) * delta[k] * delta[k]
+        delta = {k: _f32(avg[k]) - _f32(prev[k]) for k in prev}
+        m1 = {k: b1 * _f32(state["m1"][k]) + (1.0 - b1) * delta[k]
+              for k in prev}
+        m2 = {k: b2 * _f32(state["m2"][k]) + (1.0 - b2) * delta[k] * delta[k]
               for k in prev}
         new = {k: prev[k] + lr_s * m1[k] / (torch.sqrt(m2[k]) + eps)
                for k in prev}

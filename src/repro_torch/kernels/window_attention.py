@@ -15,7 +15,10 @@ bf16 terms so that it keeps f32's precision); f32, and bf16 with D > 128,
 on the CUDA cores.
 
 :func:`window_attention` launches the kernel for a CUDA tensor and takes the
-plain version only for a CPU tensor.
+plain version only for a CPU tensor.  The kernel has no backward, so both
+refuse (raise on) an input that requires grad while grad mode is on: a
+backward would otherwise drop the attention's gradients on the card and
+not on the CPU.  Training takes ``models/attention``'s training route.
 """
 from __future__ import annotations
 
@@ -46,6 +49,16 @@ def _check_shapes(q, k, v, window) -> None:
         raise ValueError(f"window_attention: window must be >= 1, got {window}")
 
 
+def _refuse_grad(q, k, v) -> None:
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or
+                                    v.requires_grad):
+        raise RuntimeError(
+            "window_attention has no backward: an input requires grad with "
+            "grad mode on.  Train through models.attention."
+            "multihead_attention (the training route), or call under "
+            "torch.no_grad()")
+
+
 def window_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                            *, window: int) -> torch.Tensor:
     """The same function in PyTorch: f32 scores scaled by 1/√D, masked with
@@ -69,8 +82,10 @@ def window_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def window_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           *, window: int) -> torch.Tensor:
     """The CUDA kernel: contiguous q (B, S, Hq, D), k/v (B, S, Hkv, D) of one
-    dtype (f32 or bf16) on the card, D a multiple of 16 up to 256."""
+    dtype (f32 or bf16) on the card, D a multiple of 16 up to 256.  Raises
+    on an input that requires grad under grad mode (no backward)."""
     _check_shapes(q, k, v, window)
+    _refuse_grad(q, k, v)
     if not (q.is_cuda and k.device == q.device and v.device == q.device):
         raise ValueError(f"window_attention_cuda takes CUDA tensors on one "
                          f"device, got {q.device}, {k.device}, {v.device}")
@@ -102,7 +117,9 @@ def window_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def window_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                      window: int) -> torch.Tensor:
     """Dispatch on the tensor's device: CUDA launches the kernel, CPU takes
-    the plain version."""
+    the plain version.  Either refuses an input that requires grad under
+    grad mode, as the kernel has no backward."""
+    _refuse_grad(q, k, v)
     if q.is_cuda:
         return window_attention_cuda(q, k, v, window=window)
     if q.device.type != "cpu":

@@ -1,0 +1,85 @@
+"""The three step functions of the LM (the port of
+``repro.launch.steps``' programs):
+
+  train_step   : forward + backward + AdamW update
+  prefill_step : prompt forward + cache build
+  serve_step   : ONE token against the cache
+
+The reference also derives sharding specs for a production mesh
+(``make_shardings``, ``opt_state_specs``); those wait for the port's
+LM-parameter sharding and are not here.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.models import lm
+from repro_torch.optim.optimizers import Optimizer, adamw
+
+# Microbatch count for gradient accumulation: the batch is split into
+# MICROBATCHES chunks run one after another, dividing the live activations
+# by the same factor.
+MICROBATCHES = 1
+# dtype of the gradient accumulator over the microbatches
+GRAD_ACC_DTYPE = "float32"
+
+
+def value_and_grad(loss_fn, params: dict, *args):
+    """(loss, grads) of ``loss_fn(params, *args)`` w.r.t. every leaf of
+    ``params``, which are left as they are (the gradient runs through
+    detached copies)."""
+    p = {k: v.detach().requires_grad_(True) for k, v in params.items()}
+    with torch.enable_grad():
+        loss = loss_fn(p, *args)
+        grads = torch.autograd.grad(loss, list(p.values()))
+    return loss.detach(), dict(zip(p, grads))
+
+
+def make_train_step(cfg: ArchConfig, optimizer: Optimizer | None = None):
+    """Returns (train_step, optimizer); ``train_step(params, opt_state,
+    batch, lr) -> (params, opt_state, loss)``.  The default optimizer keeps
+    its moments in bf16, as the reference's."""
+    optimizer = optimizer or adamw(state_dtype=torch.bfloat16)
+    n_micro = MICROBATCHES
+
+    def loss_fn(p, batch):
+        return lm.train_loss(p, cfg, batch)
+
+    def train_step(params, opt_state, batch, lr):
+        if n_micro == 1:
+            loss, grads = value_and_grad(loss_fn, params, batch)
+        else:
+            acc_dt = getattr(torch, GRAD_ACC_DTYPE)
+            dev = next(iter(params.values())).device
+            loss = torch.zeros((), dtype=torch.float32, device=dev)
+            grads = {k: torch.zeros(p.shape, dtype=acc_dt, device=dev)
+                     for k, p in params.items()}
+            for i in range(n_micro):
+                mb = {k: x.reshape(n_micro, x.shape[0] // n_micro,
+                                   *x.shape[1:])[i] for k, x in batch.items()}
+                li, gi = value_and_grad(loss_fn, params, mb)
+                loss = loss + li
+                grads = {k: a + gi[k].to(a.dtype) for k, a in grads.items()}
+            loss = loss / n_micro
+            grads = {k: g / n_micro for k, g in grads.items()}
+        with torch.no_grad():
+            new_params, new_state = optimizer.update(grads, opt_state, params,
+                                                     lr)
+        return new_params, new_state, loss
+
+    return train_step, optimizer
+
+
+def make_prefill_step(cfg: ArchConfig):
+    def prefill_step(params, batch):
+        with torch.no_grad():
+            return lm.prefill(params, cfg, batch)
+    return prefill_step
+
+
+def make_serve_step(cfg: ArchConfig):
+    def serve_step(params, tokens, cache):
+        with torch.no_grad():
+            return lm.decode_step(params, cfg, tokens, cache)
+    return serve_step

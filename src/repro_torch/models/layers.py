@@ -75,3 +75,15 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor,
             cos, sin = cos[..., None, :], sin[..., None, :]
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(dt)
+
+
+def softmax_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                          mask: torch.Tensor) -> torch.Tensor:
+    """Mean masked token cross entropy.  logits (B, S, V), accumulated in
+    f32; labels (B, S) int64; mask (B, S)."""
+    logits = logits.to(torch.float32)
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels[..., None])[..., 0]
+    nll = lse - gold
+    mask = mask.to(torch.float32)
+    return torch.sum(nll * mask) / torch.clamp_min(torch.sum(mask), 1.0)

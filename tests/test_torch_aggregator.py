@@ -23,6 +23,7 @@ from jax import flatten_util
 from repro.fed import aggregator_device as jad
 from repro.fed.server import ServerAggregator as JaxServerAggregator
 
+from repro_torch.convert import params_from_jax
 from repro_torch.fed import aggregator_device as tad
 from repro_torch.fed.server import ServerAggregator
 from repro_torch.kernels import aggregate as tag
@@ -485,3 +486,93 @@ def test_fedavg_cells_group_invariant_and_vs_reference(rng):
                            {k: v[i:i + 1] for k, v in tp.items()})
         assert all(torch.equal(one[k][0], got[k][i]) for k in t)
     assert np.array_equal(got["w"][3].numpy(), prev["w"][3])
+
+
+# ------------------------------------------ mixed-dtype params (a bf16 LM)
+def _mixed(rng, lead=()):
+    """bf16 weights beside f32 norms, as an LM's params: numpy (bf16 as
+    ml_dtypes, via JAX) for the reference and the same bits for the port."""
+    w = jnp.asarray(rng.normal(size=(*lead, 2, 3)), jnp.bfloat16)
+    n = rng.normal(size=(*lead, 3)).astype(np.float32)
+    tree = {"w": np.asarray(w), "norm": n}
+    return tree, params_from_jax(tree)
+
+
+# families whose server update or corruption is f32 arithmetic that XLA
+# orders or contracts (FMA) otherwise: their values are held to the
+# family tests' round-off bound; every other family's are bitwise
+ROUND_OFF = ("fedavgm", "fedadam", "fedprox_w", "scaled")
+
+
+def _same_leaves(got: dict, want: dict, what: str, exact: bool):
+    for k, leaf in want.items():
+        leaf = np.asarray(leaf)
+        assert got[k].dtype == {"bfloat16": torch.bfloat16,
+                                "float32": torch.float32}[leaf.dtype.name], \
+            f"{what}: {k} is {got[k].dtype}, the reference's {leaf.dtype}"
+        if not exact:
+            _close(got[k].float().numpy(), leaf.astype(np.float32),
+                   what=f"{what}: {k}")
+            continue
+        bits = np.uint16 if leaf.dtype.itemsize == 2 else np.uint32
+        tb = got[k].view(torch.int16 if bits is np.uint16 else torch.int32)
+        np.testing.assert_array_equal(tb.numpy().view(bits), leaf.view(bits),
+                                      err_msg=f"{what}: {k}")
+
+
+@pytest.mark.parametrize("name,kw", PROCESSES, ids=[p[0] for p in PROCESSES])
+def test_mixed_dtype_params_round_trip_through_every_family(name, kw):
+    """``_flat_template``'s unravel casts each leaf back to its own dtype
+    when the leaves' dtypes differ, as ``ravel_pytree``'s does, and a
+    product with a float32 knob promotes a bf16 leaf as the reference's
+    does: every family returns the reference's dtypes over two rounds, the
+    values bitwise (within round-off for :data:`ROUND_OFF`)."""
+    rng = np.random.default_rng(5)
+    n, m = 4, 2
+    p0, tp0 = _mixed(rng)
+    sizes = np.array([3.0, 5.0, 2.0, 7.0], np.float32)
+    jsrv = JaxServerAggregator(jad.make_aggregator_process(name, **kw),
+                               n_clients=n, data_sizes=sizes)
+    tsrv = ServerAggregator(tad.make_aggregator_process(name, **kw),
+                            n_clients=n, data_sizes=sizes)
+    jsrv.init(jax.tree_util.tree_map(jnp.asarray, p0))
+    tsrv.init(tp0)
+    for t, sel in enumerate(([0, 2], [1, 3])):
+        upd, tupd = _mixed(rng, (m,))
+        w = sizes[sel]
+        avail = np.ones(n, bool)
+        jp = jsrv.apply(jax.tree_util.tree_map(jnp.asarray, upd), w,
+                        np.array(sel), avail, t)
+        tp = tsrv.apply(tupd, w, np.array(sel), avail, t)
+        _same_leaves(tp, jax.tree_util.tree_map(np.asarray, jp),
+                     f"{name} round {t}", exact=name not in ROUND_OFF)
+
+
+@pytest.mark.parametrize("family", ["none", "sign_flip", "gaussian_noise",
+                                    "scaled", "straggler_stale"])
+def test_mixed_dtype_params_round_trip_through_every_fault(family):
+    """The fault injector unravels through the same template: every fault
+    family returns the reference's dtypes, the values bitwise (within
+    round-off for ``scaled``; the reference's draws injected)."""
+    from repro.fed import faults_device as jfd
+    from repro_torch.fed import faults_device as tfd
+    from test_torch_faults import jax_fault_draws
+
+    rng = np.random.default_rng(6)
+    n, m = 4, 2
+    p0, tp0 = _mixed(rng)
+    jinj = jfd.HostFaultInjector(jfd.make_fault_process(family, n, frac=0.5),
+                                 fault_seed=3)
+    tinj = tfd.HostFaultInjector(tfd.make_fault_process(family, n, frac=0.5),
+                                 fault_seed=3, draws=jax_fault_draws(3))
+    jinj.init(jax.tree_util.tree_map(jnp.asarray, p0))
+    tinj.init(tp0)
+    for t, sel in enumerate(([0, 2], [1, 3])):
+        upd, tupd = _mixed(rng, (m,))
+        avail = np.ones(n, bool)
+        jp = jinj.inject(jax.tree_util.tree_map(jnp.asarray, upd),
+                         jax.tree_util.tree_map(jnp.asarray, p0),
+                         np.array(sel), avail, t)
+        tp = tinj.inject(tupd, tp0, np.array(sel), avail, t)
+        _same_leaves(tp, jax.tree_util.tree_map(np.asarray, jp),
+                     f"{family} round {t}", exact=family not in ROUND_OFF)

@@ -87,8 +87,9 @@ def test_guard_covers_every_port_module():
     server-update modules, the staged-3DG, vision and SSPP modules, the LM
     serving path's configs, models, attention kernel and launcher, the
     batched sweep engine with its availability processes, the plan table,
-    the engine mesh and its rules, the fedsim launcher and the four
-    example twins included, and importing all of them in a fresh
+    the engine mesh and its rules, the fedsim launcher, the LM training
+    path (its numpy stream, tree utilities, optimizers, steps and
+    launcher) and the five example twins included, and importing all of them in a fresh
     interpreter loads neither jax nor repro."""
     pkg = ROOT / "src" / "repro_torch"
     mods = sorted(".".join(f.relative_to(pkg.parent).with_suffix("").parts)
@@ -115,7 +116,12 @@ def test_guard_covers_every_port_module():
                  "repro_torch.examples.quickstart",
                  "repro_torch.examples.federated_vision",
                  "repro_torch.examples.availability_scenarios",
-                 "repro_torch.examples.serve_llm"):
+                 "repro_torch.examples.serve_llm",
+                 "repro_torch.data.lm_stream", "repro_torch.utils.tree",
+                 "repro_torch.optim.optimizers",
+                 "repro_torch.optim.schedules", "repro_torch.launch.steps",
+                 "repro_torch.launch.train",
+                 "repro_torch.examples.train_federated_lm"):
         assert need in mods, need
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"

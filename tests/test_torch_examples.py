@@ -105,3 +105,23 @@ def test_serve_llm_twin_serves_the_reduced_config(one_thread):
     tokens = serve.main(["--reduced", "--batch", "2", "--gen", "4",
                          "--device", "cpu"])
     assert f"first sequence: {tokens[0][:16].tolist()}" in text
+
+
+def test_train_federated_lm_twin_equals_train_main(one_thread):
+    """The twin fills the reference's defaults (reduced, 16 clients, FedGS
+    under SLN) and trains: its sets and counts are ``train.main``'s on the
+    same flags."""
+    from repro_torch.examples import train_federated_lm as twin
+    from repro_torch.launch import train
+    argv = ["--rounds", "2", "--local-steps", "1", "--batch", "2", "--seq",
+            "16"]
+    text, runs = _twin("train_federated_lm", *argv)
+    full = twin.with_defaults(argv + ["--device", "cpu"])
+    assert full[len(argv) + 2:] == ["--reduced", "--clients", "16",
+                                    "--sampler", "fedgs", "--mode", "SLN"]
+    sets = []
+    _, counts = train.main(full, on_round=lambda i: sets.append(
+        [int(k) for k in i["sel"]]))
+    assert runs["train_federated_lm"]["sets"] == sets
+    assert runs["train_federated_lm"]["counts"] == counts.tolist()
+    assert "round   1" in text and "done in" in text

@@ -1304,6 +1304,59 @@ def test_window_attention_kernel_rejects(cuda):
             twa.window_attention_cuda(*bad, window=4)
 
 
+def test_window_attention_refuses_gradients(cuda):
+    """The kernel has no backward: an input that requires grad under grad
+    mode raises (through the dispatcher and the kernel's wrapper) before
+    any launch; under ``torch.no_grad`` the same call runs."""
+    q, k, v = _qkv(np.random.default_rng(0), 1, 16, 4, 2, 32,
+                   torch.bfloat16, cuda)
+    tops.reset_launches()
+    for leaf in range(3):
+        args = [q, k, v]
+        args[leaf] = args[leaf].clone().requires_grad_(True)
+        with pytest.raises(RuntimeError, match="no backward"):
+            tops.window_attention(*args, window=8)
+        with pytest.raises(RuntimeError, match="no backward"):
+            twa.window_attention_cuda(*args, window=8)
+        with torch.no_grad():
+            out = tops.window_attention(*args, window=8)
+        assert out.grad_fn is None
+    assert tops.launches()["window_attention"] == 3
+
+
+def test_train_loss_card_vs_cpu_and_moe_step_repeats(cuda):
+    """The reduced smollm's loss and gradients on the card within f32
+    round-off of the CPU's (no attention kernel launched); the reduced
+    granite-moe's train step twice on the card, bit for bit (the MoE's
+    ordered combine)."""
+    from repro_torch.launch import steps
+    for arch in ("smollm-135m", "granite-moe-1b-a400m"):
+        cfg = get_config(arch).reduced()
+        params = tlm.init_params(cfg, seed=3, device="cpu")
+        toks = torch.as_tensor(np.random.default_rng(3).integers(
+            0, cfg.vocab_size, (4, 65)))
+        batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+        tops.reset_launches()
+        lc, gc = steps.value_and_grad(
+            lambda p, b: tlm.train_loss(p, cfg, b), params, batch)
+        on = {k: v.to(cuda) for k, v in params.items()}
+        bc = {k: v.to(cuda) for k, v in batch.items()}
+        lk, gk = steps.value_and_grad(
+            lambda p, b: tlm.train_loss(p, cfg, b), on, bc)
+        assert not any(tops.launches().values())
+        assert abs(float(lk) - float(lc)) <= 1e-5 * abs(float(lc))
+        for key in gc:
+            scale = float(gc[key].abs().max()) + 1e-30
+            assert float((gk[key].cpu() - gc[key]).abs().max()) <= \
+                1e-4 * scale, (arch, key)
+        if cfg.moe is None:
+            continue
+        step, opt = steps.make_train_step(cfg)
+        runs = [step(on, opt.init(on), bc, 1e-3) for _ in range(2)]
+        assert torch.equal(runs[0][2], runs[1][2])
+        assert all(torch.equal(runs[0][0][k], runs[1][0][k]) for k in on)
+
+
 def test_prefill_launches_the_kernel_once_per_layer(cuda):
     cfg = get_config("smollm-135m")
     params = tlm.init_params(cfg, seed=0, device=cuda)

@@ -472,7 +472,6 @@ def test_serve_main_on_cpu(capsys):
 
 
 @pytest.mark.parametrize("arch,family", [
-    ("olmoe-1b-7b", "moe"), ("granite-moe-1b-a400m", "moe"),
     ("mamba2-780m", "ssm"), ("hymba-1.5b", "hybrid"),
     ("llava-next-mistral-7b", "vlm"), ("seamless-m4t-large-v2", "audio")])
 def test_other_families_raise(arch, family):
