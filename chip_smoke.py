@@ -240,11 +240,51 @@ Phases, each printing one JSON line (any failure exits non-zero):
               its logits card vs CPU within atol 5e-2, rtol 2e-2; one
               train step (remat, AdamW with bf16 moments) finite, and
               again, bit for bit.
+ 16. families  (runs after 14) the SSM, hybrid, VLM and audio families at
+              full width, bf16, random weights drawn on the card from a
+              seed: mamba2-780m (arXiv:2405.21060), hymba-1.5b
+              (arXiv:2411.13676), llava-next-mistral-7b (hf:llava-hf/
+              llava-v1.6-mistral-7b-hf; 2,880 image tokens) and
+              seamless-m4t-large-v2 (arXiv:2308.11596; 1,024 frames).
+              (a) ``serve.main`` at batch 8, prompt 64, gen 32 (``--draw
+              device``): B9 launches per prefill 0, 32, 32 and 24 and no
+              other kernel; every logit of the same request finite and
+              the step loop's tokens serve.main's; a warm repeat timed
+              (prefill ms, decode tok/s), peak memory, one prefill
+              profiled (busy share).  (b) card vs CPU from the same
+              weights, batch 2, a 32-token prompt, 8 decode steps fed the
+              card's tokens (seamless over 64 frames): the free-running
+              logits within atol 5e-2, rtol 2e-2, or where bf16 round-off
+              carries them past it, every layer (the encoder's first) and
+              step from the card's state through the ``tap`` seam; llava
+              layer by layer from the card's state on layers 0, 15 and 31
+              (2,912 positions, 8 steps), only those layers' weights on
+              the host.  (c) llava, batch 1, a prefill of exactly one
+              window (2,880 image + 1,216 text positions), then 16 decode
+              steps with ``lm.RING_CACHE`` on a ring of 4,096 slots and on
+              a grown cache: from the grown run's state every layer and
+              step within the serve gates, the ring slots bitwise, the
+              ring attention in f32 within 1e-5; free-running, greedy
+              tokens equal wherever the top-2 margin exceeds the gap;
+              then the window active, ``serve.generate`` over 4,928
+              positions (2,880 image + 2,048 text): B9 = 32.  (d)
+              hymba padded to 48/6 heads (``embed_params_padded``):
+              prefill logits within the serve gates of the unpadded run's,
+              B9 = 32 at 48/6.  (e) B9 against its plain version at
+              FAMILY_WA_SHAPES (the bf16 tensor-core body and the f32
+              CUDA-core body), each timed beside its bound and
+              scaled_dot_product_attention.  (f) one remat value-and-grad
+              at 4 x 64 tokens, full width, for mamba2 and hymba: finite
+              and bitwise twice; the reduced f32 config of all four card
+              vs CPU: loss within 1e-5, the gradient's norm of difference
+              within 1e-4 relative.  One JSON line a part.
  15. the ``{"kernels": [...]}`` line (times at the main path's shapes:
      N = 30, M = 6, P = 610; the similarity also at the vision phase's
      (100, 13946) update-cosine 3DG, with that call's launches; the dense
      swap at the vision solve's (m, N) = (10, 100); window attention at
-     smollm's prefill; ``scan_launches``: the scan phase's gated runs;
+     smollm's prefill, and (``window_attention/<family>``) at phase 16's
+     bf16 shapes, each with the B9 launches of the run that prefills at
+     that shape; ``scan_launches``: the scan phase's gated runs;
      ``train_launches``: the train phase's (a) and (b)).
 The last line is ``{"ok": true, "device": {...}}``.  The script needs a CUDA
 device and the repository's ``src/`` beside it; without either it exits
@@ -1047,15 +1087,9 @@ def fused_epilogue_rows(np, torch, dev) -> dict:
         if gf.fused_adjacency_epilogue(n) != "launch":
             raise AssertionError(f"fused N={n}: epilogue not a launch")
         call()
-        torch.cuda.synchronize()
-        with torch.profiler.profile(activities=[
-                torch.profiler.ProfilerActivity.CUDA]) as prof:
-            for _ in range(10):
-                call()
-            torch.cuda.synchronize()
-        epi = [e for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA and
-               "adjacency_kernel" in e.key]
+        _, on_dev = profiled(torch, lambda: [call() for _ in range(10)],
+                             host=False)
+        epi = [e for e in on_dev if "adjacency_kernel" in e.key]
         rows[f"fused_adjacency/{n}x610/epilogue=launch"] = dict(
             n=n, d=610, plan=gf.fused_adjacency_plan(n, 610),
             ms=cuda_ms(torch, call), device_ms=device_ms(torch, call),
@@ -1869,19 +1903,39 @@ def vision_run(np, torch, dev) -> tuple[dict, dict]:
                   "pairwise_similarity/vision": launches["f_update_cosine"]}
 
 
+def profiled(torch, fn, *, host: bool = True, top: int = 8):
+    """``fn`` once under torch.profiler.  Returns (its wall ms and, of its
+    device-side events (kernels, memsets, copies; an operator's row
+    repeats the device time of the kernels it launched), the total ms,
+    the busy share, the count and the ``top`` longest as [name, ms, count];
+    the events).  ``host=False`` records device activity only, for a run
+    whose host events would cost more than the run."""
+    acts = [torch.profiler.ProfilerActivity.CUDA]
+    if host:
+        acts.insert(0, torch.profiler.ProfilerActivity.CPU)
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    on_dev = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    dev_ms = sum(e.self_device_time_total for e in on_dev) / 1e3
+    ranked = sorted(on_dev, key=lambda e: -e.self_device_time_total)[:top]
+    return {"wall_ms": wall, "device_ms": dev_ms or None,
+            "device_busy_share": dev_ms / wall if dev_ms else None,
+            "kernel_launches": sum(e.count for e in on_dev),
+            "top_device_ms": [[e.key[:90], e.self_device_time_total / 1e3,
+                               e.count] for e in ranked]}, on_dev
+
+
 def profiled_device_ms(torch, fn) -> dict:
     """``fn`` once under torch.profiler (warm): the device time of all its
     device-side events (kernels, memsets, copies), of Floyd–Warshall's
     kernels alone and of the adjacency kernel (the staged build's, or the
     fused build's in-place epilogue launch), in ms."""
-    torch.cuda.synchronize()
-    with torch.profiler.profile(
-            activities=[torch.profiler.ProfilerActivity.CPU,
-                        torch.profiler.ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    on_dev = [e for e in prof.key_averages()
-              if e.device_type == torch.autograd.DeviceType.CUDA]
+    _, on_dev = profiled(torch, fn)
     return {"all": sum(e.self_device_time_total for e in on_dev) / 1e3,
             "floyd_warshall": sum(e.self_device_time_total for e in on_dev
                                   if "fw_" in e.key) / 1e3,
@@ -1974,21 +2028,7 @@ def scale_run(np, torch, dev, *, n_clients: int, frac: float,
 
     one = engine(1)
     one.run()                                   # warm
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
-    torch.cuda.synchronize()
-    with torch.profiler.profile(activities=acts) as prof:
-        t0 = time.perf_counter()
-        one.run()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    # device-side events only (kernels, copies, memsets): an operator's
-    # row repeats the device time of the kernels it launched
-    on_dev = [e for e in prof.key_averages()
-              if e.device_type == torch.autograd.DeviceType.CUDA]
-    dev_us = sum(e.self_device_time_total for e in on_dev)
-    top = sorted(((e.key, e.self_device_time_total, e.count) for e in on_dev),
-                 key=lambda x: -x[1])[:6]
+    prof, on_dev = profiled(torch, one.run, top=6)
     # the port's own kernels in that round, and the memsets
     port = {e.key[:60]: [e.self_device_time_total / 1e3, e.count]
             for e in on_dev if any(t in e.key for t in PORT_KERNEL_KEYS)}
@@ -2004,10 +2044,10 @@ def scale_run(np, torch, dev, *, n_clients: int, frac: float,
             "aggregate_ms_per_round": times["aggregate"], "run_s": run_s,
             "peak_mem_bytes": int(torch.cuda.max_memory_allocated()),
             "val_loss": hist.val_loss,
-            "profiled_round_wall_ms": wall_ms,
-            "profiled_round_device_ms": dev_us / 1e3 if dev_us else None,
-            "device_busy_share": dev_us / 1e3 / wall_ms if dev_us else None,
-            "top_device_ms": [[k, t / 1e3, c] for k, t, c in top],
+            "profiled_round_wall_ms": prof["wall_ms"],
+            "profiled_round_device_ms": prof["device_ms"],
+            "device_busy_share": prof["device_busy_share"],
+            "top_device_ms": prof["top_device_ms"],
             "port_device_ms": port}
 
 # ------------------------------------------------------------ phase 8
@@ -2283,19 +2323,7 @@ def scan_run(np, torch, dev, one_run: dict) -> tuple[dict, dict]:
     syncs = sum("synchroniz" in str(w.message) for w in caught)
     lo = ops.launches()
     carry, _ = card.run_segment(own, card.init_carry(own), 0, 1)
-    torch.cuda.synchronize()
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        t0 = time.perf_counter()
-        card.run_segment(own, carry, 1, 1)
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    on_dev = [e for e in prof.key_averages()
-              if e.device_type == torch.autograd.DeviceType.CUDA]
-    dev_us = sum(e.self_device_time_total for e in on_dev)
-    top = sorted(((e.key, e.self_device_time_total, e.count) for e in on_dev),
-                 key=lambda x: -x[1])[:8]
+    prof, _ = profiled(torch, lambda: card.run_segment(own, carry, 1, 1))
     if not all(np.isfinite(x.val_loss[x.rounds]).all() for x in hists):
         raise AssertionError("scan (b) own draws: a val_loss is not finite")
     info["b_own_draws"] = {
@@ -2303,11 +2331,11 @@ def scan_run(np, torch, dev, one_run: dict) -> tuple[dict, dict]:
         "host_syncs": syncs, "host_syncs_per_round": syncs / rounds,
         "port_launches_per_round": {k: v / rounds for k, v in lo.items()
                                     if v},
-        "profiled_round_wall_ms": wall_ms,
-        "profiled_round_device_ms": dev_us / 1e3 if dev_us else None,
-        "device_busy_share": dev_us / 1e3 / wall_ms if dev_us else None,
-        "device_launches_per_round": sum(e.count for e in on_dev),
-        "top_device_ms": [[k, t / 1e3, c] for k, t, c in top]}
+        "profiled_round_wall_ms": prof["wall_ms"],
+        "profiled_round_device_ms": prof["device_ms"],
+        "device_busy_share": prof["device_busy_share"],
+        "device_launches_per_round": prof["kernel_launches"],
+        "top_device_ms": prof["top_device_ms"]}
 
     # (c) the dynamic 3DG: two FedGS cells, rebuilt every 5 rounds
     every = SCAN["graph_refresh_every"]
@@ -3112,8 +3140,8 @@ def visible_pairs(s: int, window: int) -> int:
     return w * (w + 1) // 2 + (s - w) * w
 
 
-def attention_kernel_checks(np, torch, dev) -> dict:
-    """The window attention kernel against its plain version at WA_SHAPES:
+def attention_kernel_checks(np, torch, dev, shapes=WA_SHAPES) -> dict:
+    """The window attention kernel against its plain version at ``shapes``:
     f32 within 1e-5 absolute, bf16 within one bf16 ulp of the plain output
     (2⁻⁷·|o| + 1e-6).  Times by CUDA events: the kernel, the plain
     version, and scaled_dot_product_attention on (B, H, S, D) with the KV
@@ -3123,7 +3151,7 @@ def attention_kernel_checks(np, torch, dev) -> dict:
     from repro_torch.kernels import window_attention as wa
 
     rows = {}
-    for b, s, hq, hkv, d, dt, window in WA_SHAPES:
+    for b, s, hq, hkv, d, dt, window in shapes:
         dtype = getattr(torch, dt)
         w = s if window is None else window
         rng = np.random.default_rng(s + d)
@@ -3188,17 +3216,17 @@ def attention_kernel_checks(np, torch, dev) -> dict:
     return rows
 
 
-def _gated_agreement(torch, card, cpu):
-    """Greedy tokens card vs CPU per row of logits: where the card's top-2
-    margin exceeds the row's largest |Δlogit| the argmax must agree.
-    Returns (agreeing rows, rows, gated rows)."""
+def _gated_agreement(torch, card, cpu, what: str = "serve (c)"):
+    """Greedy tokens card vs CPU (or any two runs) per row of logits: where
+    the first's top-2 margin exceeds the row's largest |Δlogit| the argmax
+    must agree.  Returns (agreeing rows, rows, gated rows)."""
     top2 = card.float().topk(2, dim=-1).values
     margin = top2[:, 0] - top2[:, 1]
     gap = (card.float() - cpu.float()).abs().max(dim=-1).values
     same = card.argmax(-1) == cpu.argmax(-1)
     gated = margin > gap
     if not bool(same[gated].all()):
-        raise AssertionError(f"serve (c): greedy tokens differ where the "
+        raise AssertionError(f"{what}: greedy tokens differ where the "
                              f"margin {margin.tolist()} exceeds the gap "
                              f"{gap.tolist()}")
     return int(same.sum()), same.numel(), int(gated.sum())
@@ -3212,6 +3240,59 @@ def _lm_close(torch, got, want, what: str) -> float:
     return float(err.max())
 
 
+def served_main(torch, cfg, argv, n_b9: int, what: str):
+    """``serve.main(argv)`` as a user runs it, its print captured and the
+    launch counts reset before it and read after: B9 ``n_b9`` times and
+    no other kernel, every token in the vocabulary.  Returns (the tokens,
+    the printed lines, a row: argv, launches, seconds, the printed prefill
+    s, decode s and tok/s, the first sequence's head)."""
+    import contextlib
+    import io
+    import re
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+
+    out = io.StringIO()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        gen = serve.main(argv)
+    main_s = time.perf_counter() - t0
+    launched = ops.launches()
+    printed = out.getvalue().splitlines()
+    if launched["window_attention"] != n_b9 or any(
+            n for k, n in launched.items() if k != "window_attention"):
+        raise AssertionError(f"{what}: launches {launched}, expected {n_b9} "
+                             f"of window_attention only")
+    shape = tuple(int(argv[argv.index(k) + 1]) for k in ("--batch", "--gen"))
+    if gen.shape != shape or gen.min() < 0 or gen.max() >= cfg.padded_vocab:
+        raise AssertionError(f"{what}: tokens {gen.shape}, range "
+                             f"[{gen.min()}, {gen.max()}]")
+    m = re.match(r"prefill: ([0-9.]+)s  decode: ([0-9.]+)s \(([0-9.]+) "
+                 r"tok/s\)", printed[1])
+    return gen, printed, {"argv": argv, "launches": n_b9, "main_s": main_s,
+                          "printed_prefill_s": float(m.group(1)),
+                          "printed_decode_s": float(m.group(2)),
+                          "printed_tok_per_s": float(m.group(3)),
+                          "first_sequence": gen[0][:16].tolist()}
+
+
+def warm_generate(np, params, cfg, tokens, gen, what: str, inputs=None):
+    """``serve.generate`` on main's weights and request, timed by its own
+    clock; its tokens must be main's.  Returns the warm prefill ms, decode
+    ms a step and tok/s."""
+    from repro_torch.launch import serve
+
+    n_b, n_g = gen.shape
+    warm, t = serve.generate(params, cfg, tokens, gen=n_g, inputs=inputs)
+    if not np.array_equal(warm.cpu().numpy(), gen):
+        raise AssertionError(f"{what}: the warm repeat's tokens differ from "
+                             f"main's")
+    return {"warm_prefill_ms": t["prefill_s"] * 1e3,
+            "warm_decode_ms_per_step": t["decode_s"] * 1e3 / (n_g - 1),
+            "warm_tok_per_s": n_b * n_g / t["decode_s"]}
+
+
 def serve_run(np, torch, dev) -> tuple[dict, int]:
     """Phase 7: (b) serve smollm-135m through ``launch.serve.main`` with the
     launch counts reset before and read after (30 window-attention
@@ -3220,10 +3301,7 @@ def serve_run(np, torch, dev) -> tuple[dict, int]:
     prefill and teacher-forced decode; (d) the long-context variant's
     prefill of 8,191 tokens + one decode step against the prefill of
     8,192.  Returns (info, (b)'s launches of the kernel)."""
-    import contextlib
     import dataclasses
-    import io
-    import re
     from repro_torch.configs.registry import get_config
     from repro_torch.kernels import ops
     from repro_torch.launch import serve
@@ -3239,32 +3317,10 @@ def serve_run(np, torch, dev) -> tuple[dict, int]:
     argv = ["--arch", SERVE_ARCH, "--batch", str(SERVE_MAIN["batch"]),
             "--prompt-len", str(SERVE_MAIN["prompt"]), "--gen",
             str(SERVE_MAIN["gen"]), "--seed", "0"]
-    out = io.StringIO()
-    ops.reset_launches()
-    t0 = time.perf_counter()
-    with contextlib.redirect_stdout(out):
-        gen = serve.main(argv)
-    main_s = time.perf_counter() - t0
-    launched = ops.launches()
-    printed = out.getvalue().splitlines()
+    gen, printed, info["b"] = served_main(torch, cfg, argv, cfg.n_layers,
+                                          "serve (b)")
     for line in printed:
         emit(line)
-    others = {k: n for k, n in launched.items()
-              if n and k != "window_attention"}
-    if launched["window_attention"] != cfg.n_layers or others:
-        raise AssertionError(f"serve (b): launches {launched}, expected "
-                             f"{cfg.n_layers} of window_attention only")
-    if gen.shape != (SERVE_MAIN["batch"], SERVE_MAIN["gen"]) or \
-            gen.min() < 0 or gen.max() >= cfg.padded_vocab:
-        raise AssertionError(f"serve (b): tokens {gen.shape}, range "
-                             f"[{gen.min()}, {gen.max()}]")
-    m = re.match(r"prefill: ([0-9.]+)s  decode: ([0-9.]+)s \(([0-9.]+) "
-                 r"tok/s\)", printed[1])
-    info["b"] = {"argv": argv, "launches": launched["window_attention"],
-                 "main_s": main_s, "printed_prefill_s": float(m.group(1)),
-                 "printed_decode_s": float(m.group(2)),
-                 "printed_tok_per_s": float(m.group(3)),
-                 "first_sequence": gen[0][:16].tolist()}
 
     # the same request warm: generate() twice on the same weights, the
     # second timed; then one prefill and 4 decode steps profiled
@@ -3274,43 +3330,19 @@ def serve_run(np, torch, dev) -> tuple[dict, int]:
         device=dev)
     serve.generate(params, cfg, tokens, gen=SERVE_MAIN["gen"])
     torch.cuda.reset_peak_memory_stats()
-    warm, t = serve.generate(params, cfg, tokens, gen=SERVE_MAIN["gen"])
-    if not np.array_equal(warm.cpu().numpy(), gen):
-        raise AssertionError("serve (b): the warm repeat's tokens differ "
-                             "from main's")
-    n_tok = SERVE_MAIN["batch"] * SERVE_MAIN["gen"]
-    info["b"].update({
-        "warm_prefill_ms": t["prefill_s"] * 1e3,
-        "warm_decode_ms_per_step": t["decode_s"] * 1e3 /
-        (SERVE_MAIN["gen"] - 1),
-        "warm_tok_per_s": n_tok / t["decode_s"],
-        "peak_mem_bytes": int(torch.cuda.max_memory_allocated())})
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
-    for what, steps in (("prefill", 0), ("decode", 4)):
-        logits, cache = lm.prefill(params, cfg, {"tokens": tokens},
-                                   max_len=SERVE_MAIN["prompt"] + steps + 1)
-        torch.cuda.synchronize()
-        with torch.profiler.profile(activities=acts) as prof:
-            t0 = time.perf_counter()
-            if steps == 0:
-                lm.prefill(params, cfg, {"tokens": tokens})
-            for _ in range(steps):
-                logits, cache = lm.decode_step(params, cfg,
-                                               logits.argmax(-1), cache)
-            torch.cuda.synchronize()
-            wall_ms = (time.perf_counter() - t0) * 1e3
-        on_dev = [e for e in prof.key_averages()
-                  if e.device_type == torch.autograd.DeviceType.CUDA]
-        dev_us = sum(e.self_device_time_total for e in on_dev)
-        top = sorted(((e.key, e.self_device_time_total, e.count)
-                      for e in on_dev), key=lambda x: -x[1])[:8]
-        info["b"][f"profiled_{what}"] = {
-            "decode_steps": steps, "wall_ms": wall_ms,
-            "device_ms": dev_us / 1e3 if dev_us else None,
-            "device_busy_share": dev_us / 1e3 / wall_ms if dev_us else None,
-            "kernel_launches": sum(e.count for e in on_dev),
-            "top_device_ms": [[k[:90], us / 1e3, c] for k, us, c in top]}
+    info["b"].update(warm_generate(np, params, cfg, tokens, gen, "serve (b)"),
+                     peak_mem_bytes=int(torch.cuda.max_memory_allocated()))
+    info["b"]["profiled_prefill"] = dict(decode_steps=0, **profiled(
+        torch, lambda: lm.prefill(params, cfg, {"tokens": tokens}))[0])
+    logits, cache = lm.prefill(params, cfg, {"tokens": tokens},
+                               max_len=SERVE_MAIN["prompt"] + 5)
+
+    def four_steps(logits=logits, cache=cache):
+        for _ in range(4):
+            logits, cache = lm.decode_step(params, cfg, logits.argmax(-1),
+                                           cache)
+    info["b"]["profiled_decode"] = dict(decode_steps=4, **profiled(
+        torch, four_steps)[0])
 
     # (c) a second request on the card, then the same weights on the CPU
     params_cpu = lm.init_params(cfg, seed=1, device="cpu")
@@ -3405,7 +3437,7 @@ def serve_run(np, torch, dev) -> tuple[dict, int]:
     if info["d"]["launches"] != 2 * cfg.n_layers:
         raise AssertionError(f"serve (d): {info['d']['launches']} launches")
     info["seconds"] = time.perf_counter() - t_phase
-    return info, launched["window_attention"]
+    return info, info["b"]["launches"]
 
 
 # ------------------------------------------------------------ phase 14
@@ -3563,20 +3595,10 @@ def train_full_width(np, torch, dev, info: dict) -> dict:
     # ~1e5 kernels, and the host ops' events would cost more than the
     # round): its device busy share
     r = last["info"]
-    acts = [torch.profiler.ProfilerActivity.CUDA]
     args = train.parse_args(argv)
-    torch.cuda.synchronize()
-    with torch.profiler.profile(activities=acts) as prof:
-        t0 = time.perf_counter()
-        train.train_round(r["setup"], args, params, r["server"], None,
-                          TRAIN["rounds"], r["sel"], r["avail"])
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    on_dev = [e for e in prof.key_averages()
-              if e.device_type == torch.autograd.DeviceType.CUDA]
-    dev_us = sum(e.self_device_time_total for e in on_dev)
-    top = sorted(((e.key, e.self_device_time_total, e.count)
-                  for e in on_dev), key=lambda x: -x[1])[:6]
+    prof, _ = profiled(torch, lambda: train.train_round(
+        r["setup"], args, params, r["server"], None, TRAIN["rounds"],
+        r["sel"], r["avail"]), host=False, top=6)
     # memagg at this shape: times beside its bound
     mem, upd, sel, valid, w = last["args"]
     n, p = mem.shape
@@ -3608,12 +3630,7 @@ def train_full_width(np, torch, dev, info: dict) -> dict:
                  "launches": {k: launched[k] for k in want},
                  "launch_gates": want, "peak_mem_bytes": int(peak),
                  "counts": counts.tolist(), "memagg": memagg_row,
-                 "profiled_round": {
-                     "wall_ms": wall_ms, "device_ms": dev_us / 1e3,
-                     "device_busy_share": dev_us / 1e3 / wall_ms,
-                     "kernel_launches": sum(e.count for e in on_dev),
-                     "top_device_ms": [[k[:90], us / 1e3, c]
-                                       for k, us, c in top]}}
+                 "profiled_round": prof}
     del params
     torch.cuda.empty_cache()
 
@@ -3838,8 +3855,8 @@ def train_moe(np, torch, dev) -> dict:
     params = {k: v.to(dev) for k, v in params_cpu.items()}
     real_init = lm.init_params
 
-    def drawn(c, *, seed=0, device=None):
-        if c != cfg or seed != 0:
+    def drawn(c, *, seed=0, device=None, draw="host"):
+        if c != cfg or seed != 0 or draw != "host":
             raise AssertionError("train (e): serve.main asked for other "
                                  "weights")
         return params
@@ -3872,11 +3889,6 @@ def train_moe(np, torch, dev) -> dict:
             logits, cache = lm.decode_step(p, c, nxt, cache, tap=tap)
             res.append(logits)
         return res
-
-    def over_gate(a, b):
-        e = (a.float().cpu() - b.float().cpu()).abs()
-        return float(e.max()), float(
-            (e / (LM_ATOL + LM_RTOL * b.float().cpu().abs())).max())
 
     # the card's run records each layer's output and each MoE call's
     # expert choices
@@ -3924,7 +3936,7 @@ def train_moe(np, torch, dev) -> dict:
 
     def from_card(i, x):
         want = next(layer_q)
-        layer_err.append(over_gate(x, want))
+        layer_err.append(_over_gate(x, want))
         return want.to(x.dtype)
     ffn._top_k = forced
     t0 = time.perf_counter()
@@ -3933,7 +3945,7 @@ def train_moe(np, torch, dev) -> dict:
     finally:
         ffn._top_k = real_top_k
     out["cpu_serve_s"] = time.perf_counter() - t0
-    logit_err = [over_gate(a, b) for a, b in zip(card, cpu)]
+    logit_err = [_over_gate(a, b) for a, b in zip(card, cpu)]
     layer_route = dict(route)
     # findings, not gated: the CPU free-running (the card's tokens only;
     # then its expert choices too), and both sides against an f32 run of
@@ -3969,12 +3981,12 @@ def train_moe(np, torch, dev) -> dict:
         "layers_max_abs_err": max(e for e, _ in layer_err),
         "layers_of_gate": max(o for _, o in layer_err),
         "layers_checked": len(layer_err), "routing": layer_route,
-        "free_running": [over_gate(a, b) for a, b in zip(card, free)],
-        "routing_forced_only": [over_gate(a, b) for a, b in
+        "free_running": [_over_gate(a, b) for a, b in zip(card, free)],
+        "routing_forced_only": [_over_gate(a, b) for a, b in
                                 zip(card, routed)],
         "routing_free_running_from_card_choices": dict(route),
-        "card_vs_f32": [over_gate(a, b)[0] for a, b in zip(card, truth)],
-        "cpu_vs_f32": [over_gate(a, b)[0] for a, b in zip(free, truth)],
+        "card_vs_f32": [_over_gate(a, b)[0] for a, b in zip(card, truth)],
+        "cpu_vs_f32": [_over_gate(a, b)[0] for a, b in zip(free, truth)],
         "greedy_agree": sum(a[0] for a in agree),
         "greedy_total": sum(a[1] for a in agree),
         "greedy_gated": sum(a[2] for a in agree)}
@@ -4048,6 +4060,577 @@ def train_run(np, torch, dev) -> tuple[dict, dict]:
               "seconds": parts[part]})
     return {"phase": "train", "card": card, "seconds_per_part": parts,
             "seconds": time.perf_counter() - t_phase}, launches
+
+
+# ------------------------------------------------------------ phase 16
+# the SSM, hybrid, VLM and audio families at full width (random weights,
+# drawn on the card from a seed): each config's source
+FAMILY_SOURCES = {"mamba2-780m": "arXiv:2405.21060",
+                  "hymba-1.5b": "arXiv:2411.13676",
+                  "llava-next-mistral-7b":
+                      "hf:llava-hf/llava-v1.6-mistral-7b-hf",
+                  "seamless-m4t-large-v2": "arXiv:2308.11596"}
+# B9 launches per prefill: one per layer with causal self-attention (the
+# audio family's encoder and cross-attention take the plain route)
+FAMILY_B9 = {"mamba2-780m": 0, "hymba-1.5b": 32,
+             "llava-next-mistral-7b": 32, "seamless-m4t-large-v2": 24}
+FAMILY_SERVE = {"batch": 8, "prompt": 64, "gen": 32}
+# (b) card vs CPU: batch 2, a 32-token prompt, 8 decode steps; the audio
+# family's encoder over 64 frames (the CPU cannot take 1,024 in time)
+FAMILY_CHECK = {"batch": 2, "prompt": 32, "steps": 8, "frames": 64}
+LLAVA_LAYERS = (0, 15, 31)
+# (c) llava: 2,880 image + 1,216 text positions = one window exactly; then
+# 2,880 + 2,048 = 4,928 positions, the window active, served with 4 tokens
+RING = {"text": 1216, "steps": 16, "past_text": 2048, "past_gen": 4}
+# (e) B9 at the shapes the families' prefills give it: llava's image
+# prefix + prompt, llava past its window, hymba's 25/5 heads, hymba padded
+# to 48/6, seamless' 16/16; the last three also in f32 (the CUDA-core body)
+FAMILY_WA_SHAPES = (
+    (8, 2944, 32, 8, 128, "bfloat16", None),
+    (1, 4928, 32, 8, 128, "bfloat16", 4096),
+    (8, 64, 25, 5, 64, "bfloat16", None),
+    (8, 64, 48, 6, 64, "bfloat16", None),
+    (8, 64, 16, 16, 64, "bfloat16", None),
+    (8, 64, 25, 5, 64, "float32", None),
+    (8, 64, 48, 6, 64, "float32", None),
+    (8, 64, 16, 16, 64, "float32", None))
+# the kernels line's name for each FAMILY_WA_SHAPES row; its launches are
+# those of the run that prefills at that row's shape
+FAMILY_WA_ROWS = ("llava_prefill", "llava_window", "hymba", "hymba_padded",
+                  "seamless", "hymba/f32", "hymba_padded/f32", "seamless/f32")
+FAMILY_TRAIN = {"archs": ("mamba2-780m", "hymba-1.5b"), "batch": (4, 64),
+                "loss_rtol": 1e-5, "grad_rtol": 1e-4}
+
+
+def _over_gate(a, b) -> tuple[float, float]:
+    """(max |a − b|, its largest share of the serve gate atol + rtol·|b|)."""
+    e = (a.float().cpu() - b.float().cpu()).abs()
+    return float(e.max()), float(
+        (e / (LM_ATOL + LM_RTOL * b.float().cpu().abs())).max())
+
+
+def family_serve(np, torch, dev, arch: str) -> dict:
+    """(a) ``serve.main`` as users run it (weights drawn on the card): B9
+    launches per prefill, the tokens; then the same weights and request
+    through prefill and the decode steps: every logit finite and the same
+    tokens; a warm ``generate`` timed; one prefill profiled."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch import serve
+    from repro_torch.models import lm
+
+    cfg = get_config(arch)
+    n_b, n_p, n_g = (FAMILY_SERVE[k] for k in ("batch", "prompt", "gen"))
+    argv = ["--arch", arch, "--batch", str(n_b), "--prompt-len", str(n_p),
+            "--gen", str(n_g), "--seed", "0", "--draw", "device"]
+    what = f"families (a) {arch}"
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    gen, _, main_row = served_main(torch, cfg, argv, FAMILY_B9[arch], what)
+    row = {"arch": arch, "source": FAMILY_SOURCES[arch],
+           "family": cfg.family, "layers": cfg.n_layers,
+           "enc_layers": cfg.n_enc_layers, "d_model": cfg.d_model,
+           "heads": [cfg.n_heads, cfg.n_kv_heads], "dtype": cfg.dtype,
+           **main_row,
+           "peak_mem_bytes": int(torch.cuda.max_memory_allocated())}
+    # the same weights and request, step by step: every logit finite
+    params = lm.init_params(cfg, seed=0, device=dev, draw="device")
+    tokens, inputs = serve.prompt_inputs(cfg, n_b, n_p, 0, dev)
+    prefix = cfg.n_image_tokens if cfg.family == "vlm" else 0
+    finite = True
+    with torch.no_grad():
+        logits, cache = lm.prefill(params, cfg, {"tokens": tokens, **inputs},
+                                   max_len=prefix + n_p + n_g)
+        steps_ = [logits.argmax(-1)]
+        for _ in range(n_g - 1):
+            finite = finite and bool(torch.isfinite(logits).all())
+            logits, cache = lm.decode_step(params, cfg, steps_[-1], cache)
+            steps_.append(logits.argmax(-1))
+        finite = finite and bool(torch.isfinite(logits).all())
+    del cache
+    if not finite:
+        raise AssertionError(f"{what}: a logit is not finite")
+    if not np.array_equal(torch.stack(steps_, 1).cpu().numpy(), gen):
+        raise AssertionError(f"{what}: the step loop's tokens are not "
+                             f"serve.main's")
+    with torch.no_grad():
+        row.update(warm_generate(np, params, cfg, tokens, gen, what,
+                                 inputs=inputs),
+                   logits_finite=True, prefill_positions=prefix + n_p)
+        row["profiled_prefill"] = profiled(torch, lambda: lm.prefill(
+            params, cfg, {"tokens": tokens, **inputs}))[0]
+    del params, inputs
+    torch.cuda.empty_cache()
+    return row
+
+
+def _host_batch(cfg, seed: int, n_text: int, batch: int,
+                frames: int | None = None) -> dict:
+    """``serve.prompt_inputs``' request on the host, as one dict."""
+    from repro_torch.launch import serve
+    tokens, inputs = serve.prompt_inputs(cfg, batch, n_text, seed, "cpu",
+                                         frames=frames)
+    return {"tokens": tokens, **inputs}
+
+
+def family_card_vs_cpu(np, torch, dev, arch: str) -> dict:
+    """(b) the same weights (drawn on the card, copied to the host) and
+    request on the card and the CPU: prefill + 8 decode steps fed the
+    card's greedy tokens.  Free-running, the logits; and each layer (the
+    encoder's first) and step from the card's state through the ``tap``
+    seam.  The free-running logits are gated where they hold; where bf16
+    round-off carries them past the gate, every layer and step from the
+    card's state is."""
+    import dataclasses
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import lm
+
+    cfg = get_config(arch)
+    c = FAMILY_CHECK
+    p_dev = lm.init_params(cfg, seed=1, device=dev, draw="device")
+    p_cpu = {k: v.cpu() for k, v in p_dev.items()}
+    host = _host_batch(cfg, 1, c["prompt"] + c["steps"], c["batch"],
+                       frames=c["frames"])
+    prompt = {k: (v[:, :c["prompt"]] if k == "tokens" else v)
+              for k, v in host.items()}
+
+    def run(p, d, forced, tap=None, cfg_=cfg):
+        with torch.no_grad():
+            logits, cache = lm.prefill(
+                p, cfg_, {k: v.to(d) for k, v in prompt.items()},
+                max_len=c["prompt"] + c["steps"], tap=tap)
+            res = [logits]
+            for i in range(c["steps"]):
+                nxt = logits.argmax(-1) if forced is None else \
+                    forced[:, i].to(d)
+                logits, cache = lm.decode_step(p, cfg_, nxt, cache, tap=tap)
+                res.append(logits)
+        return res
+
+    layers = []
+
+    def record(i, x):
+        layers.append(x.cpu())
+        return x
+    t0 = time.perf_counter()
+    card = run(p_dev, dev, None, record)
+    card_s = time.perf_counter() - t0
+    card_toks = torch.stack([x.argmax(-1) for x in card[:-1]], 1).cpu()
+    t0 = time.perf_counter()
+    free = run(p_cpu, "cpu", card_toks)
+    cpu_s = time.perf_counter() - t0
+    queue, layer_err = iter(layers), []
+
+    def from_card(i, x):
+        want = next(queue)
+        layer_err.append(_over_gate(x, want))
+        return want.to(x.dtype)
+    held = run(p_cpu, "cpu", card_toks, from_card)
+    # finding, not gated: both sides against an f32 run of the same
+    # weights on the CPU
+    c32 = dataclasses.replace(cfg, dtype="float32")
+    truth = run({k: v.float() for k, v in p_cpu.items()}, "cpu", card_toks,
+                cfg_=c32)
+    free_err = [_over_gate(a, b) for a, b in zip(card, free)]
+    held_err = [_over_gate(a, b) for a, b in zip(card, held)]
+    free_ok = max(o for _, o in free_err) <= 1
+    held_worst = max(o for _, o in held_err + layer_err)
+    if not free_ok and held_worst > 1:
+        raise AssertionError(f"families (b) {arch}: from the card's state a "
+                             f"layer or the logits are {held_worst} of the "
+                             f"gate")
+    agree = [_gated_agreement(torch, a.cpu(), b, f"families (b) {arch}")
+             for a, b in zip(card, held)]
+    del p_dev, p_cpu
+    torch.cuda.empty_cache()
+    return {"arch": arch, "request": dict(c, frames=c["frames"]
+                                          if cfg.enc_dec else 0),
+            "bound": f"atol {LM_ATOL}, rtol {LM_RTOL}",
+            "gated": "free-running" if free_ok else
+                     "each layer and step from the card's state",
+            "free_running_max_abs_err": [e for e, _ in free_err],
+            "free_running_of_gate": [o for _, o in free_err],
+            "from_card_logits_max_abs_err": [e for e, _ in held_err],
+            "from_card_logits_of_gate": [o for _, o in held_err],
+            "from_card_layers_max_abs_err": max(e for e, _ in layer_err),
+            "from_card_layers_of_gate": max(o for _, o in layer_err),
+            "layers_checked": len(layer_err),
+            "greedy_agree": sum(a[0] for a in agree),
+            "greedy_total": sum(a[1] for a in agree),
+            "greedy_gated": sum(a[2] for a in agree),
+            "card_vs_f32": [float((a.float().cpu() - b).abs().max())
+                            for a, b in zip(card, truth)],
+            "cpu_vs_f32": [float((a.float() - b).abs().max())
+                           for a, b in zip(free, truth)],
+            "card_s": card_s, "cpu_free_running_s": cpu_s}
+
+
+def llava_layers_card_vs_cpu(np, torch, dev) -> dict:
+    """(b) llava layer by layer from the card's state: the inputs and
+    outputs of layers LLAVA_LAYERS in prefill (2,880 image + 32 text
+    positions) and in 8 decode steps on the card; each of those layers on
+    the CPU from the card's input, its weights alone copied to the host,
+    its K/V cache its own; within the serve gates."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import lm
+    from repro_torch.models.layers import rope_angles
+
+    arch = "llava-next-mistral-7b"
+    cfg = get_config(arch)
+    c = FAMILY_CHECK
+    b, n_txt, n_steps = 1, c["prompt"], c["steps"]
+    p_dev = lm.init_params(cfg, seed=1, device=dev, draw="device")
+    host = _host_batch(cfg, 1, n_txt + n_steps, b)
+    batch = {k: (v[:, :n_txt] if k == "tokens" else v).to(dev)
+             for k, v in host.items()}
+    want = set(LLAVA_LAYERS) | {i - 1 for i in LLAVA_LAYERS if i}
+    seen: dict = {}
+
+    def record(i, x):
+        if i in want:
+            seen.setdefault(i, []).append(x.cpu())
+        return x
+    first_in = []
+    with torch.no_grad():
+        first_in.append(lm._embed_inputs(p_dev, cfg, batch)[0].cpu())
+        logits, cache = lm.prefill(p_dev, cfg, batch,
+                                   max_len=cfg.n_image_tokens + n_txt +
+                                   n_steps, tap=record)
+        s = cache["len"]
+        for t in range(n_steps):
+            nxt = logits.argmax(-1)
+            first_in.append(lm._embed(p_dev, nxt)[:, None].cpu())
+            logits, cache = lm.decode_step(p_dev, cfg, nxt, cache,
+                                           tap=record)
+    del cache
+    rows, worst = {}, 0.0
+    for i in LLAVA_LAYERS:
+        p_i = {part: {k: v.cpu() for k, v in sub.items()}
+               for part, sub in lm._layer_params(p_dev, i).items()}
+        ins = first_in if i == 0 else seen[i - 1]
+        outs = seen[i]
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            x, _, st = lm._block_fwd(p_i, ins[0], cfg,
+                                     positions=torch.arange(s))
+            errs = [_over_gate(x, outs[0])]
+            one = {"len": s, "k": torch.zeros((1, b, s + n_steps,
+                                               cfg.n_kv_heads, cfg.head_dim),
+                                              dtype=x.dtype)}
+            one["v"] = torch.zeros_like(one["k"])
+            one["k"][0, :, :s], one["v"][0, :, :s] = st["k"], st["v"]
+            for t in range(n_steps):
+                rope = rope_angles(torch.full((b, 1), s + t), cfg.head_dim,
+                                   cfg.rope_theta)
+                y = lm._decode_layer(p_i, ins[t + 1], cfg, one, 0, s + t,
+                                     rope, False)
+                errs.append(_over_gate(y, outs[t + 1]))
+        rows[i] = {"max_abs_err": [e for e, _ in errs],
+                   "of_gate": [o for _, o in errs],
+                   "cpu_s": time.perf_counter() - t0}
+        worst = max(worst, max(o for _, o in errs))
+    del p_dev
+    torch.cuda.empty_cache()
+    if worst > 1:
+        raise AssertionError(f"families (b) llava: a layer from the card's "
+                             f"state is {worst} of the gate")
+    return {"arch": arch, "positions": s, "steps": n_steps, "batch": b,
+            "bound": f"atol {LM_ATOL}, rtol {LM_RTOL}", "layers": rows}
+
+
+def llava_ring(np, torch, dev) -> dict:
+    """(c) llava, batch 1: a prefill of exactly one window (2,880 image +
+    1,216 text positions), then 16 decode steps with ``lm.RING_CACHE`` on,
+    on a cache grown to 4,112 slots (the grown route: the ring needs
+    exactly ``window`` slots) and on a ring of 4,096 slots, the ring fed
+    the grown run's greedy tokens.  Held from the grown run's state
+    (each layer's input through the ``tap`` seam, so both caches take the
+    same K/V): every layer and step within the serve gates (the logits
+    then come from the grown run's last layer by construction, so they
+    are not compared), each ring slot bitwise the grown cache's entry for
+    its position, and each layer's ring attention in f32 within 1e-5 of
+    the grown read (the same keys summed in ring order).  Free-running,
+    the ring's greedy tokens equal the grown run's wherever the top-2
+    margin exceeds the gap; its logit gaps are printed.  Then the window
+    active: ``serve.generate`` over 2,880 image + 2,048 text positions,
+    B9 once per layer at (e)'s (1, 4,928) row."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    from repro_torch.models import attention as attn_mod
+    from repro_torch.models import lm
+
+    cfg = get_config("llava-next-mistral-7b")
+    w, n_txt, n_steps = cfg.window, RING["text"], RING["steps"]
+    p = lm.init_params(cfg, seed=2, device=dev, draw="device")
+    host = _host_batch(cfg, 2, n_txt, 1)
+    batch = {k: v.to(dev) for k, v in host.items()}
+    if cfg.n_image_tokens + n_txt != w:
+        raise AssertionError("families (c): the prefill is not one window")
+    layers, toks = [], []
+
+    def record(i, x):
+        layers.append(x)
+        return x
+    queue, layer_err = None, []
+
+    def from_grown(i, x):
+        want = next(queue)
+        layer_err.append(_over_gate(x, want))
+        return want
+    lm.RING_CACHE = True
+    try:
+        with torch.no_grad():
+            logits, grown = lm.prefill(p, cfg, batch, max_len=w + n_steps)
+            ring = {"len": w, "k": grown["k"][:, :, :w].clone(),
+                    "v": grown["v"][:, :, :w].clone()}
+            free = {"len": w, "k": ring["k"].clone(),
+                    "v": ring["v"].clone()}
+            first = logits
+            g_logits = []
+            for _ in range(n_steps):
+                toks.append(logits.argmax(-1))
+                logits, grown = lm.decode_step(p, cfg, toks[-1], grown,
+                                               tap=record)
+                g_logits.append(logits)
+            queue = iter(layers)
+            free_logits = []
+            for t in range(n_steps):
+                _, ring = lm.decode_step(p, cfg, toks[t], ring,
+                                         tap=from_grown)
+                lf, free = lm.decode_step(p, cfg, toks[t], free)
+                free_logits.append(lf)
+            # slot j of the ring holds position n − ((n % W − j) mod W)
+            n = w + n_steps - 1
+            pos = n - torch.remainder(n % w - torch.arange(w), w)
+            slots_same = all(
+                torch.equal(ring[k], grown[k][:, :, pos.to(dev)])
+                for k in ("k", "v"))
+            q = torch.randn((1, 1, cfg.n_heads, cfg.head_dim),
+                            generator=torch.Generator(device=dev)
+                            .manual_seed(3), device=dev)
+            f32_err = max(float((attn_mod.decode_attend_ring(
+                q, ring["k"][i].float(), ring["v"][i].float(), n, window=w)
+                - attn_mod.decode_attend(
+                    q, grown["k"][i].float(), grown["v"][i].float(), n + 1,
+                    window=w)).abs().max()) for i in range(cfg.n_layers))
+    finally:
+        lm.RING_CACHE = False
+    free_err = [_over_gate(a, b) for a, b in zip(free_logits, g_logits)]
+    agree = [_gated_agreement(torch, a, b, "families (c)")
+             for a, b in zip(g_logits, free_logits)]
+    del grown, ring, free, layers
+    worst = max(o for _, o in layer_err)
+    if worst > 1 or not slots_same or f32_err > 1e-5:
+        raise AssertionError(f"families (c): from the grown run's state "
+                             f"{worst} of the gate, slots bitwise "
+                             f"{slots_same}, f32 attention {f32_err}")
+    # the window active: the prefill is longer than the window
+    n_past = cfg.n_image_tokens + RING["past_text"]
+    if n_past != FAMILY_WA_SHAPES[1][1] or n_past <= w:
+        raise AssertionError("families (c): the long prefill is not (e)'s "
+                             "window row")
+    tokens, inputs = serve.prompt_inputs(cfg, 1, RING["past_text"], 4, dev)
+    ops.reset_launches()
+    with torch.no_grad():
+        past, _ = serve.generate(p, cfg, tokens, gen=RING["past_gen"],
+                                 inputs=inputs)
+    past_launches = ops.launches()
+    del p, inputs
+    torch.cuda.empty_cache()
+    if past_launches["window_attention"] != cfg.n_layers or any(
+            n for k, n in past_launches.items() if k != "window_attention") \
+            or past.min() < 0 or past.max() >= cfg.padded_vocab:
+        raise AssertionError(f"families (c) past the window: launches "
+                             f"{past_launches}, tokens {past.tolist()}")
+    return {"prefill_positions": w, "steps": n_steps, "ring_slots": w,
+            "grown_slots": w + n_steps, "first_logits_finite":
+            bool(torch.isfinite(first).all()),
+            "bound": f"atol {LM_ATOL}, rtol {LM_RTOL}, each layer and step "
+                     "from the grown run's state; f32 attention <= 1e-5; "
+                     "free-running greedy where the margin exceeds the gap",
+            "layers_max_abs_err": max(e for e, _ in layer_err),
+            "layers_of_gate": max(o for _, o in layer_err),
+            "layers_checked": len(layer_err),
+            "ring_slots_bitwise": slots_same,
+            "f32_attention_max_abs_err": f32_err,
+            "free_running_max_abs_err": [e for e, _ in free_err],
+            "free_running_of_gate": [o for _, o in free_err],
+            "greedy_agree": sum(a[0] for a in agree),
+            "greedy_total": sum(a[1] for a in agree),
+            "greedy_gated": sum(a[2] for a in agree),
+            "past_window": {"prefill_positions": n_past, "window": w,
+                            "gen": RING["past_gen"],
+                            "launches": past_launches["window_attention"],
+                            "tokens": past[0].tolist()}}
+
+
+def hymba_padded(np, torch, dev) -> dict:
+    """(d) hymba padded to (48, 6) heads by ``embed_params_padded``:
+    prefill logits against the unpadded model's on (a)'s request, B9 at
+    48/6 once per layer."""
+    from repro_torch.configs.base import pad_heads
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    from repro_torch.models import lm
+
+    cfg = get_config("hymba-1.5b")
+    cfg_p = pad_heads(cfg)
+    p = lm.init_params(cfg, seed=0, device=dev, draw="device")
+    p_pad = lm.embed_params_padded(p, cfg, cfg_p)
+    tokens, _ = serve.prompt_inputs(cfg, FAMILY_SERVE["batch"],
+                                    FAMILY_SERVE["prompt"], 0, dev)
+    out = {}
+    with torch.no_grad():
+        for name, c_, pp in (("unpadded", cfg, p), ("padded", cfg_p, p_pad)):
+            ops.reset_launches()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out[name], _ = lm.prefill(pp, c_, {"tokens": tokens})
+            torch.cuda.synchronize()
+            out[name + "_ms"] = (time.perf_counter() - t0) * 1e3
+            out[name + "_launches"] = ops.launches()["window_attention"]
+    err, of = _over_gate(out["padded"], out["unpadded"])
+    del p, p_pad
+    torch.cuda.empty_cache()
+    if of > 1 or out["padded_launches"] != cfg.n_layers:
+        raise AssertionError(f"families (d): {err} ({of} of the gate), "
+                             f"{out['padded_launches']} launches")
+    return {"heads": [cfg.n_heads, cfg.n_kv_heads],
+            "padded_heads": [cfg_p.n_heads, cfg_p.n_kv_heads],
+            "bound": f"atol {LM_ATOL}, rtol {LM_RTOL}", "max_abs_err": err,
+            "of_gate": of, "launches": out["padded_launches"],
+            "prefill_ms": {"unpadded": out["unpadded_ms"],
+                           "padded": out["padded_ms"]}}
+
+
+def family_train(np, torch, dev) -> dict:
+    """(f) one remat value-and-grad of ``train_loss`` at full width (4 × 64
+    tokens) for mamba2 and hymba: finite, and bit for bit again; then the
+    reduced f32 config of every family card vs CPU from the same weights
+    and batch: loss within 1e-5 relative, the gradient's norm of
+    difference within 1e-4 relative."""
+    import dataclasses
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch import steps
+    from repro_torch.models import lm
+    from repro_torch.utils.tree import global_norm
+
+    b, s = FAMILY_TRAIN["batch"]
+    out = {"batch": [b, s]}
+    for arch in FAMILY_TRAIN["archs"]:
+        cfg = get_config(arch)
+        p = lm.init_params(cfg, seed=0, device=dev, draw="device")
+        host = _host_batch(cfg, 12, s + 1, b)
+        tk = host["tokens"].to(dev)
+        batch = {"tokens": tk[:, :-1], "labels": tk[:, 1:]}
+
+        def loss_fn(pp, bb):
+            return lm.train_loss(pp, cfg, bb)
+        ops.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        l1, g1 = steps.value_and_grad(loss_fn, p, batch)
+        torch.cuda.synchronize()
+        grad_s = time.perf_counter() - t0
+        l2, g2 = steps.value_and_grad(loss_fn, p, batch)
+        finite = bool(torch.isfinite(l1)) and all(
+            bool(torch.isfinite(g.float()).all()) for g in g1.values())
+        same = torch.equal(l1, l2) and all(torch.equal(g1[k], g2[k])
+                                           for k in g1)
+        launched = {k: v for k, v in ops.launches().items() if v}
+        out[arch] = {"loss": float(l1), "value_and_grad_s": grad_s,
+                     "n_params": sum(v.numel() for v in p.values()),
+                     "finite": finite, "repeat_bitwise": same,
+                     "launches": launched}
+        del p, g1, g2
+        torch.cuda.empty_cache()
+        if not finite or not same or launched:
+            raise AssertionError(f"families (f) {arch}: {out[arch]}")
+    rows = {}
+    for arch in FAMILY_SOURCES:
+        cfg = dataclasses.replace(get_config(arch).reduced(),
+                                  dtype="float32")
+        p_cpu = lm.init_params(cfg, seed=0, device="cpu")
+        p_dev = {k: v.to(dev) for k, v in p_cpu.items()}
+        host = _host_batch(cfg, 13, s + 1, b)
+        batch = dict(host, tokens=host["tokens"][:, :-1],
+                     labels=host["tokens"][:, 1:])
+
+        def loss_fn(pp, bb):
+            return lm.train_loss(pp, cfg, bb)
+        l_cpu, g_cpu = steps.value_and_grad(loss_fn, p_cpu, batch)
+        l_dev, g_dev = steps.value_and_grad(
+            loss_fn, p_dev, {k: v.to(dev) for k, v in batch.items()})
+        gap = {k: g_dev[k].cpu() - g_cpu[k] for k in g_cpu}
+        rows[arch] = {"loss_rel_gap": abs(float(l_dev) - float(l_cpu)) /
+                      abs(float(l_cpu)),
+                      "grad_gap_rel": float(global_norm(gap)) /
+                      float(global_norm(g_cpu))}
+        if rows[arch]["loss_rel_gap"] > FAMILY_TRAIN["loss_rtol"] or \
+                rows[arch]["grad_gap_rel"] > FAMILY_TRAIN["grad_rtol"]:
+            raise AssertionError(f"families (f) reduced {arch}: "
+                                 f"{rows[arch]}")
+    out["reduced_card_vs_cpu"] = rows
+    out["bounds"] = (f"reduced f32: loss rel <= {FAMILY_TRAIN['loss_rtol']}"
+                     f", |g_card - g_cpu| / |g_cpu| <= "
+                     f"{FAMILY_TRAIN['grad_rtol']}")
+    return out
+
+
+def families_run(np, torch, dev) -> tuple[dict, dict]:
+    """Phase 16 (see the module docstring), one JSON line a part.  Returns
+    (the phase's summary, (e)'s kernel rows by FAMILY_WA_ROWS name, each
+    with the B9 launches of the run that prefills at its shape)."""
+    t_phase = time.perf_counter()
+    card = smi_line()
+    parts, served = {}, {}
+    for arch in FAMILY_SOURCES:
+        t0 = time.perf_counter()
+        served[arch] = family_serve(np, torch, dev, arch)
+        emit({"phase": "families", "part": "a", "card": card,
+              "a": served[arch], "seconds": time.perf_counter() - t0})
+    parts["a"] = sum(r["main_s"] for r in served.values())
+    t0 = time.perf_counter()
+    for arch in ("mamba2-780m", "hymba-1.5b", "seamless-m4t-large-v2"):
+        t1 = time.perf_counter()
+        emit({"phase": "families", "part": "b", "card": card,
+              "b": family_card_vs_cpu(np, torch, dev, arch),
+              "seconds": time.perf_counter() - t1})
+    t1 = time.perf_counter()
+    emit({"phase": "families", "part": "b", "card": card,
+          "b": llava_layers_card_vs_cpu(np, torch, dev),
+          "seconds": time.perf_counter() - t1})
+    parts["b"] = time.perf_counter() - t0
+    done = {}
+    for part, fn in (("c", llava_ring), ("d", hymba_padded)):
+        t0 = time.perf_counter()
+        done[part] = fn(np, torch, dev)
+        parts[part] = time.perf_counter() - t0
+        emit({"phase": "families", "part": part, "card": card,
+              part: done[part], "seconds": parts[part]})
+    t0 = time.perf_counter()
+    wa = attention_kernel_checks(np, torch, dev, FAMILY_WA_SHAPES)
+    parts["e"] = time.perf_counter() - t0
+    emit({"phase": "kernels", "families": True, "card": card,
+          "seconds": parts["e"], "rows": wa})
+    run_of = {"llava_prefill": served["llava-next-mistral-7b"]["launches"],
+              "llava_window": done["c"]["past_window"]["launches"],
+              "hymba": served["hymba-1.5b"]["launches"],
+              "hymba_padded": done["d"]["launches"],
+              "seamless": served["seamless-m4t-large-v2"]["launches"]}
+    rows = {}
+    for name, row in zip(FAMILY_WA_ROWS, wa.values()):
+        rows[name] = dict(row, launches=run_of[name.split("/")[0]])
+    t0 = time.perf_counter()
+    emit({"phase": "families", "part": "f", "card": card,
+          "f": family_train(np, torch, dev)})
+    parts["f"] = time.perf_counter() - t0
+    return {"phase": "families", "card": card, "seconds_per_part": parts,
+            "b9_launches_per_prefill": {a: r["launches"]
+                                        for a, r in served.items()},
+            "seconds": time.perf_counter() - t_phase}, rows
 
 
 def main() -> int:
@@ -4137,6 +4720,8 @@ def main() -> int:
     emit(info)
     info, train_launches = train_run(np, torch, dev)
     emit(info)
+    info, family_rows = families_run(np, torch, dev)
+    emit(info)
     main_rows = {
         "pairwise_similarity": staged_rows[
             "pairwise_similarity/{}x{}".format(*STAGED_SHAPES[0])],
@@ -4174,6 +4759,23 @@ def main() -> int:
                            if k in row},
                         **({} if "n" in row or "shape" in row
                            else {"n": MAIN_N}),
+                        "parity": "pass"})
+    source, replaces = KERNEL_INFO["window_attention"]
+    for name, row in family_rows.items():
+        if row["dtype"] != "bfloat16":
+            continue                  # the families' prefills run bf16
+        kernels.append({"name": f"window_attention/{name}", "route": "cuda",
+                        "source": source, "replaces": replaces,
+                        "launches": row["launches"],
+                        "max_abs_err": row["max_abs_err"], "ms": row["ms"],
+                        "plain_ms": row["plain_ms"],
+                        "bound_ms": row["bound_ms"],
+                        "bound_by": row["bound_by"],
+                        "library_ms": row["library_ms"],
+                        "device_ms": row["device_ms"],
+                        "library_device_ms": row["library_device_ms"],
+                        "plan": row["body"],
+                        **{k: row[k] for k in ("shape", "dtype", "window")},
                         "parity": "pass"})
     emit({"kernels": kernels})
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})

@@ -33,22 +33,54 @@ def _leaf(a: np.ndarray) -> torch.Tensor:
     return torch.as_tensor(np.array(a, copy=True))
 
 
+# each block part's leaves: (required, optional)
+_ATTN = ({"norm", "wq", "wk", "wv", "wo"}, set())
+_LM_PARTS = {
+    "attn": _ATTN, "cross": _ATTN,
+    "ssm": ({"norm", "w_z", "w_x", "w_B", "w_C", "w_dt", "dt_bias", "A_log",
+             "D", "conv_w", "w_out"}, set()),
+    "ffn": ({"norm", "w_in", "w_out"}, {"w_gate"}),
+    "moe": ({"norm", "router", "w_in", "w_out"}, {"w_gate"}),
+}
+
+
+def _lm_schema(keys) -> tuple[set, set]:
+    """The (required, allowed) keys of an LM's params given the parts its
+    keys show: a mixer (attention and/or SSD) per block, an FFN or MoE
+    where present, cross-attention and the encoder for an enc-dec."""
+    need, known = {"embed", "final_norm"}, {"lm_head"}
+    enc = any(k.startswith("enc_blocks.") for k in keys)
+    groups = [("blocks.", ("attn", "ssm", "cross", "ffn", "moe"))]
+    if enc:
+        groups.append(("enc_blocks.", ("attn", "ssm", "ffn", "moe")))
+        need.add("enc_norm")
+    for pre, allowed in groups:
+        seen = {k[len(pre):].split(".", 1)[0] for k in keys
+                if k.startswith(pre)}
+        parts = [p for p in allowed if p in seen]
+        if "attn" not in parts and "ssm" not in parts:
+            parts.append("attn")                 # a block needs a mixer
+        if "moe" in parts and "ffn" in parts:
+            parts.remove("ffn")                  # one FFN a block
+        for part in parts:
+            req, opt = _LM_PARTS[part]
+            need |= {f"{pre}{part}.{k}" for k in req}
+            known |= {f"{pre}{part}.{k}" for k in opt}
+    return need, need | known
+
+
 def lm_params_from_jax(params, *, device="cpu") -> dict[str, torch.Tensor]:
     """``repro.models.lm.init_params``' pytree (as numpy) -> the port's LM
     parameter dict (``repro_torch.models.lm``: dotted keys, per-layer leaves
-    stacked on the leading L axis), bit for bit.  Raises on a pytree that is
-    not a dense or an MoE LM's."""
+    stacked on the leading L axis), bit for bit, for every family: the
+    blocks' attention, SSD, cross-attention, FFN or MoE parts, the encoder's
+    ``enc_blocks`` and ``enc_norm``.  Raises on a missing or an unknown
+    key."""
     out = params_from_jax(params, device=device)
-    part = "moe" if any(k.startswith("blocks.moe.") for k in out) else "ffn"
-    need = {"embed", "final_norm", "blocks.attn.norm", "blocks.attn.wq",
-            "blocks.attn.wk", "blocks.attn.wv", "blocks.attn.wo",
-            f"blocks.{part}.norm", f"blocks.{part}.w_in",
-            f"blocks.{part}.w_out"} | (
-                {"blocks.moe.router"} if part == "moe" else set())
-    known = need | {"lm_head", f"blocks.{part}.w_gate"}
+    need, known = _lm_schema(out)
     if not need <= out.keys() <= known:
-        raise KeyError(f"not a dense LM's or an MoE LM's parameters: "
-                       f"missing {sorted(need - out.keys())}, unknown "
+        raise KeyError(f"not an LM's parameters: missing "
+                       f"{sorted(need - out.keys())}, unknown "
                        f"{sorted(out.keys() - known)}")
     return out
 

@@ -7,11 +7,15 @@ LM path — prefill a batch of prompts, then decode tokens:
     PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-135m \\
         --reduced --device cpu
 
-Weights are random, drawn from ``--seed`` (``lm.init_params``); the prompts
-are ``np.random.default_rng(seed)`` tokens, the reference's own draw, so
-both packages serve the same prompts.  The cache is allocated at prompt +
-gen slots up front (the reference pads it after prefill; the function is
-the same).  Greedy decoding takes the first maximum, as ``jnp.argmax``
+Every family of the model zoo serves (``--arch``: smollm-135m,
+granite-moe-1b-a400m, mamba2-780m, hymba-1.5b, llava-next-mistral-7b,
+seamless-m4t-large-v2, ...).  Weights are random, drawn from ``--seed``
+(``lm.init_params``; ``--draw device`` draws them on the card); the prompts
+are ``np.random.default_rng(seed)`` tokens, then the VLM's image
+embeddings and the audio family's frames from the same generator, the
+reference's own draws, so both packages serve the same request.  The
+cache is allocated at image prefix + prompt + gen slots up front (the
+reference pads it after prefill; the function is the same).  Greedy decoding takes the first maximum, as ``jnp.argmax``
 does; temperature sampling draws from a ``torch.Generator`` and matches the
 reference only in distribution.  ``--device`` defaults to CUDA and raises
 without it.
@@ -268,16 +272,23 @@ def _next_token(logits: torch.Tensor, temperature: float,
 
 
 def generate(params, cfg, tokens: torch.Tensor, *, gen: int,
-             temperature: float = 0.0, seed: int = 0):
+             temperature: float = 0.0, seed: int = 0,
+             inputs: dict | None = None):
     """Prefill ``tokens`` (B, P) and decode ``gen`` tokens in all (the first
-    from prefill's logits).  Returns (tokens (B, gen) int64 on the device,
-    {"prefill_s", "decode_s"} by the host clock around synced work)."""
+    from prefill's logits).  ``inputs``: the family's other prefill inputs
+    (the VLM's ``image_emb``, the audio family's ``audio_frames``); the
+    cache holds the image prefix, the prompt and the generated tokens.
+    Returns (tokens (B, gen) int64 on the device, {"prefill_s",
+    "decode_s"} by the host clock around synced work)."""
     dev = tokens.device
+    batch = {"tokens": tokens, **(inputs or {})}
+    prefix = batch["image_emb"].shape[1] \
+        if cfg.family == "vlm" and "image_emb" in batch else 0
     sampler = torch.Generator(device=dev).manual_seed(seed)
     _sync(dev)
     t0 = time.perf_counter()
-    logits, cache = lm.prefill(params, cfg, {"tokens": tokens},
-                               max_len=tokens.shape[1] + gen)
+    logits, cache = lm.prefill(params, cfg, batch,
+                               max_len=prefix + tokens.shape[1] + gen)
     _sync(dev)
     t_prefill = time.perf_counter() - t0
     toks = _next_token(logits, temperature, sampler)
@@ -292,6 +303,30 @@ def generate(params, cfg, tokens: torch.Tensor, *, gen: int,
     return torch.stack(out, 1), {"prefill_s": t_prefill, "decode_s": t_decode}
 
 
+def prompt_inputs(cfg, batch: int, prompt_len: int, seed: int, dev,
+                  frames: int | None = None):
+    """The reference's request: ``np.random.default_rng(seed)`` tokens,
+    then from the same generator the VLM's image embeddings (B,
+    n_image_tokens, d) and the audio family's frames (B, frames, d;
+    ``cfg.n_audio_frames`` by default), N(0, 0.02²) in ``cfg.dtype``, so
+    both packages get the same bits.  Returns (tokens (B, P) int64, the
+    other prefill inputs)."""
+    rng = np.random.default_rng(seed)
+    tokens = torch.as_tensor(rng.integers(0, cfg.vocab_size,
+                                          (batch, prompt_len)),
+                             dtype=torch.int64, device=dev)
+    dtype = lm.torch_dtype(cfg.dtype)
+    inputs = {}
+    if cfg.family == "vlm" and cfg.n_image_tokens:
+        inputs["image_emb"] = torch.as_tensor(rng.normal(
+            0, 0.02, (batch, cfg.n_image_tokens, cfg.d_model))).to(dtype)
+    if cfg.enc_dec:
+        inputs["audio_frames"] = torch.as_tensor(rng.normal(
+            0, 0.02, (batch, cfg.n_audio_frames if frames is None
+                      else frames, cfg.d_model))).to(dtype)
+    return tokens, {k: v.to(dev) for k, v in inputs.items()}
+
+
 def main(argv=None) -> np.ndarray:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="smollm-135m")
@@ -303,6 +338,11 @@ def main(argv=None) -> np.ndarray:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default=None,
                     help="torch device (default: CUDA, raising without it)")
+    ap.add_argument("--draw", choices=("host", "device"), default="host",
+                    help="where the random weights are drawn: host (the "
+                         "same weights on every device) or device (its own "
+                         "generator: seconds, not minutes, at billions of "
+                         "parameters)")
     # federated-simulation service mode (SimService over one ScanEngine)
     ap.add_argument("--fedsim", action="store_true",
                     help="serve federated sweep cells instead of LM decode")
@@ -327,14 +367,13 @@ def main(argv=None) -> np.ndarray:
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
-    params = lm.init_params(cfg, seed=args.seed, device=dev)
-    rng = np.random.default_rng(args.seed)
-    tokens = torch.as_tensor(
-        rng.integers(0, cfg.vocab_size, (args.batch, args.prompt_len)),
-        dtype=torch.int64, device=dev)
-
+    params = lm.init_params(cfg, seed=args.seed, device=dev,
+                            draw=args.draw)
+    tokens, inputs = prompt_inputs(cfg, args.batch, args.prompt_len,
+                                   args.seed, dev)
     out, t = generate(params, cfg, tokens, gen=args.gen,
-                      temperature=args.temperature, seed=args.seed)
+                      temperature=args.temperature, seed=args.seed,
+                      inputs=inputs)
     gen = out.cpu().numpy()
     n_tok = gen.size
     print(f"arch={cfg.name} batch={args.batch} prompt={args.prompt_len} "

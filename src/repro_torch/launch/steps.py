@@ -72,6 +72,9 @@ def make_train_step(cfg: ArchConfig, optimizer: Optimizer | None = None):
 
 
 def make_prefill_step(cfg: ArchConfig):
+    """``prefill_step(params, batch)``: the batch's tokens and the family's
+    inputs (``image_emb``, ``audio_frames``) go to ``lm.prefill`` as they
+    are."""
     def prefill_step(params, batch):
         with torch.no_grad():
             return lm.prefill(params, cfg, batch)
@@ -79,6 +82,9 @@ def make_prefill_step(cfg: ArchConfig):
 
 
 def make_serve_step(cfg: ArchConfig):
+    """``serve_step(params, tokens, cache)``: one token; the cache carries
+    what the family's inputs gave prefill (the cross K/V of the audio
+    frames, the image prefix's K/V)."""
     def serve_step(params, tokens, cache):
         with torch.no_grad():
             return lm.decode_step(params, cfg, tokens, cache)

@@ -18,7 +18,9 @@ median, trimmed mean, Krum), optionally after a fault family
         --rounds 5 --clients 16 --mode SLN --aggregator memory
 
 ``--reduced`` uses the 2-layer smoke variant (f32); without it the full
-config is built (bf16).  ``--device`` defaults to CUDA and raises without
+config is built (bf16).  Every family trains but the audio one, whose
+encoder needs frames the token streams do not have (it raises, naming
+``audio_frames``); the VLM trains on text alone, as the reference's does.  ``--device`` defaults to CUDA and raises without
 it.  The reference's ``--solver-backend`` / ``--agg-backend`` are not
 offered: the tensors' device picks the kernel or its plain version.
 
@@ -217,6 +219,11 @@ def setup(args: argparse.Namespace) -> Setup:
     if args.reduced:
         cfg = cfg.reduced()
     lm.check_family(cfg)
+    if cfg.enc_dec:
+        raise ValueError(
+            f"{cfg.name} is an encoder-decoder: its loss needs the batch's "
+            f"audio_frames, which the clients' token streams do not carry "
+            f"(repro.launch.train cannot train it either)")
     n, m = args.clients, max(1, int(round(args.sample_frac * args.clients)))
     vocab = min(cfg.vocab_size, 512)
 

@@ -22,8 +22,14 @@ Two routes, chosen by the caller (``models/lm``), never by looking at
   heads first, as the reference's ``_attn_fwd`` does, by an expand (whose
   backward is a sum, the same on every run) rather than an index.
 
-Decode, one query token against the cache, is plain PyTorch in the
-reference's op order, as the reference computes it outside any kernel.
+The bidirectional encoder and cross-attention (``causal=False``) take the
+training route's plain paths in prefill too: the kernel is causal
+self-attention only, and no Pallas kernel of the reference serves them.
+
+Decode, one query token against the cache (:func:`decode_attend`) or
+against a ring buffer of exactly ``window`` slots
+(:func:`decode_attend_ring`), is plain PyTorch in the reference's op order,
+as the reference computes it outside any kernel.
 """
 from __future__ import annotations
 
@@ -157,12 +163,9 @@ def multihead_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """The training route: self-attention over a whole sequence, q (B, Sq,
     Hq, D), k/v (B, Sk, Hkv, D) with Hkv dividing Hq (repeated to Hq here
     when not yet), dispatched on sequence length and window as the
-    reference dispatches.  ``window`` None is full causal attention."""
-    if not causal:
-        raise NotImplementedError(
-            "multihead_attention(causal=False) is cross-attention, used only "
-            "by the audio family's encoder-decoder, which the port does not "
-            "run yet")
+    reference dispatches.  ``window`` None is full attention; ``causal``
+    False is the audio family's bidirectional encoder and its
+    cross-attention (Sq may differ from Sk there)."""
     k, v = _repeated(q, k, v)
     sq, sk = q.shape[1], k.shape[1]
     if window is not None and sk > window + Q_CHUNK and sq == sk:
@@ -204,5 +207,28 @@ def decode_attend(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
     kb, vb = _repeated(q, kb, vb)
     s = torch.einsum("bqhd,bkhd->bhqk", q, kb).to(torch.float32) / math.sqrt(d)
     s = torch.where((kpos < cache_len)[None, None, None, :], s, NEG_INF)
+    p = torch.softmax(s, dim=-1).to(q.dtype)
+    return torch.einsum("bhqk,bkhd->bqhd", p, vb)
+
+
+def decode_attend_ring(q: torch.Tensor, k_ring: torch.Tensor,
+                       v_ring: torch.Tensor, cache_len: int, *,
+                       window: int) -> torch.Tensor:
+    """One-token decode over a ring-buffer cache of exactly ``window``
+    slots, q (B, 1, Hq, D), rings (B, window, Hkv, D) with Hkv dividing Hq.
+    Slot j holds absolute position L − ((L % W − j) mod W), L = ``cache_len``
+    the position of the token just written; slots at a negative position
+    (a cold start) are masked.  The positions read are those
+    :func:`decode_attend` reads over a grown cache, in ring order."""
+    d = q.shape[3]
+    w = k_ring.shape[1]
+    if w != window:
+        raise ValueError(f"decode_attend_ring: the ring has {w} slots, the "
+                         f"window is {window}")
+    j = torch.arange(w, device=q.device)
+    pos = cache_len - torch.remainder(cache_len % w - j, w)
+    kb, vb = _repeated(q, k_ring, v_ring)
+    s = torch.einsum("bqhd,bkhd->bhqk", q, kb).to(torch.float32) / math.sqrt(d)
+    s = torch.where((pos >= 0)[None, None, None, :], s, NEG_INF)
     p = torch.softmax(s, dim=-1).to(q.dtype)
     return torch.einsum("bhqk,bkhd->bqhd", p, vb)

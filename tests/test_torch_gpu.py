@@ -1253,7 +1253,14 @@ WA_SHAPES = [(8, 512, 9, 3, 64, torch.bfloat16, 512),
     # the tensor-core body (bf16, D <= 128) at S in {1, 65, 1000}, window
     # in {1, 63, S}
     (2, s, 4, 2, d, torch.bfloat16, w) for d in (16, 32, 64, 128)
-    for s in (1, 65, 1000) for w in (1, 63, s)]
+    for s in (1, 65, 1000) for w in (1, 63, s)] + [
+    # the other families' prefills: llava's image prefix + prompt, and its
+    # window active past 4,096; hymba's 25/5 heads and padded 48/6;
+    # seamless' 16/16, each in bf16 (tensor cores) and f32 (CUDA cores)
+    (8, 2944, 32, 8, 128, torch.bfloat16, 2944),
+    (1, 4928, 32, 8, 128, torch.bfloat16, 4096)] + [
+    (8, 64, hq, hkv, 64, dt, 64) for hq, hkv in ((25, 5), (48, 6), (16, 16))
+    for dt in (torch.bfloat16, torch.float32)]
 
 
 def _qkv(rng, b, s, hq, hkv, d, dtype, dev):
@@ -1697,3 +1704,36 @@ def test_one_rank_nccl_mesh_is_the_unmeshed_run(cuda, tmp_path):
     for a, b in zip(meshed, single):
         for x, y in zip(a, b):
             assert np.array_equal(x, y)
+
+
+@pytest.mark.parametrize("arch", ["mamba2-780m", "hymba-1.5b",
+                                  "llava-next-mistral-7b",
+                                  "seamless-m4t-large-v2"])
+def test_family_prefill_and_decode_card_vs_cpu(cuda, arch):
+    """The reduced f32 config of each family: prefill (the kernel once per
+    layer with self-attention) and 4 decode steps on the card against the
+    CPU from the same weights and request, within 1e-4."""
+    from repro_torch.launch.serve import prompt_inputs
+    from repro_torch.models import lm
+    cfg = get_config(arch).reduced()
+    p_cpu = lm.init_params(cfg, seed=0, device="cpu")
+    p_dev = {k: v.to(cuda) for k, v in p_cpu.items()}
+    toks, inputs = prompt_inputs(cfg, 2, 12, 0, "cpu")
+    out = []
+    for p, dev in ((p_dev, cuda), (p_cpu, "cpu")):
+        batch = {"tokens": toks.to(dev),
+                 **{k: v.to(dev) for k, v in inputs.items()}}
+        tops.reset_launches()
+        with torch.no_grad():
+            logits, cache = lm.prefill(p, cfg, batch, max_len=64)
+            launched = tops.launches()["window_attention"]
+            res = [logits]
+            for t in range(4):
+                logits, cache = lm.decode_step(p, cfg, toks[:, t].to(dev),
+                                               cache)
+                res.append(logits)
+        out.append((res, launched))
+    (card, launched), (cpu, _) = out
+    assert launched == (0 if cfg.attention == "none" else cfg.n_layers)
+    for a, b in zip(card, cpu):
+        assert float((a.cpu() - b).abs().max()) <= 1e-4

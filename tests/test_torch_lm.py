@@ -16,8 +16,8 @@ Contracts:
   probabilities and V in f32 and round the output once; the port's
   ``window_attention_ref`` against the reference's: f32 within 1e-5, bf16
   within 3e-2 (``tests/test_kernels.py``'s bf16 bound: both round p);
-* ``multihead_attention(causal=True)`` against ``attend_dense``: f32 within
-  1e-5; ``decode_attend`` against the reference's: f32 within 1e-5, bf16
+* ``multihead_attention`` (causal, and the encoder's bidirectional
+  ``causal=False``) against ``attend_dense``: f32 within 1e-5; ``decode_attend`` against the reference's: f32 within 1e-5, bf16
   within 2e-2 (both round p to bf16 before the product with V, and a
   one-ulp flip of p moves the output by up to 2⁻⁸·|v|);
 * ``prefill`` and four ``decode_step``s against ``repro.models.lm`` with the
@@ -25,7 +25,10 @@ Contracts:
   the port keeps the probabilities in f32 in prefill (the kernel's order)
   where the reference's ``attend_dense`` rounds them to bf16 first — the
   bound the JAX package allows for that same difference;
-* greedy serving with the reference's weights picks the reference's tokens;
+* greedy serving with the reference's weights picks the reference's tokens,
+  for the dense family and (``test_other_families_raise``) for the ssm,
+  hybrid, vlm and audio families on the reference's request; a family
+  outside the six raises;
 * the tensor-core body's precision argument: p split into three bf16
   terms keeps the output within one bf16 ulp of the f32-p plain version;
   two terms miss it on a row whose output cancels.
@@ -334,8 +337,12 @@ def test_multihead_attention_matches_attend_dense(window):
                               window=window)
     got = tattn.multihead_attention(qt, kt, vt, causal=True, window=window)
     np.testing.assert_allclose(_np(got), _np(want), atol=1e-5, rtol=0)
-    with pytest.raises(NotImplementedError, match="audio"):
-        tattn.multihead_attention(qt, kt, vt, causal=False, window=None)
+    # the encoder's bidirectional route
+    want = jattn.attend_dense(qj, jnp.repeat(kj, 2, axis=2),
+                              jnp.repeat(vj, 2, axis=2), causal=False,
+                              window=window)
+    got = tattn.multihead_attention(qt, kt, vt, causal=False, window=window)
+    np.testing.assert_allclose(_np(got), _np(want), atol=1e-5, rtol=0)
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -475,12 +482,31 @@ def test_serve_main_on_cpu(capsys):
     ("mamba2-780m", "ssm"), ("hymba-1.5b", "hybrid"),
     ("llava-next-mistral-7b", "vlm"), ("seamless-m4t-large-v2", "audio")])
 def test_other_families_raise(arch, family):
-    cfg = get_config(arch)
+    """The four families beyond dense and MoE serve: ``serve.generate`` on
+    the reference's reduced weights and request (``serve.prompt_inputs``,
+    its draws) picks the reference's greedy tokens; a family outside the
+    six raises."""
+    cfg, jcfg = get_config(arch).reduced(), JAX_REGISTRY[arch].reduced()
     assert cfg.family == family
-    with pytest.raises(NotImplementedError, match=repr(family)):
-        lm.init_params(cfg.reduced(), device=CPU)
-    with pytest.raises(NotImplementedError, match=repr(family)):
-        serve.main(["--arch", arch, "--reduced", "--device", "cpu"])
+    p_jax = jlm.init_params(jax.random.PRNGKey(0), jcfg)
+    params = lm_params_from_jax(jax.tree_util.tree_map(np.asarray, p_jax))
+    toks, inputs = serve.prompt_inputs(cfg, 2, 12, 0, CPU)
+    gen = 5
+    got, _ = serve.generate(params, cfg, toks, gen=gen, inputs=inputs)
+    batch = {"tokens": jnp.asarray(toks.numpy(), jnp.int32),
+             **{k: jnp.asarray(v.numpy()) for k, v in inputs.items()}}
+    logits, cache = jax.jit(lambda p, b: jlm.prefill(p, jcfg, b))(p_jax,
+                                                                   batch)
+    cache = {k: (jnp.pad(v, [(0, 0), (0, 0), (0, gen), (0, 0), (0, 0)])
+                 if k in ("k", "v") else v) for k, v in cache.items()}
+    step = jax.jit(lambda p, t, c: jlm.decode_step(p, jcfg, t, c))
+    want = [jnp.argmax(logits, -1)]
+    for _ in range(gen - 1):
+        logits, cache = step(p_jax, want[-1].astype(jnp.int32), cache)
+        want.append(jnp.argmax(logits, -1))
+    np.testing.assert_array_equal(got.numpy(), np.stack(want, 1))
+    with pytest.raises(NotImplementedError, match="'other'"):
+        lm.init_params(dataclasses.replace(cfg, family="other"), device=CPU)
 
 
 def test_fedsim_and_cpu_default_raise(monkeypatch):
@@ -547,5 +573,5 @@ def test_lm_params_from_jax_covers_every_leaf(arch, dtype):
         bits = np.uint16 if leaf.dtype.itemsize == 2 else np.uint32
         tb = t.view(torch.int16 if bits is np.uint16 else torch.int32)
         np.testing.assert_array_equal(tb.numpy().view(bits), leaf.view(bits))
-    with pytest.raises(KeyError, match="not a dense LM"):
+    with pytest.raises(KeyError, match="not an LM's parameters"):
         lm_params_from_jax({"embed": p_np["embed"]})
