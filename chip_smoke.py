@@ -180,10 +180,11 @@ Phases, each printing one JSON line (any failure exits non-zero):
               its plain version first; the committed file unchanged); the
               winners printed beside the heuristic plans, ms per
               candidate.
- 11. fedsim   ``launch.fedsim.run`` at N = 4096 (M = 410, E = B = 10,
+ 11. fedsim   ``launch.fedsim.run`` at N = 4096 (M = 416, the reference's
+              cohort padded to the dp width; E = B = 10,
               n_max 512, 32 sweeps, memory aggregator): the round, server
               pipeline and aggregator programs, each once cold and once
-              measured; B1 = B2 = 1, B3 = 410, B4 = 32 and B6 = 1 launches
+              measured; B1 = B2 = 1, B3 = 416, B4 = 32 and B6 = 1 launches
               per measured call; the pipeline's set bitwise
               ``fedgs_select``'s on the same H built outside the twin;
               each program's memory and device ms; B1, B2, B3, B4 and B6
@@ -278,6 +279,27 @@ Phases, each printing one JSON line (any failure exits non-zero):
               and bitwise twice; the reduced f32 config of all four card
               vs CPU: loss within 1e-5, the gradient's norm of difference
               within 1e-4 relative.  One JSON line a part.
+ 17. dryrun   (runs after 16) the LM stack's scale-out.  (a) the dry-run
+              (``launch/dryrun.py``) through its CLI in one process with
+              expandable segments, 10 archs x 4 shapes x {pod1, pod2}: each
+              pair planned on the production mesh, its step traced on meta
+              tensors, and, where the plan fits the card's free memory,
+              one device's argument shards allocated: every record ok, the
+              allocator's requested bytes equal to the plan and its
+              allocated bytes to the plan's 512-byte blocks; per pair the
+              arguments in GB per device, fits, flops per device, dominant
+              term and seconds.  (b) smollm-135m at full width in f32, one
+              SGD train step at lr 1 under the baseline and under each
+              variant of VARIANT_RUNS (batches and references there): loss
+              and gradients within each variant's stated bound; each
+              step's ms (CUDA events) beside its reference's.  (c)
+              granite-moe-1b-a400m's prefill at 8 x 64 under moe_grouped
+              on the pod1 context (16 groups of 32 tokens): logits finite,
+              24 B9 launches; in f32 at 2 layers, card vs CPU from the
+              card's state, the card's expert choices forced and the
+              CPU's own held where its margin is clear.  (d) fedsim at N =
+              4096 on pod2 (``--multi-pod``, dp 32) with phase 11's gates
+              (M = 416), beside pod1's record.
  15. the ``{"kernels": [...]}`` line (times at the main path's shapes:
      N = 30, M = 6, P = 610; the similarity also at the vision phase's
      (100, 13946) update-cosine 3DG, with that call's launches; the dense
@@ -2798,37 +2820,24 @@ def plans_run(np, torch, dev) -> dict:
 
 # ------------------------------------------------------------ phase 11
 FEDSIM = {"clients": 4096, "aggregator": "memory"}
+# the reference's cohort at N = 4096: round(0.1 N) = 410 padded to a
+# multiple of the dp width (16 on pod1, 32 on pod2)
+FEDSIM_M = 416
 
 
 def fedsim_run(np, torch, dev) -> dict:
     """The fedsim launcher at N = 4096 (see the module docstring)."""
     from repro_torch.core.graph_device import GraphConfig, build_h
-    from repro_torch.core.sampler_device import fedgs_select
     from repro_torch.launch import fedsim
 
     t_phase = time.perf_counter()
     n = FEDSIM["clients"]
     rec = fedsim.run(n, aggregator=FEDSIM["aggregator"], force=True)
-    if not rec["ok"]:
-        raise AssertionError(f"fedsim: {rec.get('error')}\n"
-                             f"{rec.get('traceback', '')}")
-    m = rec["round"]["m_sampled"]
-    sp, ag = rec["server_pipeline"], rec["aggregator"]
-    want = {"fused_adjacency": 1, "floyd_warshall": 1, "greedy_argmax": m,
-            "swap_best_fused": sp["max_sweeps"]}
-    if sp["launches"] != want or m != 410:
-        raise AssertionError(f"fedsim: pipeline launches {sp['launches']}, "
-                             f"want {want} (M = {m})")
-    if ag["launches"] != {"memagg": 1}:
-        raise AssertionError(f"fedsim: aggregator launches "
-                             f"{ag['launches']}")
-    # the set, bitwise, from fedgs_select on the same H outside the twin
+    out = {"phase": "fedsim", "card": smi_line(), **fedsim_gates(rec, dev)}
+    m, p = out["m"], out["p"]
+    sp = rec["server_pipeline"]
     feats, counts, avail = fedsim.pipeline_inputs(n, device=dev)
     h = build_h(feats, GraphConfig())
-    s = fedgs_select(h, counts, avail, 1.0, m=m, max_sweeps=sp["max_sweeps"])
-    if torch.nonzero(s).flatten().tolist() != sp["selected"]:
-        raise AssertionError("fedsim: the pipeline's set is not "
-                             "fedgs_select's on the same H")
     # each kernel's device ms per call at the programs' shapes (20 calls
     # replayed from a CUDA graph), the planned plan, beside its bound
     from repro_torch.core.sampler_device import balance_z
@@ -2843,7 +2852,6 @@ def fedsim_run(np, torch, dev) -> dict:
     valid = torch.ones(m, dtype=torch.bool, device=dev)
     a_m = torch.randn(m, generator=g, device=dev)
     b_n = torch.randn(n, generator=g, device=dev)
-    p = ag["p"]
     mem = torch.randn(n, p, generator=g, device=dev)
     upd = torch.randn(m, p, generator=g, device=dev)
     w = torch.rand(n, generator=g, device=dev) / n
@@ -2864,7 +2872,8 @@ def fedsim_run(np, torch, dev) -> dict:
     work = fedsim.kernel_work(n, m, fedsim.CLASSES, p)
     kernels = {}
     for name, fn in calls.items():
-        launched = ag["launches"] if name == "memagg" else sp["launches"]
+        launched = rec["aggregator"]["launches"] if name == "memagg" \
+            else sp["launches"]
         per_call = device_ms(torch, fn, reps=5 if name == "floyd_warshall"
                              else 20)
         t_bound, by = bound(work[name][1], work[name][0])
@@ -2872,18 +2881,53 @@ def fedsim_run(np, torch, dev) -> dict:
                          "device_ms_per_call": per_call,
                          "device_ms_per_program": per_call * launched[name],
                          "bound_ms_per_call": t_bound, "bound_by": by}
-    out = {"phase": "fedsim", "card": smi_line(), "n": n, "m": m,
+    out["kernels"] = kernels
+    out["seconds"] = time.perf_counter() - t_phase
+    return out
+
+
+def fedsim_gates(rec: dict, dev) -> dict:
+    """A fedsim record's gates at N = 4096: ``ok``; the cohort M = 416
+    (the reference's, padded to the dp width); B1 = B2 = 1, B3 = M, B4 =
+    the sweeps and B6 = 1 launches per measured call; the pipeline's set
+    bitwise ``fedgs_select``'s on the same H built outside the twin.
+    Returns the record's summary."""
+    import torch
+    from repro_torch.core.graph_device import GraphConfig, build_h
+    from repro_torch.core.sampler_device import fedgs_select
+    from repro_torch.launch import fedsim
+    if not rec["ok"]:
+        raise AssertionError(f"fedsim {rec['mesh']}: {rec.get('error')}\n"
+                             f"{rec.get('traceback', '')}")
+    n = FEDSIM["clients"]
+    m = rec["round"]["m_sampled"]
+    sp, ag = rec["server_pipeline"], rec["aggregator"]
+    want = {"fused_adjacency": 1, "floyd_warshall": 1, "greedy_argmax": m,
+            "swap_best_fused": sp["max_sweeps"]}
+    if sp["launches"] != want or m != FEDSIM_M:
+        raise AssertionError(f"fedsim {rec['mesh']}: pipeline launches "
+                             f"{sp['launches']}, want {want} (M = {m})")
+    if ag["launches"] != {"memagg": 1}:
+        raise AssertionError(f"fedsim {rec['mesh']}: aggregator launches "
+                             f"{ag['launches']}")
+    # the set, bitwise, from fedgs_select on the same H outside the twin
+    feats, counts, avail = fedsim.pipeline_inputs(n, device=dev)
+    h = build_h(feats, GraphConfig())
+    s = fedgs_select(h, counts, avail, 1.0, m=m, max_sweeps=sp["max_sweeps"])
+    if torch.nonzero(s).flatten().tolist() != sp["selected"]:
+        raise AssertionError(f"fedsim {rec['mesh']}: the pipeline's set is "
+                             f"not fedgs_select's on the same H")
+    out = {"mesh": rec["mesh"], "dp": rec["dp"], "n": n, "m": m,
            "p": ag["p"]}
     for part in ("round", "server_pipeline", "aggregator"):
         r = rec[part]
         out[part] = {k: r[k] for k in ("launches", "device_ms", "wall_ms",
                                        "first_call_ms", "mem", "flops")}
         if r["device_ms"] <= 0 or not r["mem"]["peak_bytes"]:
-            raise AssertionError(f"fedsim {part}: {r['device_ms']}")
-    out["kernels"] = kernels
+            raise AssertionError(f"fedsim {rec['mesh']} {part}: "
+                                 f"{r['device_ms']}")
     out["round_terms_s"] = {k: rec[k] for k in ("compute_term_s",
                                                  "memory_term_s")}
-    out["seconds"] = time.perf_counter() - t_phase
     return out
 
 
@@ -4633,8 +4677,444 @@ def families_run(np, torch, dev) -> tuple[dict, dict]:
             "seconds": time.perf_counter() - t_phase}, rows
 
 
+
+# ------------------------------------------------------------ phase 17
+# (a) the dry-run matrix: 10 archs x 4 shapes x {pod1, pod2}, and (b) the
+# variants, each in a process of its own (the card's memory its own, the
+# earlier phases' cache released first) with expandable segments: every
+# block split to its size, so (a)'s allocation is exact and (b)'s large
+# steps do not fail on a fragmented cache
+DRYRUN_TIMEOUT_S = 600
+DRYRUN_ENV = {"PYTORCH_CUDA_ALLOC_CONF": "expandable_segments:True"}
+# (b) the variants at full width: smollm-135m in f32, 30 layers, S = 4,096.
+# Each variant runs at the first batch of its list that fits the card,
+# against the baseline at that batch.  Where the baseline runs out of
+# memory (its dense (B, 9, S, S) f32 score
+# buffers) minremat stands in for it at that batch: the port's remat
+# changes no bit, which is held first (minremat bitwise the baseline at
+# 8).  micro16_minremat and the remat2_micro16 pair need 16; no_remat
+# saves every layer's score buffers and is tried at 2, then 1.
+VARIANT_ARCH, VARIANT_SEQ = "smollm-135m", 4096
+# name -> (batches to try, its tolerance's kind)
+VARIANT_RUNS = {
+    "minremat": ((8,), "remat_bitwise"),
+    "dense_max_2k": ((8,), "cpu"),
+    "chunked_attn": ((8,), "cpu"),
+    "kv_chunk_2k": ((8,), "cpu"),
+    "loss_chunk_128": ((8,), "cpu"),
+    "loss_chunk_1k": ((8,), "cpu"),
+    "bf16_scores": ((8,), "cpu"),
+    "chunked_attn_minremat": ((8,), "cpu"),
+    "micro8": ((8,), "micro"),
+    "micro8_minremat": ((8,), "micro"),
+    "micro8_chunked_minremat": ((8,), "micro+cpu"),
+    "remat2_micro8": ((8,), "micro"),
+    "no_remat": ((2, 1), "remat"),
+    "micro16_minremat": ((16,), "micro"),
+    "remat2_micro16": ((16,), "micro"),
+    "remat2_micro16_gradbf16": ((16,), "micro+bf16acc"),
+}
+# the reference's own tolerances (tests/test_variants.py): remat, the loss
+# within rel 1e-5 and the gradients within atol 1e-4 (:62); microbatches,
+# the loss within rel 1e-4 and the parameters after an SGD step within
+# atol 3e-3 (:91), held here on the gradients (the step at lr 1)
+REMAT_TOL = {"loss_rel": 1e-5, "grad_abs": 1e-4}
+MICRO_TOL = {"loss_rel": 1e-4, "grad_abs": 3e-3}
+# the attention, loss-chunk and bf16 variants: the same comparison's gap
+# on the CPU at 2 layers, batch 1 x 4,096 (``python3 chip_smoke.py
+# --variant-bounds``, stated before the card's run; |loss gap| and the
+# largest |gradient gap|), each at least one f32 ulp of what it compares
+# (the loss near 10.8: 9.5e-7; a gradient recovered as p − (p − g) next to
+# a norm weight of 1: 1.2e-7), scaled to the card's 30 layers by depth
+# (round-off adds up layer by layer), times 4
+VARIANT_CPU_GAPS = {
+    "dense_max_2k": {"loss": 0.0, "grad": 1.1920928955078125e-07},
+    "chunked_attn": {"loss": 0.0, "grad": 1.1920928955078125e-07},
+    "kv_chunk_2k": {"loss": 0.0, "grad": 0.0},
+    "loss_chunk_128": {"loss": 0.0, "grad": 7.450580596923828e-09},
+    "loss_chunk_1k": {"loss": 0.0, "grad": 7.450580596923828e-09},
+    "bf16_scores": {"loss": 0.0001010894775390625,
+                    "grad": 7.466005627065897e-05},
+    "chunked_attn_minremat": {"loss": 0.0,
+                              "grad": 1.1920928955078125e-07}}
+VARIANT_ULP = {"loss": 2.0 ** -20, "grad": 2.0 ** -23}
+VARIANT_CPU_LAYERS = 2
+# a bf16 gradient accumulator: each of the 16 additions rounds the running
+# sum to bf16 (half an ulp, 2^-9 of it); the mean's gap stays within
+# 2^-4 of the largest gradient
+BF16_ACC_REL = 2.0 ** -4
+
+
+def variant_bound(kind: str, name: str, g_max: float, layers: int) -> dict:
+    """The stated bound of a variant: {"loss_rel"/"loss_abs", "grad_abs"}."""
+    tol = {"loss_abs": 0.0, "loss_rel": 0.0, "grad_abs": 0.0}
+    for part in kind.split("+"):
+        if part in ("remat", "remat_bitwise"):
+            new = dict(REMAT_TOL)
+        elif part == "micro":
+            new = dict(MICRO_TOL)
+        elif part == "bf16acc":
+            new = {"grad_abs": BF16_ACC_REL * g_max}
+        else:                         # 4x the CPU gap of its route
+            gap = VARIANT_CPU_GAPS[name if name in VARIANT_CPU_GAPS
+                                   else "chunked_attn"]
+            depth = layers / VARIANT_CPU_LAYERS
+            new = {f"{k}_abs": 4 * depth * max(gap[k], VARIANT_ULP[k])
+                   for k in ("loss", "grad")}
+        for k, v in new.items():
+            tol[k] = max(tol[k], v)
+    return tol
+
+
+def variant_step(torch, cfg, params, batch, name: str) -> tuple:
+    """One ``train_step`` under variant ``name`` with SGD at lr 1: (loss,
+    gradients as params − new params, ms by CUDA events on the card)."""
+    from repro_torch.launch import steps, variants
+    from repro_torch.optim.optimizers import sgd
+    cuda = batch["tokens"].is_cuda
+    with variants.apply_variant(name):
+        step, opt = steps.make_train_step(cfg, sgd())
+        if cuda:
+            torch.cuda.synchronize()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+        new, _, loss = step(params, opt.init(params), batch, 1.0)
+        ms = None
+        if cuda:
+            end.record()
+            end.synchronize()
+            ms = start.elapsed_time(end)
+    grads = {k: params[k] - new[k] for k in params}
+    return float(loss), grads, ms
+
+
+def variant_gap(base, other) -> dict:
+    (l0, g0), (l1, g1) = base[:2], other[:2]
+    return {"loss": abs(l1 - l0),
+            "grad": max(float((g1[k] - g0[k]).abs().max()) for k in g0),
+            "grad_max": max(float(g.abs().max()) for g in g0.values())}
+
+
+def variant_batch(torch, cfg, b: int, dev) -> dict:
+    g = torch.Generator().manual_seed(17)
+    tk = torch.randint(0, cfg.vocab_size, (b, VARIANT_SEQ + 1), generator=g)
+    return {"tokens": tk[:, :-1].to(dev), "labels": tk[:, 1:].to(dev)}
+
+
+def variant_cpu_gaps(np, torch) -> dict:
+    """The CPU's gaps that set the attention, loss-chunk and bf16 variants'
+    bounds: smollm-135m at full width in f32, 2 layers, batch 1 x 4,096."""
+    import dataclasses
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import lm
+    cfg = dataclasses.replace(get_config(VARIANT_ARCH), dtype="float32",
+                              n_layers=VARIANT_CPU_LAYERS)
+    params = lm.init_params(cfg, seed=0, device="cpu")
+    batch = variant_batch(torch, cfg, 1, "cpu")
+    base = variant_step(torch, cfg, params, batch, "baseline")
+    return {name: variant_gap(base, variant_step(torch, cfg, params, batch,
+                                                 name))
+            for name, (_, kind) in VARIANT_RUNS.items() if kind == "cpu"}
+
+
+def _own_process(torch, argv: list, what: str) -> tuple[str, float]:
+    """``python argv`` with DRYRUN_ENV and the repository's ``src``, after
+    this process's cached blocks are released; (its stdout, seconds)."""
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    env = {**os.environ, **DRYRUN_ENV,
+           "PYTHONPATH": str(ROOT / "src") + os.pathsep +
+           os.environ.get("PYTHONPATH", "")}
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, *argv], env=env,
+                          capture_output=True, text=True,
+                          timeout=DRYRUN_TIMEOUT_S)
+    seconds = time.perf_counter() - t0
+    (OUT / f"dryrun_{what}.log").write_text(proc.stdout + proc.stderr)
+    if proc.returncode != 0:
+        raise AssertionError(f"dryrun ({what}): exit {proc.returncode}:\n"
+                             f"{proc.stdout[-2000:]}\n{proc.stderr[-2000:]}")
+    return proc.stdout, seconds
+
+
+def dryrun_matrix(torch) -> dict:
+    """(a) The 80 pairs through the dry-run's CLI in one process (pod1,
+    then pod2: the traces shared), on the card; every record ok, and on
+    each pair that fits, the allocation equal to the plan."""
+    from repro_torch.configs.base import INPUT_SHAPES
+    from repro_torch.configs.registry import list_archs
+    out_dir = OUT / "dryrun"
+    code = ("import sys; from pathlib import Path; "
+            "from repro_torch.launch import dryrun; "
+            "dryrun.RESULTS_DIR = Path(sys.argv[1]); "
+            "a = ['--all', '--device', 'cuda', '--force']; "
+            "sys.exit(dryrun.main(a) | dryrun.main(a + ['--multi-pod']))")
+    _, seconds = _own_process(torch, ["-c", code, str(out_dir)], "a")
+    rows, n_fit = {}, 0
+    for mesh in ("pod1", "pod2"):
+        for arch in list_archs():
+            for shape in INPUT_SHAPES:
+                key = f"{arch}__{shape}__{mesh}"
+                rec = json.loads((out_dir / f"{key}.json").read_text())
+                alloc = rec.get("alloc", {})
+                if not rec["ok"] or not alloc:
+                    raise AssertionError(f"dryrun (a) {key}: "
+                                         f"{rec.get('error')}")
+                if rec["fits_one_h100"]:
+                    n_fit += 1
+                    if alloc["allocated_growth_bytes"] != \
+                            alloc["plan_block_bytes"] or \
+                            alloc["requested_growth_bytes"] != \
+                            rec["mem"]["argument_size_in_bytes"]:
+                        raise AssertionError(f"dryrun (a) {key}: allocated "
+                                             f"{alloc}, the plan "
+                                             f"{rec['mem']}")
+                rows[key] = {
+                    "args_gb_per_device":
+                        rec["mem"]["argument_size_in_bytes"] / 1e9,
+                    "fits_one_h100": rec["fits_one_h100"],
+                    "flops_per_device": rec["flops_per_device"],
+                    "useful_flop_ratio": rec["useful_flop_ratio"],
+                    "dominant": rec["dominant"],
+                    "trace_s": rec["trace_s"], "seconds": rec["total_s"]}
+    return {"pairs": len(rows), "fit_one_h100": n_fit,
+            "cli_seconds": seconds, "rows": rows}
+
+
+def dryrun_variants(np, torch, dev) -> dict:
+    """(b) One train step of smollm-135m at full width in f32 under the
+    baseline and each variant of VARIANT_RUNS, loss and gradients held to
+    each variant's stated bound; each step's ms and peak memory beside its
+    reference's."""
+    import dataclasses
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import lm
+    cfg = dataclasses.replace(get_config(VARIANT_ARCH), dtype="float32")
+    params = lm.init_params(cfg, seed=0, device=dev, draw="device")
+
+    def run(name, b):
+        """(loss, grads, ms, peak GB) or None where it does not fit."""
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        try:
+            res = variant_step(torch, cfg, params,
+                               variant_batch(torch, cfg, b, dev), name)
+        except torch.OutOfMemoryError:
+            torch.cuda.empty_cache()
+            return None
+        return res + (torch.cuda.max_memory_allocated() / 1e9,)
+    refs, ref_rows = {}, {}
+
+    def ref(b):
+        """The baseline at batch b, or minremat where it does not fit."""
+        if b not in refs:
+            for name in ("baseline", "minremat"):
+                res = run(name, b)
+                ref_rows[f"{name}@{b}"] = "out of memory" if res is None \
+                    else {"ms": res[2], "peak_gb": res[3]}
+                if res is not None:
+                    break
+            refs[b] = (name, res)
+        return refs[b]
+    ref(1)                            # the process's first step: warms up
+    ref(8)
+    rows = {}
+    for name, (batches, kind) in VARIANT_RUNS.items():
+        res, tried = None, []
+        for b in batches:
+            res = run(name, b)
+            if res is not None:
+                break
+            tried.append(b)
+        ref_name, base = ref(b) if res is not None else (None, None)
+        if res is None or base is None:
+            raise AssertionError(f"dryrun (b) {name}: does not fit at "
+                                 f"{batches} x {VARIANT_SEQ} ({ref_name})")
+        gap = variant_gap(base, res)
+        tol = variant_bound(kind, name, gap["grad_max"], cfg.n_layers)
+        loss_tol = max(tol["loss_abs"], tol["loss_rel"] * abs(base[0]))
+        rows[name] = {"batch": [b, VARIANT_SEQ], "out_of_memory_at": tried,
+                      "held_against": f"{ref_name}@{b}",
+                      "loss": res[0], "loss_gap": gap["loss"],
+                      "loss_bound": loss_tol, "grad_gap": gap["grad"],
+                      "grad_bound": tol["grad_abs"], "ms": res[2],
+                      "ref_ms": base[2], "peak_gb": res[3]}
+        if kind == "remat_bitwise" and (gap["loss"] or gap["grad"]):
+            raise AssertionError(f"dryrun (b) {name}: not bitwise the "
+                                 f"baseline: {rows[name]}")
+        if gap["loss"] > loss_tol or gap["grad"] > tol["grad_abs"]:
+            raise AssertionError(f"dryrun (b) {name}: beyond its bound: "
+                                 f"{rows[name]}")
+        del res
+    del params, refs
+    torch.cuda.empty_cache()
+    return {"arch": VARIANT_ARCH, "dtype": "float32",
+            "layers": cfg.n_layers, "refs": ref_rows, "rows": rows}
+
+
+def dryrun_moe_grouped(np, torch, dev) -> dict:
+    """(c) granite-moe-1b-a400m's prefill under moe_grouped on the pod1
+    context (dp 16: 16 dispatch groups of 32 tokens at 8 x 64): full width
+    on the card, logits finite, 24 B9 launches; then in f32 at 2 layers,
+    card vs CPU from the card's state with the card's expert choices
+    forced, the CPU's own choice held wherever its margin exceeds twice
+    the probabilities' gap."""
+    import dataclasses
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_production_mesh, make_shard_ctx
+    from repro_torch.launch.variants import apply_variant
+    from repro_torch.models import ffn, lm
+    from repro_torch.sharding.ctx import use_sharding
+
+    cfg = get_config(MOE_ARCH)
+    ctx = make_shard_ctx(make_production_mesh())
+    b, s = FAMILY_SERVE["batch"], FAMILY_SERVE["prompt"]
+    toks = torch.as_tensor(np.random.default_rng(25).integers(
+        0, cfg.vocab_size, (b, s)))
+    real_top_k = ffn._top_k
+    groups = []
+
+    def counted(probs, k):
+        groups.append(probs.shape[0])
+        return real_top_k(probs, k)
+    out = {"arch": MOE_ARCH, "batch": [b, s], "dp": ctx.dp_size}
+    params = lm.init_params(cfg, seed=0, device=dev, draw="device")
+    ops.reset_launches()
+    ffn._top_k = counted
+    try:
+        with use_sharding(ctx), apply_variant("moe_grouped"), \
+                torch.no_grad():
+            logits, _ = lm.prefill(params, cfg, {"tokens": toks.to(dev)})
+            torch.cuda.synchronize()
+    finally:
+        ffn._top_k = real_top_k
+    launched = ops.launches()
+    out.update(b9_launches=launched["window_attention"],
+               groups_per_layer=sorted(set(groups)),
+               logits_finite=bool(torch.isfinite(logits).all()))
+    if launched["window_attention"] != cfg.n_layers or \
+            any(v for k, v in launched.items() if k != "window_attention"):
+        raise AssertionError(f"dryrun (c): launches {launched}")
+    if out["groups_per_layer"] != [ctx.dp_size] or \
+            not out["logits_finite"]:
+        raise AssertionError(f"dryrun (c): {out}")
+    del params, logits
+    torch.cuda.empty_cache()
+    # f32 at 2 layers: card vs CPU from the card's state
+    c32 = dataclasses.replace(cfg, dtype="float32", n_layers=2)
+    p_cpu = lm.init_params(c32, seed=0, device="cpu")
+    p_dev = {k: v.to(dev) for k, v in p_cpu.items()}
+    calls, layers = [], []
+
+    def recorded(probs, k):
+        vals, idx = real_top_k(probs, k)
+        calls.append((idx.cpu(), probs.detach().float().cpu()))
+        return vals, idx
+
+    def record(i, x):
+        layers.append(x.cpu())
+        return x
+    route = {"tokens": 0, "flips": 0, "gated_flips": 0}
+    queue, layer_q, layer_err = iter(calls), iter(layers), []
+
+    def forced(probs, k):
+        idx, p_card = next(queue)
+        _, own = real_top_k(probs, k)
+        top = torch.sort(probs.float(), dim=-1, descending=True).values
+        margin = top[..., k - 1] - top[..., k]
+        gap = (probs.float() - p_card).abs().amax(-1)
+        flip = (torch.sort(own, -1).values !=
+                torch.sort(idx, -1).values).any(-1)
+        route["tokens"] += flip.numel()
+        route["flips"] += int(flip.sum())
+        route["gated_flips"] += int((flip & (margin > 2 * gap)).sum())
+        return probs.gather(-1, idx), idx
+
+    def from_card(i, x):
+        want = layers[i]
+        layer_err.append(_over_gate(x, want))
+        return want.to(x.dtype)
+    with use_sharding(ctx), apply_variant("moe_grouped"), torch.no_grad():
+        ffn._top_k = recorded
+        try:
+            card, _ = lm.prefill(p_dev, c32, {"tokens": toks.to(dev)},
+                                 tap=record)
+            ffn._top_k = forced
+            cpu, _ = lm.prefill(p_cpu, c32, {"tokens": toks},
+                                tap=from_card)
+        finally:
+            ffn._top_k = real_top_k
+    logit_err = _over_gate(card, cpu)
+    out["f32_2_layers"] = {
+        "bound": f"atol {LM_ATOL}, rtol {LM_RTOL}, each layer and the "
+                 "logits on the CPU from the card's state, the card's "
+                 "expert choices forced",
+        "layers_max_abs_err": max(e for e, _ in layer_err),
+        "layers_of_gate": max(o for _, o in layer_err),
+        "logits_max_abs_err": logit_err[0],
+        "logits_of_gate": logit_err[1], "routing": route}
+    if route["gated_flips"] or max(o for _, o in layer_err) > 1 or \
+            logit_err[1] > 1:
+        raise AssertionError(f"dryrun (c): card vs CPU {out}")
+    del p_dev
+    torch.cuda.empty_cache()
+    return out
+
+
+def dryrun_run(np, torch, dev, pod1: dict) -> dict:
+    """Phase 17 (see the module docstring), one JSON line a part."""
+    from repro_torch.launch import fedsim
+    t_phase = time.perf_counter()
+    card = smi_line()
+    parts = {}
+    t0 = time.perf_counter()
+    a = dryrun_matrix(torch)
+    parts["a"] = time.perf_counter() - t0
+    emit({"phase": "dryrun", "part": "a", "card": card, "a": a,
+          "seconds": parts["a"]})
+    t0 = time.perf_counter()
+    out, _ = _own_process(torch, [str(ROOT / "chip_smoke.py"), "--variants"],
+                          "b")
+    parts["b"] = time.perf_counter() - t0
+    emit({"phase": "dryrun", "part": "b", "card": card,
+          "b": json.loads(out.strip().splitlines()[-1]),
+          "seconds": parts["b"]})
+    t0 = time.perf_counter()
+    c = dryrun_moe_grouped(np, torch, dev)
+    parts["c"] = time.perf_counter() - t0
+    emit({"phase": "dryrun", "part": "c", "card": card, "c": c,
+          "seconds": parts["c"]})
+    t0 = time.perf_counter()
+    rec = fedsim.run(FEDSIM["clients"], multi_pod=True,
+                     aggregator=FEDSIM["aggregator"], force=True)
+    d = fedsim_gates(rec, dev)
+    if rec["mesh"] != "pod2" or rec["dp"] != 32:
+        raise AssertionError(f"dryrun (d): {rec['mesh']}, dp {rec['dp']}")
+    parts["d"] = time.perf_counter() - t0
+    emit({"phase": "dryrun", "part": "d", "card": card,
+          "d": {"pod2": d, "pod1": pod1}, "seconds": parts["d"]})
+    return {"phase": "dryrun", "card": card, "seconds_per_part": parts,
+            "pairs": a["pairs"], "fit_one_h100": a["fit_one_h100"],
+            "seconds": time.perf_counter() - t_phase}
+
 def main() -> int:
     import torch
+    if sys.argv[1:] == ["--variant-bounds"]:
+        # phase 17 (b)'s CPU gaps (VARIANT_CPU_GAPS): the CPU only
+        sys.path.insert(0, str(ROOT / "src"))
+        import numpy as np
+        torch.set_num_threads(min(8, os.cpu_count() or 1))
+        print(json.dumps(variant_cpu_gaps(np, torch)), flush=True)
+        return 0
+    if sys.argv[1:] == ["--variants"] and torch.cuda.is_available():
+        # phase 17 (b) in a process of its own (dryrun_run starts it)
+        sys.path.insert(0, str(ROOT / "src"))
+        import numpy as np
+        print(json.dumps(dryrun_variants(np, torch, torch.device("cuda"))),
+              flush=True)
+        return 0
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs the port on the "
               "GPU only", file=sys.stderr)
@@ -4709,7 +5189,8 @@ def main() -> int:
     emit(info)
     emit(runtime_run(np, torch, dev, kept))
     emit(plans_run(np, torch, dev))
-    emit(fedsim_run(np, torch, dev))
+    fed1 = fedsim_run(np, torch, dev)
+    emit(fed1)
     emit(mesh_run(np, torch, dev))
     emit(examples_run(np, torch, dev, slice_sets))
     t0 = time.perf_counter()
@@ -4722,6 +5203,8 @@ def main() -> int:
     emit(info)
     info, family_rows = families_run(np, torch, dev)
     emit(info)
+    emit(dryrun_run(np, torch, dev, {k: fed1[k] for k in (
+        "mesh", "dp", "m", "round", "server_pipeline", "aggregator")}))
     main_rows = {
         "pairwise_similarity": staged_rows[
             "pairwise_similarity/{}x{}".format(*STAGED_SHAPES[0])],

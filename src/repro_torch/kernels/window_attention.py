@@ -15,7 +15,9 @@ bf16 terms so that it keeps f32's precision); f32, and bf16 with D > 128,
 on the CUDA cores.
 
 :func:`window_attention` launches the kernel for a CUDA tensor and takes the
-plain version only for a CPU tensor.  The kernel has no backward, so both
+plain version only for a CPU tensor; on the meta device (a dry-run's shape
+trace, ``launch/dryrun.py``) nothing runs: it returns an empty output of
+the right shape and logs the call in ``META_CALLS``.  The kernel has no backward, so both
 refuse (raise on) an input that requires grad while grad mode is on: a
 backward would otherwise drop the attention's gradients on the card and
 not on the CPU.  Training takes ``models/attention``'s training route.
@@ -114,14 +116,39 @@ def window_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return o
 
 
+def visible_pairs(s: int, window: int) -> int:
+    """Σ_i min(i + 1, window) over i < s: the (query, key) pairs one head
+    of one sequence attends to."""
+    w = min(window, s)
+    return w * (w + 1) // 2 + (s - w) * w
+
+
+def attention_ops(b: int, s: int, hq: int, d: int, window: int) -> int:
+    """The kernel's operations (PERF.md §6): 4·B·Hq·D per visible pair
+    (QKᵀ and P·V, a multiply and an add each)."""
+    return 4 * b * hq * d * visible_pairs(s, window)
+
+
+# Calls on the meta device (shapes only: a dry-run's trace): one entry per
+# call, (B, S, Hq, Hkv, D, window).  Nothing runs and nothing is launched;
+# the tracer adds each call's ``attention_ops`` to what it counts.
+META_CALLS: list[tuple[int, int, int, int, int, int]] = []
+
+
 def window_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                      window: int) -> torch.Tensor:
     """Dispatch on the tensor's device: CUDA launches the kernel, CPU takes
-    the plain version.  Either refuses an input that requires grad under
-    grad mode, as the kernel has no backward."""
+    the plain version, meta (a shape trace) returns an empty output of the
+    right shape and logs the call in ``META_CALLS``.  Each refuses an input
+    that requires grad under grad mode, as the kernel has no backward."""
     _refuse_grad(q, k, v)
     if q.is_cuda:
         return window_attention_cuda(q, k, v, window=window)
+    if q.device.type == "meta":
+        _check_shapes(q, k, v, window)
+        b, s, hq, d = q.shape
+        META_CALLS.append((b, s, hq, k.shape[2], d, window))
+        return torch.empty_like(q)
     if q.device.type != "cpu":
         raise ValueError(f"window_attention: no kernel for {q.device}")
     return window_attention_plain(q, k, v, window=window)

@@ -4,7 +4,11 @@ port of ``repro.launch.fedsim``).
 The reference lowers and compiles these programs on its production mesh
 without running them.  Torch traces no programs, so here each program
 RUNS on the card at the reference's shapes, and its record keeps the
-reference's keys where they have a torch meaning:
+reference's keys where they have a torch meaning.  The cohort is the
+reference's: the sampled clients padded to the production mesh's dp
+width (16 on one pod, 32 on two with ``--multi-pod``; M = 416 at N =
+4096 on both), the programs run on one card on either mesh, and the record
+and its ``mesh`` tag say which:
 
   round_step(global_params, xs, ys, sizes, lr, idx)
     -> E local SGD steps on the M sampled clients at once (logistic
@@ -51,11 +55,12 @@ from repro_torch import resolve_device
 
 DIM, CLASSES = 60, 10          # the paper's Synthetic(0.5, 0.5) model
 RESULTS_DIR = Path(__file__).resolve().parents[3] / "build" / "dryrun"
-# one H100 SXM's published peaks (NVIDIA data sheet) at its 700 W limit
+# one H100 SXM's published peaks (NVIDIA data sheet) at its 700 W limit:
+# f32 outside the tensor cores, bf16 dense on them, HBM bandwidth (the
+# dry-run's roofline reads them here too)
 PEAK_F32_FLOPS = 67e12
+PEAK_BF16_FLOPS = 989e12
 HBM_BW = 3.35e12
-_ITEM13 = ("the multi-pod production mesh shards LM parameters: ROADMAP "
-           "item 13")
 
 
 def _gen(seed: int) -> torch.Generator:
@@ -346,6 +351,20 @@ def measure(fn, dev: torch.device, work: dict) -> tuple[object, dict]:
     return out, rec
 
 
+def dp_width(*, multi_pod: bool = False) -> int:
+    """The production mesh's dp width: 16 on one pod, 32 on two."""
+    from repro_torch.launch.mesh import make_production_mesh, make_shard_ctx
+    return make_shard_ctx(make_production_mesh(multi_pod=multi_pod)).dp_size
+
+
+def cohort_size(n_clients: int, sample_frac: float, dp: int) -> int:
+    """The sampled cohort, padded to the dp width as the reference pads it
+    (production pads the cohort with zero-weight clients):
+    ``max(dp, round(frac·N))`` rounded up to a multiple of dp."""
+    m_sel = max(dp, int(round(sample_frac * n_clients)))
+    return ((m_sel + dp - 1) // dp) * dp
+
+
 def record_key(n_clients: int, *, multi_pod: bool = False,
                aggregator: str = "fedavg", sweep_mesh=None) -> str:
     key = f"fedsim__c{n_clients}__{'pod2' if multi_pod else 'pod1'}"
@@ -378,12 +397,12 @@ def run(n_clients: int, *, multi_pod: bool = False, sample_frac: float = 0.1,
            "kind": "fl_round", "ok": False}
     t0 = time.time()
     try:
-        if multi_pod:
-            raise NotImplementedError(_ITEM13)
         dev = resolve_device(device, who="fedsim")
         rec["device"] = torch.cuda.get_device_name(dev) \
             if dev.type == "cuda" else "cpu"
-        m_sel = max(1, int(round(sample_frac * n_clients)))
+        dp = dp_width(multi_pod=multi_pod)
+        m_sel = cohort_size(n_clients, sample_frac, dp)
+        rec["dp"] = dp
         p = DIM * CLASSES + CLASSES
         work = kernel_work(n_clients, m_sel, CLASSES, p)
 
@@ -438,7 +457,9 @@ def run(n_clients: int, *, multi_pod: bool = False, sample_frac: float = 0.1,
                  "memory": rec["memory_term_s"],
                  "collective": rec["collective_term_s"]}
         rec["dominant"] = max(terms, key=terms.get)
-        rec["ok"] = r["finite"] and a["finite"] and len(sel) == m_sel
+        # FedGS takes min(M, |A_t|) clients
+        rec["ok"] = r["finite"] and a["finite"] and \
+            len(sel) == min(m_sel, int(avail.sum()))
     except Exception as e:              # recorded; the CLI exits 1
         import traceback
         rec["error"] = f"{type(e).__name__}: {e}"

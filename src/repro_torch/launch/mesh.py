@@ -19,19 +19,22 @@ all-gather), and a CPU tensor goes as it is.  Every collective is
 order-preserving and exact: an all-gather concatenates the ranks' pieces in
 rank order, and a sum is the one reduction (``silo_reduce="psum"``).
 
-The production mesh of the LM stack (``make_production_mesh``,
-``axis_map_for``, ``make_shard_ctx``) shards LM parameters; it belongs to
-ROADMAP item 13 and raises here.
+The production mesh of the LM stack (``make_production_mesh``) is the
+reference's (16, 16) ("data", "model") pod, or (2, 16, 16) ("pod", "data",
+"model") for two pods, held as an abstract mesh: its axis names and shape,
+no devices (one card cannot hold 256 or 512 of them).  ``axis_map_for``
+and ``make_shard_ctx`` map the logical axes onto it (or onto any mesh with
+``axis_names`` and a ``shape`` or ``devices.shape``); the dry-run
+(``launch/dryrun.py``) derives each device's shard from them.
 """
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
 from typing import Any
 
 import torch
 
-_ITEM13 = ("shards or trains LM parameters: the LM stack's scale-out, "
-           "ROADMAP item 13")
 
 
 def engine_mesh_shape(shape) -> tuple[int, int]:
@@ -162,16 +165,68 @@ def make_host_mesh(device_type: str = "cuda") -> HostMesh:
                     devices=devices)
 
 
-def make_production_mesh(*, multi_pod: bool = False):
-    raise NotImplementedError(f"make_production_mesh {_ITEM13}")
+@dataclass(frozen=True)
+class ProductionMesh:
+    """The LM stack's target mesh, abstract: axis names and shape."""
+    shape: tuple[int, ...]
+    axis_names: tuple[str, ...]
+
+    @property
+    def size(self) -> int:
+        return math.prod(self.shape)
 
 
-def axis_map_for(mesh):
-    raise NotImplementedError(f"axis_map_for {_ITEM13}")
+def make_production_mesh(*, multi_pod: bool = False) -> ProductionMesh:
+    """The reference's target: 256 chips a pod.
+
+    single pod : (16, 16)    axes ("data", "model")
+    two pods   : (2, 16, 16) axes ("pod", "data", "model")
+    """
+    if multi_pod:
+        return ProductionMesh((2, 16, 16), ("pod", "data", "model"))
+    return ProductionMesh((16, 16), ("data", "model"))
+
+
+# When True (variant `fsdp_over_pod`), weights and optimizer state shard over
+# BOTH the pod and data axes (32-way) instead of data only: half the
+# per-chip weight + optimizer memory, at the price of cross-pod weight
+# gathers.
+FSDP_OVER_POD = False
+
+
+def axis_map_for(mesh) -> dict[str, tuple[str, ...]]:
+    """Logical -> physical axis map (DESIGN.md §3).
+
+    dp    batch axis: ("pod","data") multi-pod, ("data",) single-pod
+    fsdp  weight-sharding axis: ("data",) (("pod","data") under FSDP_OVER_POD)
+    tp    tensor-parallel axis: ("model",)
+    sp    sequence axis (long-context, batch=1): ("data",)
+    """
+    names = set(mesh.axis_names)
+    amap: dict[str, tuple[str, ...]] = {}
+    if "pod" in names and "data" in names:
+        amap["dp"] = ("pod", "data")
+    elif "data" in names:
+        amap["dp"] = ("data",)
+    if "data" in names:
+        if FSDP_OVER_POD and "pod" in names:
+            amap["fsdp"] = ("pod", "data")
+        else:
+            amap["fsdp"] = ("data",)
+        amap["sp"] = ("data",)
+    if "model" in names:
+        amap["tp"] = ("model",)
+    return amap
 
 
 def make_shard_ctx(mesh):
-    raise NotImplementedError(f"make_shard_ctx {_ITEM13}")
+    """The ``ShardCtx`` of ``mesh``: its axis map and the tp and dp sizes."""
+    from repro_torch.sharding.ctx import ShardCtx, axes_total, mesh_sizes
+    amap = axis_map_for(mesh)
+    sizes = mesh_sizes(mesh)
+    return ShardCtx(axis_map=amap, mesh=mesh,
+                    tp_size=axes_total(sizes, amap.get("tp")),
+                    dp_size=axes_total(sizes, amap.get("dp")))
 
 
 # ------------------------------------------------------------- spawn helper

@@ -5,17 +5,28 @@
   prefill_step : prompt forward + cache build
   serve_step   : ONE token against the cache
 
-The reference also derives sharding specs for a production mesh
-(``make_shardings``, ``opt_state_specs``); those wait for the port's
-LM-parameter sharding and are not here.
+``make_shardings`` derives the spec trees of every argument from the path
+rules of ``sharding/rules.py``: 2D weight sharding (FSDP x TP), the batch
+over dp, the cache over dp (or over its *sequence* when the global batch
+is 1, the long_500k layout).  A spec is a tuple per leaf (the reference's
+``PartitionSpec``, ``sharding/ctx.py``); the reference wraps them in
+``NamedSharding``s for its compiler, the port's dry-run reads each
+device's shard from them (``rules.local_shape``).  ``lm.train_loss`` is
+looked up at call time, so a variant that patches it (``no_remat``)
+reaches the step.
 """
 from __future__ import annotations
 
+import dataclasses
+from typing import Any
+
 import torch
 
-from repro_torch.configs.base import ArchConfig
+from repro_torch.configs.base import ArchConfig, InputShape
 from repro_torch.models import lm
 from repro_torch.optim.optimizers import Optimizer, adamw
+from repro_torch.sharding import rules
+from repro_torch.sharding.ctx import ShardCtx
 
 # Microbatch count for gradient accumulation: the batch is split into
 # MICROBATCHES chunks run one after another, dividing the live activations
@@ -89,3 +100,30 @@ def make_serve_step(cfg: ArchConfig):
         with torch.no_grad():
             return lm.decode_step(params, cfg, tokens, cache)
     return serve_step
+
+
+# --------------------------------------------------------------- shardings
+def opt_state_specs(param_spec_tree):
+    """AdamW's state (``optim/optimizers.adamw``: ``m``, ``v`` per param,
+    the step ``t`` a scalar) follows the params' specs."""
+    return {"m": param_spec_tree, "v": param_spec_tree, "t": ()}
+
+
+def make_shardings(cfg: ArchConfig, shape: InputShape, ctx: ShardCtx,
+                   params_abs, cache_abs=None, batch_abs=None) -> dict:
+    """The spec trees of the step's arguments: ``params``, ``opt`` and, where
+    given, ``batch`` and ``cache``."""
+    if cfg.attention != "none" and rules.HEAD_AWARE_TP:
+        ctx = dataclasses.replace(ctx, head_divisors={
+            "wq": cfg.n_heads, "wo": cfg.n_heads,
+            "wk": cfg.n_kv_heads, "wv": cfg.n_kv_heads})
+    pspecs = rules.param_specs(params_abs, ctx)
+    out: dict[str, Any] = {"params": pspecs, "opt": opt_state_specs(pspecs)}
+    if batch_abs is not None:
+        out["batch"] = rules.batch_specs(batch_abs, ctx)
+    if cache_abs is not None:
+        # batch=1 long-context: shard the cache over *sequence*, unless the
+        # ring-cache variant already shrank it to one window (replicated)
+        seq_shard = shape.global_batch == 1 and not lm.RING_CACHE
+        out["cache"] = rules.cache_specs(cache_abs, ctx, seq_shard=seq_shard)
+    return out

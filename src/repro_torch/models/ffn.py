@@ -28,6 +28,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models.layers import dense_init
+from repro_torch.sharding.ctx import current_ctx
 
 
 # ---------------------------------------------------------------- dense FFN
@@ -76,8 +77,7 @@ def moe_capacity(n_tokens: int, n_experts: int, top_k: int,
 
 # Dispatch groups: 1 = the global sort dispatch.  G > 1 runs the dispatch
 # independently on G contiguous token groups, each with capacity/G; -1 is
-# the reference's "the mesh's dp size", which is 1 here (the port has no
-# LM-parameter mesh).
+# one group per dp shard: the installed ShardCtx's dp size (1 outside one).
 MOE_GROUPS = 1
 
 
@@ -151,9 +151,12 @@ def _dispatch_group(xt, probs, gate, choice, p, *, cap: int, top_k: int,
     table = torch.sort(where.reshape(t, top_k), dim=1).values
 
     xs = _GatherRows.apply(xt, st, table)                       # xt[st]
-    # the buffer's slots -> sorted entries, the empty ones -> a zero row
-    src = torch.full((e * cap,), tk, dtype=torch.int64, device=dev)
-    src[slot[keep]] = iota[keep]
+    # the buffer's slots -> sorted entries, the empty ones -> a zero row;
+    # an overflow entry writes a slot of its own past E·C, cut off after
+    # (one scatter of distinct indices: shape-static, no boolean index)
+    src = torch.full((e * cap + tk,), tk, dtype=torch.int64, device=dev)
+    src.scatter_(0, torch.where(keep, slot, e * cap + iota), iota)
+    src = src[:e * cap]
     zero = xt.new_zeros((1, d))
     buf = torch.cat([xs, zero])[src].reshape(e, cap, d)
 
@@ -182,8 +185,9 @@ def apply_moe(p, x, *, top_k: int, capacity_factor: float, kind: str):
     b, s, d = x.shape
     t = b * s
     g = MOE_GROUPS
-    if g == -1:                       # the mesh's dp size: one device
-        g = 1
+    if g == -1:                       # auto: one group per data shard
+        ctx = current_ctx()
+        g = ctx.dp_size if ctx is not None else 1
     if g < 1 or t % g != 0:
         g = 1
     e = p["w_in"].shape[0]

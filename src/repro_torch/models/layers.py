@@ -15,6 +15,21 @@ import torch
 _SQRT2 = math.sqrt(2.0)
 
 
+class MetaDraws:
+    """Stands in for a ``torch.Generator`` where only shapes and dtypes are
+    wanted: every draw is a tensor on the meta device (no data, no
+    allocation).  ``lm.init_params(cfg, device="meta")`` takes it."""
+    device = torch.device("meta")
+
+
+def draw_kw(gen) -> dict:
+    """The keywords of a ``torch.rand``/``randn`` draw from ``gen`` (a
+    ``torch.Generator`` or :class:`MetaDraws`) on its device."""
+    if isinstance(gen, MetaDraws):
+        return {"device": gen.device}
+    return {"generator": gen, "device": gen.device}
+
+
 def _truncated_normal(gen: torch.Generator, shape, lo: float = -3.0,
                       hi: float = 3.0) -> torch.Tensor:
     """Standard normal truncated to [lo, hi], f32, by inverting the CDF of a
@@ -30,6 +45,8 @@ def _truncated_normal(gen: torch.Generator, shape, lo: float = -3.0,
 def dense_init(gen: torch.Generator, in_dim: int, out_dim: int,
                dtype: torch.dtype) -> torch.Tensor:
     """Truncated-normal (±3) fan-in init, scale 1/sqrt(in) (LLaMA-style)."""
+    if isinstance(gen, MetaDraws):      # shapes only: no arithmetic
+        return torch.empty((in_dim, out_dim), dtype=dtype, device=gen.device)
     scale = 1.0 / math.sqrt(in_dim)
     return (_truncated_normal(gen, (in_dim, out_dim)) * scale).to(dtype)
 
@@ -37,6 +54,8 @@ def dense_init(gen: torch.Generator, in_dim: int, out_dim: int,
 def embed_init(gen: torch.Generator, vocab: int, dim: int,
                dtype: torch.dtype) -> torch.Tensor:
     """N(0, 0.02²) embedding table."""
+    if isinstance(gen, MetaDraws):
+        return torch.empty((vocab, dim), dtype=dtype, device=gen.device)
     return (torch.randn((vocab, dim), generator=gen, dtype=torch.float32,
                         device=gen.device) * 0.02).to(dtype)
 

@@ -54,8 +54,8 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import ffn as ffn_mod
 from repro_torch.models import ssd as ssd_mod
-from repro_torch.models.layers import (apply_rope, dense_init, embed_init,
-                                       rms_norm, rope_angles)
+from repro_torch.models.layers import (MetaDraws, apply_rope, dense_init,
+                                       embed_init, rms_norm, rope_angles)
 
 FAMILIES = ("dense", "moe", "ssm", "hybrid", "vlm", "audio")
 
@@ -131,14 +131,19 @@ def init_params(cfg: ArchConfig, *, seed: int = 0, device=None,
     on the CPU, so one seed gives the same weights on every device;
     ``draw="device"`` draws them on ``device``'s own generator (other
     numbers, the same distributions; seconds instead of minutes for a
-    model of billions of parameters on the card)."""
+    model of billions of parameters on the card).  ``device="meta"``
+    builds the same keys, shapes and dtypes on the meta device: nothing
+    is drawn or allocated (``launch/specs.abstract_params``)."""
     check_family(cfg)
     dev = resolve_device(device, who="repro_torch.models.lm")
     if draw not in ("host", "device"):
         raise ValueError(f"init_params: draw is 'host' or 'device', got "
                          f"{draw!r}")
-    gen = torch.Generator(device=dev if draw == "device" else "cpu")
-    gen.manual_seed(seed)
+    if dev.type == "meta":
+        gen = MetaDraws()
+    else:
+        gen = torch.Generator(device=dev if draw == "device" else "cpu")
+        gen.manual_seed(seed)
     dtype = torch_dtype(cfg.dtype)
     v, d = cfg.padded_vocab, cfg.d_model
     params = {"embed": embed_init(gen, v, d, dtype).to(dev)}
@@ -450,7 +455,7 @@ def train_loss(params, cfg: ArchConfig, batch, *, remat: bool = True,
     x, positions = _embed_inputs(params, cfg, batch)
     x, aux = _run_blocks(params, x, cfg, positions=positions, remat=remat,
                          enc_mem=enc)
-    labels = batch["labels"]
+    labels = batch["labels"].long()            # int32 ids index as int64
     if x.shape[1] != labels.shape[1]:          # the VLM's image prefix
         labels = torch.cat([labels.new_full(
             (labels.shape[0], x.shape[1] - labels.shape[1]), -1), labels],

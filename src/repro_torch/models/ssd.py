@@ -28,7 +28,7 @@ import math
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.layers import dense_init
+from repro_torch.models.layers import dense_init, draw_kw
 
 
 def init_ssd(gen: torch.Generator, d_model: int, cfg, dtype) -> dict:
@@ -36,7 +36,7 @@ def init_ssd(gen: torch.Generator, d_model: int, cfg, dtype) -> dict:
     d_in = cfg.expand * d_model
     nheads = d_in // cfg.head_dim
     dev = gen.device
-    u = torch.rand(nheads, generator=gen, dtype=torch.float32, device=dev)
+    u = torch.rand(nheads, dtype=torch.float32, **draw_kw(gen))
     lo, hi = math.log(1e-3), math.log(1e-1)
     dt = torch.exp(lo + u * (hi - lo))
     return {
@@ -50,8 +50,8 @@ def init_ssd(gen: torch.Generator, d_model: int, cfg, dtype) -> dict:
                                           dtype=torch.float32, device=dev)),
         "D": torch.ones(nheads, dtype=torch.float32, device=dev),
         "conv_w": (torch.randn((cfg.d_conv, d_in + 2 * cfg.d_state),
-                               generator=gen, dtype=torch.float32,
-                               device=dev) * 0.1).to(dtype),
+                               dtype=torch.float32, **draw_kw(gen))
+                   * 0.1).to(dtype),
         "w_out": dense_init(gen, d_in, d_model, dtype),
     }
 

@@ -89,7 +89,8 @@ def test_guard_covers_every_port_module():
     batched sweep engine with its availability processes, the plan table,
     the engine mesh and its rules, the fedsim launcher, the LM training
     path (its numpy stream, tree utilities, optimizers, steps and
-    launcher) and the five example twins included, and importing all of them in a fresh
+    launcher), the five example twins and the LM stack's scale-out (the
+    sharding context, specs, variants and dry-run) included, and importing all of them in a fresh
     interpreter loads neither jax nor repro."""
     pkg = ROOT / "src" / "repro_torch"
     mods = sorted(".".join(f.relative_to(pkg.parent).with_suffix("").parts)
@@ -121,7 +122,10 @@ def test_guard_covers_every_port_module():
                  "repro_torch.optim.optimizers",
                  "repro_torch.optim.schedules", "repro_torch.launch.steps",
                  "repro_torch.launch.train",
-                 "repro_torch.examples.train_federated_lm"):
+                 "repro_torch.examples.train_federated_lm",
+                 "repro_torch.sharding.ctx", "repro_torch.launch.specs",
+                 "repro_torch.launch.variants",
+                 "repro_torch.launch.dryrun"):
         assert need in mods, need
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"

@@ -122,8 +122,11 @@ def test_run_record_on_the_cpu(tmp_path, monkeypatch):
     rec = tfs.run(N, device="cpu", aggregator="memory", n_max=N_MAX,
                   local_steps=E, batch=B, force=True)
     assert rec["ok"], rec.get("traceback")
-    assert rec["round"]["m_sampled"] == round(0.1 * N)
-    assert rec["server_pipeline"]["n_selected"] == round(0.1 * N)
+    # the cohort padded to pod1's dp width, 16 (the reference's)
+    m = tfs.cohort_size(N, 0.1, 16)
+    assert m == 16 and rec["dp"] == 16
+    assert rec["round"]["m_sampled"] == m
+    assert rec["server_pipeline"]["n_selected"] == m
     assert rec["round"]["device_ms"] == "not measured (CPU)"
     assert rec["round"]["flops"] > 0 and rec["dominant"] in (
         "compute", "memory", "collective")
@@ -135,13 +138,49 @@ def test_run_record_on_the_cpu(tmp_path, monkeypatch):
     from repro_torch.core.graph_device import GraphConfig, build_h
     feats, counts, avail = tfs.pipeline_inputs(N, device="cpu")
     s = fedgs_select(build_h(feats, GraphConfig()), counts, avail, 1.0,
-                     m=round(0.1 * N), max_sweeps=32)
+                     m=m, max_sweeps=32)
     assert torch.nonzero(s).flatten().tolist() == \
         rec["server_pipeline"]["selected"]
-    bad = tfs.run(N, multi_pod=True, device="cpu", force=True)
-    assert not bad["ok"] and "item 13" in bad["error"]
-    assert tfs.main(["--clients", "16", "--multi-pod", "--device", "cpu",
-                     "--force"]) == 1
+    # two pods: dp 32, the record under pod2
+    pod2 = tfs.run(N, multi_pod=True, device="cpu", force=True,
+                   n_max=N_MAX, local_steps=E, batch=B)
+    assert pod2["ok"], pod2.get("traceback")
+    assert pod2["mesh"] == "pod2" and pod2["dp"] == 32
+    assert pod2["round"]["m_sampled"] == 32
+    assert (tmp_path / "fedsim__c64__pod2.json").exists()
+    assert tfs.main(["--clients", "64", "--multi-pod", "--device", "cpu",
+                     "--force"]) == 0
+
+
+@pytest.mark.parametrize("multi_pod", (False, True))
+@pytest.mark.parametrize("n_clients", (30, 100, 4096))
+def test_cohort_is_the_reference_formula(n_clients, multi_pod):
+    """The reference's cohort (src/repro/launch/fedsim.py:228-233):
+
+        m_sel = max(dp_total, int(round(sample_frac * n_clients)))
+        m_sel = ((m_sel + dp_total - 1) // dp_total) * dp_total
+
+    with dp_total the product of the dp axes of its production mesh (the
+    reference's ``run`` needs 512 host devices, so the formula runs here
+    on its axis map over a duck-typed mesh).  N = 30 and 100 have
+    round(0.1·N) below dp."""
+    from types import SimpleNamespace
+
+    from repro.launch import mesh as jmesh
+    shape, names = ((2, 16, 16), ("pod", "data", "model")) if multi_pod \
+        else ((16, 16), ("data", "model"))
+    jm = SimpleNamespace(axis_names=names, devices=np.empty(shape))
+    dp_total = jmesh.make_shard_ctx(jm).dp_size
+    sample_frac = 0.1
+    m_sel = max(dp_total, int(round(sample_frac * n_clients)))
+    m_sel = ((m_sel + dp_total - 1) // dp_total) * dp_total
+    dp = tfs.dp_width(multi_pod=multi_pod)
+    assert dp == dp_total == (32 if multi_pod else 16)
+    assert tfs.cohort_size(n_clients, sample_frac, dp) == m_sel
+    if n_clients == 4096:
+        assert m_sel == 416
+    else:
+        assert round(sample_frac * n_clients) < dp and m_sel == dp
 
 
 def test_kernel_work_formulas():

@@ -44,7 +44,10 @@ Contracts, kernel against plain version on the same device:
   CUDA-core body in f32;
 * the LM: a smollm-135m prefill launches the attention kernel once per
   layer (30) and decode not at all; the reduced LM (f32) on the card
-  agrees with the CPU (the plain version) within 1e-4.
+  agrees with the CPU (the plain version) within 1e-4;
+* the dry-run's allocation of one device's shards grows the allocator's
+  requested bytes by the plan's exactly; fedsim on pod2 samples the
+  reference's cohort (416 at N = 4096).
 """
 import numpy as np
 import pytest
@@ -1737,3 +1740,34 @@ def test_family_prefill_and_decode_card_vs_cpu(cuda, arch):
     assert launched == (0 if cfg.attention == "none" else cfg.n_layers)
     for a, b in zip(card, cpu):
         assert float((a.cpu() - b).abs().max()) <= 1e-4
+
+
+def test_dryrun_allocation_equals_the_plan(cuda, tmp_path):
+    """launch/dryrun.py (c) on one pair (smollm-135m decode_32k on pod1):
+    one device's shards allocated on the card; the allocator's requested
+    bytes grow by the plan's bytes exactly, its allocated bytes by the
+    plan's 512-byte blocks (exactly under expandable segments; in the
+    default configuration a large block may keep up to 1 MiB unsplit)."""
+    from repro_torch.launch import dryrun
+    rec = dryrun.run_one("smollm-135m", "decode_32k", device=cuda,
+                         force=True, results_dir=tmp_path)
+    assert rec["ok"], rec.get("error")
+    alloc = rec["alloc"]
+    assert rec["fits_one_h100"] is True and alloc["alloc_ok"]
+    assert alloc["requested_growth_bytes"] == \
+        rec["mem"]["argument_size_in_bytes"]
+    assert alloc["allocated_growth_bytes"] >= alloc["plan_block_bytes"]
+    assert rec["b9_meta_calls"] == 0 and rec["flops_per_device"] > 0
+
+
+def test_fedsim_pod2_cohort(cuda, tmp_path, monkeypatch):
+    """fedsim --multi-pod at N = 4096: dp 32, the reference's cohort M =
+    416, and B3 launched M times in the measured server pipeline."""
+    from repro_torch.launch import fedsim
+    monkeypatch.setattr(fedsim, "RESULTS_DIR", tmp_path)
+    rec = fedsim.run(4096, multi_pod=True, aggregator="memory", force=True)
+    assert rec["ok"], rec.get("error")
+    assert rec["mesh"] == "pod2" and rec["dp"] == 32
+    assert rec["round"]["m_sampled"] == 416
+    assert rec["server_pipeline"]["launches"]["greedy_argmax"] == 416
+    assert rec["aggregator"]["launches"] == {"memagg": 1}

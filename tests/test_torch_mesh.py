@@ -349,8 +349,8 @@ def test_engine_mesh_shape_and_errors():
             engine_mesh_shape(bad)
     with pytest.raises(RuntimeError, match="initialized"):
         make_engine_mesh((2, 1))
-    with pytest.raises(NotImplementedError, match="item 13"):
-        make_production_mesh()
+    prod = make_production_mesh()
+    assert (prod.shape, prod.axis_names) == ((16, 16), ("data", "model"))
     mesh = make_host_mesh("cpu")
     assert mesh.shape == (1,) and mesh.axis_names == ("data",)
 
