@@ -341,7 +341,9 @@ class ScanEngine:
     state on ``device`` (None means CUDA, and raises without one; pass
     ``device="cpu"`` for the CPU).  ``use_masks`` runs every cell on
     host-precomputed availability masks instead of a device process.
-    ``tracer`` (``fed/telemetry.Tracer``) records host spans and ``sink``
+    ``tracer`` (``fed/telemetry.Tracer``) records host spans (inside each
+    ``dispatch_segment``, one ``sampler``, ``local_train``, ``aggregate``
+    and ``eval`` a batch round, around the whole batch's step) and ``sink``
     (``obs.JSONLMetricsSink``) receives per-round rows as each segment's
     trajectory lands on the host; both default to off."""
 
@@ -735,32 +737,34 @@ class ScanEngine:
             avail = torch.stack(rows)
 
         # 2. sampler, per cell: S_t ⊆ A_t, |S_t| = min(M, |A_t|)
-        s_rows = []
-        for i, c in enumerate(cells):
-            gumbel, gen = (None, None) \
-                if c["sampler_process"].family == "fedgs" \
-                else self._sampler_draw(c, t)
-            inputs = {"h": carry["h"][i], "counts": counts[i],
-                      "params": {k: v[i] for k, v in params.items()},
-                      "cell": c, "t": t, "gen": gen}
-            s_i, _ = plan.sampler_steps[i](c["sampler"], {}, inputs,
-                                           avail[i], t, gumbel=gumbel)
-            s_rows.append(s_i)
-        s = torch.stack(s_rows)
-        sel, valid = select_k(s, m)
+        with self.tracer.span("sampler"):
+            s_rows = []
+            for i, c in enumerate(cells):
+                gumbel, gen = (None, None) \
+                    if c["sampler_process"].family == "fedgs" \
+                    else self._sampler_draw(c, t)
+                inputs = {"h": carry["h"][i], "counts": counts[i],
+                          "params": {k: v[i] for k, v in params.items()},
+                          "cell": c, "t": t, "gen": gen}
+                s_i, _ = plan.sampler_steps[i](c["sampler"], {}, inputs,
+                                               avail[i], t, gumbel=gumbel)
+                s_rows.append(s_i)
+            s = torch.stack(s_rows)
+            sel, valid = select_k(s, m)
 
         # 3. local training: every cell's M gathered clients in one call
         # (on a silo'd mesh, this rank's chunk of them)
-        lr = float(np.float32(cfg.lr * cfg.lr_decay ** t))
-        idx = self._batch_indices(cells, t, sel)
-        if plan.mesh is not None and plan.mesh.silo > 1:
-            local = self._silo_train(plan.mesh, params, sel, idx, lr)
-        else:
-            flat = sel.reshape(-1)
-            local = self._trainer.cells(params, self._x[flat],
-                                        self._y[flat], lr, idx)
-        per_cell = [{k: v[i * m:(i + 1) * m] for k, v in local.items()}
-                    for i in range(b)]
+        with self.tracer.span("local_train"):
+            lr = float(np.float32(cfg.lr * cfg.lr_decay ** t))
+            idx = self._batch_indices(cells, t, sel)
+            if plan.mesh is not None and plan.mesh.silo > 1:
+                local = self._silo_train(plan.mesh, params, sel, idx, lr)
+            else:
+                flat = sel.reshape(-1)
+                local = self._trainer.cells(params, self._x[flat],
+                                            self._y[flat], lr, idx)
+            per_cell = [{k: v[i * m:(i + 1) * m] for k, v in local.items()}
+                        for i in range(b)]
 
         # 3b. the fault seam, per fault cell, on the flat (M, P) panel
         fault_mag = {}
@@ -783,41 +787,43 @@ class ScanEngine:
                 fault_mag[i] = fault_corruption_norm(updf, cleanf, valid[i])
 
         # 4. server update: Eq. 18 weights, pads weigh zero
-        w = self._sizes_f[sel] * valid.to(torch.float32)
-        new_rows = [None] * b
-        chosen = None
-        if plan.fedavg:
-            g = plan.fedavg
-            whole = len(g) == b
-            prev = params if whole else {
-                k: v.index_select(0, plan.fedavg_index)
-                for k, v in params.items()}
-            stacked = {k: torch.stack([per_cell[i][k] for i in g])
-                       for k in params}
-            new = fedavg_cells(stacked, w if whole else w[plan.fedavg_index],
-                               prev)
-            for j, i in enumerate(g):
-                new_rows[i] = {k: v[j] for k, v in new.items()}
-        for i, step in plan.agg_steps.items():
-            c = cells[i]
-            state = {**carry["agg"][i],
-                     "prev": {k: v[i] for k, v in params.items()}}
-            new_rows[i], state = step(c["agg"], state, None, per_cell[i],
-                                      w[i], s[i], avail[i], t, sel[i],
-                                      valid[i])
-            if "chosen" in state:
-                if chosen is None:
-                    chosen = [torch.zeros(m, dtype=torch.bool, device=dev)
-                              for _ in range(b)]
-                chosen[i] = state.pop("chosen")
-            carry["agg"][i] = {k: v for k, v in state.items() if k != "prev"}
-        params_prev = params
-        if plan.fedavg and len(plan.fedavg) == b:
-            params = new
-        else:
-            params = {k: torch.stack([r[k] for r in new_rows])
-                      for k in params}
-        carry["params"] = params
+        with self.tracer.span("aggregate"):
+            w = self._sizes_f[sel] * valid.to(torch.float32)
+            new_rows = [None] * b
+            chosen = None
+            if plan.fedavg:
+                g = plan.fedavg
+                whole = len(g) == b
+                prev = params if whole else {
+                    k: v.index_select(0, plan.fedavg_index)
+                    for k, v in params.items()}
+                stacked = {k: torch.stack([per_cell[i][k] for i in g])
+                           for k in params}
+                new = fedavg_cells(stacked,
+                                   w if whole else w[plan.fedavg_index], prev)
+                for j, i in enumerate(g):
+                    new_rows[i] = {k: v[j] for k, v in new.items()}
+            for i, step in plan.agg_steps.items():
+                c = cells[i]
+                state = {**carry["agg"][i],
+                         "prev": {k: v[i] for k, v in params.items()}}
+                new_rows[i], state = step(c["agg"], state, None, per_cell[i],
+                                          w[i], s[i], avail[i], t, sel[i],
+                                          valid[i])
+                if "chosen" in state:
+                    if chosen is None:
+                        chosen = [torch.zeros(m, dtype=torch.bool,
+                                              device=dev) for _ in range(b)]
+                    chosen[i] = state.pop("chosen")
+                carry["agg"][i] = {k: v for k, v in state.items()
+                                   if k != "prev"}
+            params_prev = params
+            if plan.fedavg and len(plan.fedavg) == b:
+                params = new
+            else:
+                params = {k: torch.stack([r[k] for r in new_rows])
+                          for k in params}
+            carry["params"] = params
 
         # 5. counts v^{t+1}
         counts = counts + s.to(torch.float32)
@@ -838,15 +844,16 @@ class ScanEngine:
                     carry["h"][i] = build_h(emb, self._gcfg)
 
         # 6. eval on the eval_every cadence (always on the last round)
-        out = {"count_var": count_variance_device(counts),
-               "gini": gini_device(counts), "sel": sel, "valid": valid}
-        if cfg.eval_every == 1 or t % cfg.eval_every == 0 \
-                or t == cfg.rounds - 1:
-            xv = self._xv.expand(b, *self._xv.shape)
-            yv = self._yv.expand(b, *self._yv.shape)
-            with torch.no_grad():
-                out["val_loss"] = self.model.loss(params, xv, yv)
-                out["val_acc"] = self.model.accuracy(params, xv, yv)
+        with self.tracer.span("eval"):
+            out = {"count_var": count_variance_device(counts),
+                   "gini": gini_device(counts), "sel": sel, "valid": valid}
+            if cfg.eval_every == 1 or t % cfg.eval_every == 0 \
+                    or t == cfg.rounds - 1:
+                xv = self._xv.expand(b, *self._xv.shape)
+                yv = self._yv.expand(b, *self._yv.shape)
+                with torch.no_grad():
+                    out["val_loss"] = self.model.loss(params, xv, yv)
+                    out["val_acc"] = self.model.accuracy(params, xv, yv)
         if plan.krum:
             out["chosen"] = torch.stack(chosen) if chosen is not None else \
                 torch.zeros(b, m, dtype=torch.bool, device=dev)

@@ -22,7 +22,10 @@ Health metrics (``round_telemetry``)
     a Chrome/Perfetto ``trace.json``.  A span times the host: the card
     runs behind it, asynchronously, so device time comes from the profiler
     hook (``start_profiler`` / ``stop_profiler``, which write torch's own
-    Chrome trace into ``profile_dir``).
+    Chrome trace into ``profile_dir``).  Spans are on the profiler's clock:
+    ``base_ns / 1e3 + ts`` is Unix-epoch microseconds, as torch's events'
+    ``start_ns() / 1e3`` and its own export's ``baseTimeNanoseconds / 1e3
+    + ts`` are, so the two traces lay over each other.
 
 ``runtime_snapshot``
     One counters snapshot shared by ``ScanEngine``, ``FLEngine`` and
@@ -35,7 +38,7 @@ import json
 import os
 import threading
 import time
-from contextlib import contextmanager
+from contextlib import contextmanager, nullcontext
 from typing import Optional
 
 import torch
@@ -186,15 +189,17 @@ class Tracer:
 
     ``span(name)`` is a context manager: when the tracer is enabled it
     enters ``torch.profiler.record_function(name)`` and records a Chrome
-    complete event with the host wall-clock start and duration, thread id
-    and nesting depth.  Thread-safe: the checkpoint writer's
+    complete event with the host start (microseconds from ``base_ns``, the
+    Unix-epoch nanoseconds at construction) and duration, thread id and
+    nesting depth.  Thread-safe: the checkpoint writer's
     spans land on their own row.  ``profile_dir`` arms the profiler hook:
     ``start_profiler()`` / ``stop_profiler()`` bracket a run and the
     profiler's Chrome trace (host and, on the card, device activity) lands
     in that directory.  A disabled tracer (``NULL_TRACER``) records nothing
-    and enters nothing: unlike ``jax.named_scope``, a ``record_function``
-    range shows in every profile taken around it (on the card as a device
-    range as long as the span), so it is left out when spans are off."""
+    and enters nothing (``span`` hands back one shared no-op context):
+    unlike ``jax.named_scope``, a ``record_function`` range shows in every
+    profile taken around it (on the card as a device range as long as the
+    span), so it is left out when spans are off."""
 
     def __init__(self, *, enabled: bool = True,
                  profile_dir: Optional[str] = None):
@@ -203,18 +208,25 @@ class Tracer:
         self._events: list[dict] = []
         self._lock = threading.Lock()
         self._local = threading.local()
+        # durations on perf_counter; starts from the same instant on the
+        # Unix-epoch clock the profiler stamps its events with
         self._epoch = time.perf_counter()
+        self.base_ns = time.time_ns()
         self._profiler = None
+        self._off = nullcontext(self)
 
     # ------------------------------------------------------------ spans
     def _depth(self) -> int:
         return getattr(self._local, "depth", 0)
 
-    @contextmanager
     def span(self, name: str, **attrs):
+        """A context manager timing the block as the span ``name``."""
         if not self.enabled:
-            yield self
-            return
+            return self._off
+        return self._span(name, attrs)
+
+    @contextmanager
+    def _span(self, name: str, attrs: dict):
         with torch.profiler.record_function(name):
             self._local.depth = self._depth() + 1
             t0 = time.perf_counter()
@@ -285,7 +297,8 @@ class Tracer:
 
     def export_chrome(self, path: str) -> str:
         """Write the recorded spans as a Chrome/Perfetto ``trace.json``
-        (complete "X" events, microsecond timestamps); returns the path."""
+        (complete "X" events, microsecond timestamps from
+        ``baseTimeNanoseconds``, as torch's export); returns the path."""
         pid = os.getpid()
         evs = [{"name": ev["name"], "ph": "X", "pid": pid,
                 "tid": ev["tid"], "ts": round(ev["ts"], 3),
@@ -293,6 +306,7 @@ class Tracer:
                 "args": ev.get("args", {"depth": ev["depth"]})}
                for ev in self.events()]
         doc = {"traceEvents": evs, "displayTimeUnit": "ms",
+               "baseTimeNanoseconds": self.base_ns,
                "otherData": {"schema": TELEMETRY_SCHEMA_VERSION,
                              "tool": "repro_torch.fed.telemetry.Tracer"}}
         d = os.path.dirname(path)
