@@ -42,6 +42,13 @@ Phases, each printing one JSON line (any failure exits non-zero):
               buffer viewed as both.
      The launch floor: an empty one-warp kernel's device_ms, the floor of
               every tiny kernel's row (a reading, not a gate).
+     The cell axis: the batched FedGS solve's two kernels (greedy_cells,
+              swap_cells) at (B, m, N) = (56, 10, 100), the benchmark's
+              sweep, and (7, 6, 30), the scan phase's FedGS batch, held
+              launch by launch through a whole solve against their plain
+              versions on the same inputs (s bitwise, r within 1e-6
+              relative), then timed over the solve's own launches, with
+              the bytes those launches request as the bound.
      The Q-free swap at its small path's threshold ± 1 entry (the path
               each call took, and both paths timed), on an all-masked and
               an all-equal panel and after CUDA-graph replays with new
@@ -306,8 +313,11 @@ Phases, each printing one JSON line (any failure exits non-zero):
      swap at the vision solve's (m, N) = (10, 100); window attention at
      smollm's prefill, and (``window_attention/<family>``) at phase 16's
      bf16 shapes, each with the B9 launches of the run that prefills at
-     that shape; ``scan_launches``: the scan phase's gated runs;
-     ``train_launches``: the train phase's (a) and (b)).
+     that shape; the cell axis's two kernels at the benchmark's (56, 10,
+     100); ``scan_launches``: the scan phase's gated runs;
+     ``train_launches``: the train phase's (a) and (b); every count a
+     kernel's own: the per-step B3 and B4 rows leave out the cell axis's
+     launches, which ``ops.launches()`` counts under their names too).
 The last line is ``{"ok": true, "device": {...}}``.  The script needs a CUDA
 device and the repository's ``src/`` beside it; without either it exits
 non-zero and prints no result.  Full output also goes to
@@ -446,6 +456,12 @@ KERNEL_INFO = {
                       "src/repro/kernels/solver.py:83"),
     "swap_best_fused": ("src/repro_torch/kernels/csrc/solver.cu",
                         "src/repro/kernels/solver.py:191"),
+    # the cell axis: a greedy step, or a sweep, of every FedGS cell of a
+    # batch in one launch, with the step's glue inside
+    "greedy_cells": ("src/repro_torch/kernels/csrc/solver.cu",
+                     "src/repro/kernels/solver.py:83"),
+    "swap_cells": ("src/repro_torch/kernels/csrc/solver.cu",
+                   "src/repro/kernels/solver.py:191"),
     "swap_best": ("src/repro_torch/kernels/csrc/solver.cu",
                   "src/repro/kernels/solver.py:153"),
     "memagg": ("src/repro_torch/kernels/csrc/aggregate.cu",
@@ -526,6 +542,14 @@ def swap_panels(n: int) -> list[int]:
     engine's M wherever an engine run has this N."""
     return sorted({max(1, math.ceil(0.1 * n))} |
                   {engine_m(nn, f) for nn, f in ENGINE_RUNS if nn == n})
+
+
+def own_launches(counts: dict, name: str) -> int:
+    """A kernel's own launches in an ``ops.launches()`` count, which counts
+    the cell axis's launches under the per-step kernels' names too."""
+    from repro_torch.kernels.ops import STANDS_FOR
+    return counts.get(name, 0) - sum(counts.get(c, 0) for c, per_step in
+                                     STANDS_FOR.items() if per_step == name)
 
 
 def bound(nbytes: float, ops: float,
@@ -699,6 +723,152 @@ def kernel_checks(np, torch, n: int, dev) -> dict:
             plain_ms=cuda_ms(torch, lambda: sv.swap_best_fused_plain(*kargs)),
             bound_ms=b, bound_by=by, library_ms=None,
             library="none: no single PyTorch call rebuilds Q and arg-maxes it")
+    return rows
+
+
+# the cell axis's (B, m, N, max_sweeps): the benchmark's sweep (56 cells, M
+# = 10 of N = 100, 32 sweeps) and the scan phase's FedGS batch (7 cells)
+CELLS_SHAPES = ((56, 10, 100, 32), (7, 6, 30, SCAN["max_sweeps"]))
+
+
+def cells_bytes(n: int, m: int, before, after, avail, *, greedy: bool,
+                first: bool = False) -> int:
+    """Bytes one cell-axis launch's loads and stores request, summed over
+    the cells, from each cell's state before and after it (numpy s (B, N)
+    bool; avail (B, N)), as csrc/solver.cu's two kernels issue them.
+    greedy: diag (H_kk, z_k), avail and, after the first step, r and s for
+    every lane; then, where the cell adds a client, row and column k of H,
+    and r's read-add-write (the first step writes r and s whole).  sweep:
+    s, diag and avail for every lane, r where the lane is free; z and r of
+    the m rows; the m x N panel's two H terms; and where the cell swaps,
+    rows and columns i and j of H and r's read-add-write."""
+    total = 0
+    for c in range(before.shape[0]):
+        sel = int(before[c].sum())
+        moved = bool((before[c] != after[c]).any())
+        if greedy:
+            if first:
+                total += 9 * n + 8 + (13 * n if moved else 5 * n)
+            else:
+                total += 14 * n + 8 + (16 * n + 1 if moved else 8 * n)
+        else:
+            free = int((avail[c] & ~before[c]).sum())
+            total += 10 * n - sel + 4 * free + 8 * min(m, sel) \
+                + 8 * m * n + 4 + (24 * n + 10 if moved else 0)
+    return total
+
+
+def cells_kernel_checks(np, torch, dev) -> dict:
+    """The cell axis's two kernels against their plain versions on the same
+    card inputs at CELLS_SHAPES, launch by launch through a whole solve
+    (m greedy steps, then max_sweeps sweeps): s bitwise and r within 1e-6
+    relative after every launch.  Then each is timed over the solve's own
+    launches: the m greedy steps (the first writes the state whole, so the
+    sequence repeats as is) and the sweeps from the greedy state (restored
+    before each sequence; the restore's own time, taken alone, comes off).
+    ``ms`` by CUDA events around the host loop, ``device_ms`` from a CUDA
+    graph of the sequence, ``plain_ms`` the plain versions', all per
+    launch; ``bound_ms`` from the bytes the launches request
+    (:func:`cells_bytes`) over the sequence, per launch.  Returns name ->
+    row."""
+    from repro_torch.core import sampler_device as sd
+    from repro_torch.kernels import solver as sv
+
+    rows = {}
+    for b, m, n, sweeps in CELLS_SHAPES:
+        what = f"b={b}/m={m}/n={n}"
+        rng = np.random.default_rng(b * 1000 + n)
+        hh = rng.random((b, n, n)).astype(np.float32)
+        h = torch.as_tensor(0.5 * (hh + hh.transpose(0, 2, 1)), device=dev)
+        counts = torch.as_tensor(rng.integers(0, 6, (b, n)),
+                                 dtype=torch.float32, device=dev)
+        avail = torch.as_tensor(rng.random((b, n)) < 0.7, device=dev)
+        avail[0] = False
+        avail[0, :m // 2] = True                 # a cell with |A_t| < m
+        args = (h, sd.balance_z(counts, m),
+                sd.alpha_scales([(0.5, 1.0, 1.3)[i % 3] for i in range(b)],
+                                n, dev), avail)
+        av = avail.cpu().numpy()
+        sk = torch.empty((b, n), dtype=torch.bool, device=dev)
+        rk = torch.empty((b, n), dtype=torch.float32, device=dev)
+        sp, rp = torch.empty_like(sk), torch.empty_like(rk)
+        err = 0.0
+        nbytes = {"greedy": 0, "sweep": 0}
+        swaps = 0
+
+        def step(kernel, plain, kind, **kw):
+            nonlocal err, swaps
+            before = sp.cpu().numpy().copy()
+            kernel(*args, sk, rk, **kw)
+            plain(*args, sp, rp, **kw)
+            if not torch.equal(sk, sp):
+                raise AssertionError(f"{kind}_cells {what}: s differs from "
+                                     f"the plain version's")
+            gap = (rk - rp).abs()
+            if not bool((gap <= 1e-6 * rp.abs()).all()):
+                raise AssertionError(f"{kind}_cells {what}: r beyond 1e-6 "
+                                     f"relative of the plain version's")
+            err = max(err, float(gap.max()))
+            after = sp.cpu().numpy().copy()
+            first = kw.get("first", False)
+            if first:
+                before = np.zeros_like(after)
+            nbytes[kind] += cells_bytes(n, m, before, after, av,
+                                        greedy=kind == "greedy", first=first)
+            if kind == "sweep":
+                swaps += int((before != after).any(1).sum())
+
+        for t in range(m):
+            step(sv.greedy_cells_cuda, sv.greedy_cells_plain, "greedy",
+                 first=t == 0)
+        s_g, r_g = sk.clone(), rk.clone()
+        for _ in range(sweeps):
+            step(sv.swap_cells_cuda, sv.swap_cells_plain, "sweep", m=m)
+        got = sd.fedgs_select_cells(h, counts, avail, [(0.5, 1.0, 1.3)[
+            i % 3] for i in range(b)], m=m, max_sweeps=sweeps)
+        if not torch.equal(got, sk):
+            raise AssertionError(f"cells {what}: fedgs_select_cells' sets "
+                                 f"are not the launch-by-launch run's")
+
+        def greedy(fn, s, r):
+            for t in range(m):
+                fn(*args, s, r, first=t == 0)
+
+        def restore():
+            sk.copy_(s_g)
+            rk.copy_(r_g)
+
+        def sweep(fn, s, r):
+            s.copy_(s_g)
+            r.copy_(r_g)
+            for _ in range(sweeps):
+                fn(*args, s, r, m=m)
+
+        restore_ms = cuda_ms(torch, restore)
+        restore_dev = device_ms(torch, restore)
+        for kind, seq, kernel, plain, launches, less, less_dev in (
+                ("greedy", greedy, sv.greedy_cells_cuda,
+                 sv.greedy_cells_plain, m, 0.0, 0.0),
+                ("sweep", sweep, sv.swap_cells_cuda, sv.swap_cells_plain,
+                 sweeps, restore_ms, restore_dev)):
+            ops = b * (11 * n if kind == "greedy" else 10 * m * n + 5 * n)
+            bnd, by = bound(nbytes[kind] / launches, ops)
+            name = "greedy_cells" if kind == "greedy" else "swap_cells"
+            rows[f"{name}/{what}"] = dict(
+                shape=[b, m, n], max_sweeps=sweeps, max_abs_err=err,
+                tolerance="s bitwise, r within 1e-6 relative, after every "
+                          "launch of a whole solve",
+                bytes_per_launch=nbytes[kind] / launches,
+                swaps=swaps if kind == "sweep" else None,
+                ms=(cuda_ms(torch, lambda: seq(kernel, sk, rk)) - less)
+                / launches,
+                device_ms=(device_ms(torch, lambda: seq(kernel, sk, rk))
+                           - less_dev) / launches,
+                plain_ms=(cuda_ms(torch, lambda: seq(plain, sp, rp),
+                                  max_reps=20) - less) / launches,
+                bound_ms=bnd, bound_by=by, library_ms=None,
+                library="none: no single PyTorch call does a greedy step "
+                        "or a sweep of the solve")
     return rows
 
 
@@ -2191,14 +2361,15 @@ def scan_run(np, torch, dev, one_run: dict) -> tuple[dict, dict]:
              for i, mo in enumerate(modes)]
     batch, sec_a, la = counted(lambda: eng.run_batch(cells))
     add(la)
-    want = {k: len(modes) * one_run[k] * rounds // SLICE_ROUNDS
+    # the seven FedGS cells solve together: one cell's launches a round
+    want = {k: one_run[k] * rounds // SLICE_ROUNDS
             for k in ("greedy_argmax", "swap_best_fused")}
     if one_run["greedy_argmax"] != SLICE_ROUNDS * m or \
             one_run["swap_best_fused"] != SLICE_ROUNDS * sweeps or \
             any(la[k] != v for k, v in want.items()):
         raise AssertionError(f"scan (a): launches {la}, want {want} "
-                             f"(7 x the slice phase's FLEngine run "
-                             f"{one_run} a round)")
+                             f"(the slice phase's FLEngine run {one_run} "
+                             f"a round, for the batch's one solve)")
     gaps, fl_launches, one_s = [], [], 0.0
     for i, (mo, hist) in enumerate(zip(modes, batch)):
         fl = FLEngine(ds, model, FedGSSampler(alpha=1.0, device=dev), mo,
@@ -2243,10 +2414,12 @@ def scan_run(np, torch, dev, one_run: dict) -> tuple[dict, dict]:
     cells = mixed_cells(card)
     batch, sec_b, lb = counted(lambda: card.run_batch(cells))
     add(lb)
+    # the FedGS cells solve together: m greedy and `sweeps` swap launches
+    # a round for all of them
     n_fedgs = sum(samp == "fedgs" for _, samp, _, _ in mixed)
     want = {"memagg": 2 * rounds, "krum": 2 * rounds,
-            "greedy_argmax": n_fedgs * rounds * m,
-            "swap_best_fused": n_fedgs * rounds * sweeps}
+            "greedy_argmax": min(n_fedgs, 1) * rounds * m,
+            "swap_best_fused": min(n_fedgs, 1) * rounds * sweeps}
     if any(lb[k] != v for k, v in want.items()):
         raise AssertionError(f"scan (b): launches {lb}, want {want}")
     one_s, solo_gap = 0.0, 0.0
@@ -2595,7 +2768,7 @@ def runtime_run(np, torch, dev, kept: dict) -> dict:
     if bad:
         raise AssertionError(f"runtime (a) resume: history fields differ "
                              f"from the unbroken run {bad}")
-    if tail["greedy_argmax"] != n_fedgs * m * every or \
+    if tail["greedy_argmax"] != min(n_fedgs, 1) * m * every or \
             any(tail[k] != last[k] for k in per_round):
         raise AssertionError(f"runtime (a) resume: tail launches "
                              f"{ {k: tail[k] for k in per_round} }, the "
@@ -2619,7 +2792,7 @@ def runtime_run(np, torch, dev, kept: dict) -> dict:
         "telemetry_bitwise_default_history_and_checkpoint": True,
         "tail_launches": {k: tail[k] for k in per_round},
         "unbroken_last_segment_launches": last,
-        "greedy_argmax_tail_gate": n_fedgs * m * every,
+        "greedy_argmax_tail_gate": min(n_fedgs, 1) * m * every,
         "seconds": {k: v["seconds"] for k, v in runs.items()},
         "resume_tail_s": sec_res,
         "wall_s_inline_vs_pipelined": [runs["inline"]["seconds"],
@@ -3071,10 +3244,16 @@ def mesh_run(np, torch, dev) -> dict:
                 same(a, b, what=f"{name} rank 1 vs rank 0")
         got = [{k: r["launches"][k] for k in per_round} for r in runs]
         if name.startswith("2x1"):
-            tot = {k: sum(g[k] for g in got) for k in per_round}
-            if tot != single_l:
-                raise AssertionError(f"mesh {name}: launches over the "
-                                     f"ranks {tot}, single {single_l}")
+            # the per-cell kernels add up over the ranks; each rank's block
+            # holds FedGS cells and solves them together, as the single run
+            # solves all of its own
+            solve = ("greedy_argmax", "swap_best_fused")
+            tot = {k: sum(g[k] for g in got) for k in per_round
+                   if k not in solve}
+            if any(tot[k] != single_l[k] for k in tot) or \
+                    any(g[k] != single_l[k] for g in got for k in solve):
+                raise AssertionError(f"mesh {name}: launches per rank "
+                                     f"{got}, single {single_l}")
         elif any(g != single_l for g in got):
             raise AssertionError(f"mesh {name}: launches per rank {got}, "
                                  f"single {single_l}")
@@ -3627,6 +3806,10 @@ def train_full_width(np, torch, dev, info: dict) -> dict:
             "greedy_argmax": sum(min(m, r["available"]) for r in rounds),
             "swap_best_fused": TRAIN["max_sweeps"] * n_rounds,
             "memagg": n_rounds, "window_attention": 0}
+    # the solve at N = 16 is the cell axis at B = 1, whose launches count
+    # under the per-step kernels' names too
+    for cell, per_step in ops.STANDS_FOR.items():
+        want[cell] = want[per_step]
     others = {k: v for k, v in launched.items() if k not in want and v}
     if any(launched[k] != v for k, v in want.items()) or others or \
             n_rounds != TRAIN["rounds"]:
@@ -5156,6 +5339,9 @@ def main() -> int:
           "rows": fused_edge_checks(np, torch, dev)})
     emit({"phase": "kernels", "greedy_argmax_threshold": True, "card": smi,
           "rows": argmax_edge_checks(np, torch, dev)})
+    cells_rows = cells_kernel_checks(np, torch, dev)
+    emit({"phase": "kernels", "cell_axis": True, "card": smi,
+          "rows": cells_rows})
     staged_rows = {**staged_kernel_checks(np, torch, dev),
                    **swap_gain_checks(np, torch, dev)}
     emit({"phase": "kernels", "staged": True, "card": smi,
@@ -5213,6 +5399,10 @@ def main() -> int:
         "adjacency": staged_rows["adjacency/{}x{}".format(*STAGED_SHAPES[0])],
         # the greedy step's call: A_t and S read in the kernel
         "greedy_argmax": per_n[MAIN_N]["greedy_argmax/taken"],
+        "greedy_cells": cells_rows["greedy_cells/b={}/m={}/n={}".format(
+            *CELLS_SHAPES[0])],
+        "swap_cells": cells_rows["swap_cells/b={}/m={}/n={}".format(
+            *CELLS_SHAPES[0])],
         "swap_best": staged_rows[
             "swap_best/m={}/n={}".format(*SWAP_GAIN_SHAPES[-1])],
         "memagg": robust_rows["memagg/{}x{}/m={}".format(*MEMAGG_SHAPES[0])],
@@ -5226,9 +5416,10 @@ def main() -> int:
         row = main_rows.get(name) or per_n[MAIN_N][
             f"{name}/m={MAIN_M}" if name == "swap_best_fused" else name]
         kernels.append({"name": name, "route": "cuda", "source": source,
-                        "replaces": replaces, "launches": launches[name],
-                        "scan_launches": scan_launches.get(name, 0),
-                        "train_launches": train_launches.get(name, 0),
+                        "replaces": replaces,
+                        "launches": own_launches(launches, name),
+                        "scan_launches": own_launches(scan_launches, name),
+                        "train_launches": own_launches(train_launches, name),
                         "max_abs_err": row["max_abs_err"], "ms": row["ms"],
                         "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
                         "bound_by": row["bound_by"],

@@ -5,11 +5,15 @@ scan engine carries.
 FedGS solves, each round,
     max_s  sᵀ (alpha/N · H − diag(z)) s   s.t. |s| = m, s ⊆ A_t
 with a deterministic greedy pass of m steps and then ``max_sweeps``
-best-swap sweeps.  :func:`fedgs_select` solves Q-free (:func:`_solve_kernel`):
-on the factored (H, z, alpha/N) through ``kernels/solver.q_diag``/``q_row``,
-the greedy masked argmax and the fused swap reduction
-(``kernels/ops.greedy_argmax`` / ``swap_best_fused``), which launch the CUDA
-kernels for CUDA tensors and take their plain versions on the CPU.
+best-swap sweeps.  :func:`fedgs_select_cells` solves B cells Q-free, on
+the factored (H, z, alpha/N): where one cell's panel fits a block, each
+greedy step and each sweep is one launch for all of them
+(``kernels/ops.greedy_cells`` / ``swap_cells``); elsewhere each cell runs
+:func:`_solve_kernel` over ``kernels/solver.q_diag``/``q_row``, the greedy
+masked argmax and the fused swap reduction (``kernels/ops.greedy_argmax`` /
+``swap_best_fused``).  Each launches the CUDA kernels for CUDA tensors and
+takes its plain version on the CPU, and a cell's set is the same on every
+route.  :func:`fedgs_select` is its one-cell case.
 :func:`fedgs_solve` solves over a dense (N, N) Q that the caller hands
 over: on CUDA through the greedy kernel and the dense best-swap kernel
 (:func:`_solve_dense`, ``kernels/ops.swap_best``), on the CPU with the plain
@@ -245,10 +249,13 @@ def balance_z(counts: torch.Tensor, m_target: int) -> torch.Tensor:
     in the reference's op order.  XLA computes ``counts.mean()`` as the sum
     times the float32 reciprocal of N (its divide by a constant becomes a
     multiply), so the mean here is that product too: an IEEE multiply,
-    the same on the CPU and on CUDA."""
-    n = counts.shape[0]
+    the same on the CPU and on CUDA.  Over the last axis: (B, N) counts
+    give each row its own z; whole-number counts below 2^24 sum exactly in
+    any order, so a row's z is bitwise its own run's."""
+    n = counts.shape[-1]
     counts = counts.to(torch.float32)
-    mean = torch.sum(counts) * float(np.float32(1.0) / np.float32(n))
+    mean = torch.sum(counts, -1, keepdim=True) * \
+        float(np.float32(1.0) / np.float32(n))
     return 2.0 * (counts - mean - m_target / n) + 1.0
 
 
@@ -256,23 +263,87 @@ def fedgs_select(h: torch.Tensor, counts: torch.Tensor, avail: torch.Tensor,
                  alpha: float, *, m: int, max_sweeps: int,
                  m_target: int | None = None) -> torch.Tensor:
     """Eq. 14/16 end to end: z from the counts, then the Q-free solve
-    (CUDA kernels on CUDA tensors, their plain versions on the CPU).
+    (CUDA kernels on CUDA tensors, their plain versions on the CPU): the
+    one-cell case of :func:`fedgs_select_cells`.
 
     ``m`` is the solver budget (min(M, |A_t|)); ``m_target`` is the M of the
     count-balance penalty z (defaults to ``m``).  The dense route,
     ``fedgs_solve`` on Q = sym(alpha/N · H − diag(z)), selects the same
     set."""
+    scale = torch.full((1,), _f32_ratio(alpha, h.shape[0]),
+                       dtype=torch.float32, device=avail.device)
+    return fedgs_select_cells(h, counts[None], avail[None], [alpha], m=m,
+                              max_sweeps=max_sweeps, m_target=m_target,
+                              scales=scale)[0]
+
+
+def _select_steps(hf, z, al: float, avail, *, m: int, max_sweeps: int):
+    """One cell's Q-free solve on the per-step kernels (:func:`_solve_kernel`
+    over ``q_diag``/``q_row`` and ``swap_best_fused``)."""
     from repro_torch.kernels.ops import swap_best_fused
     from repro_torch.kernels.solver import q_diag, q_row
-    z = balance_z(counts, m if m_target is None else m_target)
-    al = _f32_ratio(alpha, h.shape[0])
-    hf = h.to(torch.float32)
 
     def swap_fn(selc, valid, a, b):
         return swap_best_fused(hf, z, al, selc, valid, a, b)
 
     return _solve_kernel(q_diag(hf, z, al), lambda k: q_row(hf, z, al, k),
                          swap_fn, avail, m=m, max_sweeps=max_sweeps)
+
+
+def alpha_scales(alphas, n: int, device=None) -> torch.Tensor:
+    """(B,) float32 alpha/N of each cell, as :func:`_f32_ratio` computes it."""
+    return torch.tensor([_f32_ratio(a, n) for a in alphas],
+                        dtype=torch.float32, device=device)
+
+
+def _solve_cells(h, z, scale, avail, *, m: int, max_sweeps: int):
+    """The batched solve: m greedy steps and ``max_sweeps`` sweeps, each one
+    call for every cell (``kernels/ops.greedy_cells`` / ``swap_cells``, in
+    place on the (B, N) state).  Returns (s, r)."""
+    from repro_torch.kernels.ops import greedy_cells, swap_cells
+    b, n = avail.shape
+    s = torch.empty((b, n), dtype=torch.bool, device=z.device)
+    r = torch.empty((b, n), dtype=torch.float32, device=z.device)
+    for step in range(m):          # the first step writes s and r whole
+        greedy_cells(h, z, scale, avail, s, r, first=step == 0)
+    for _ in range(max_sweeps):
+        swap_cells(h, z, scale, avail, s, r, m)
+    return s, r
+
+
+def fedgs_select_cells(h, counts: torch.Tensor, avail: torch.Tensor, alphas,
+                       *, m: int, max_sweeps: int,
+                       m_target: int | None = None,
+                       scales: torch.Tensor | None = None) -> torch.Tensor:
+    """:func:`fedgs_select` for B cells at once: every cell's set bitwise
+    what it selects alone.
+
+    ``h`` is one (N, N) H shared by every cell, a (B, N, N) stack, or a
+    list of B (N, N) tensors (one object repeated counts as shared);
+    ``counts`` (B, N) whole numbers, ``avail`` (B, N) bool, ``alphas`` the B
+    cells' alpha; ``scales`` their (B,) float32 alpha/N on the device
+    (:func:`alpha_scales`), when the caller keeps it.  z comes from one
+    :func:`balance_z` over (B, N).  Where the panel fits one block
+    (``kernels/solver.solve_cells_takes``) the solve is batched: each
+    greedy step and each sweep is one call for every cell, the CUDA
+    kernels' m + ``max_sweeps`` launches a solve.  Elsewhere (m = 0, or a
+    panel past one block) each cell runs the per-step kernels in turn.
+    Returns s (B, N) bool."""
+    from repro_torch.kernels.solver import solve_cells_takes
+    b, n = avail.shape
+    z = balance_z(counts, m if m_target is None else m_target)
+    if isinstance(h, (list, tuple)):
+        h = h[0] if all(x is h[0] for x in h) else torch.stack(list(h))
+    hf = h.to(torch.float32)
+    if not solve_cells_takes(m, n):
+        return torch.stack([
+            _select_steps(hf if hf.dim() == 2 else hf[i], z[i],
+                          _f32_ratio(alphas[i], n), avail[i], m=m,
+                          max_sweeps=max_sweeps) for i in range(b)])
+    if scales is None:
+        scales = alpha_scales(alphas, n, avail.device)
+    return _solve_cells(hf.contiguous(), z.contiguous(), scales,
+                        avail.contiguous(), m=m, max_sweeps=max_sweeps)[0]
 
 
 # ------------------------------------------------------- the family step

@@ -23,7 +23,10 @@ round loop is a host loop, as ``FLEngine``'s is, and a cell's families are
 fixed when the cell is built, so every family switch is a dispatch on the
 host (``lax.switch`` has no torch twin).  Grouping runs a family's step
 once over the cells that use it where the step takes a leading cell axis;
-a family step that does not runs per cell.  Everything a family does not
+a family step that does not runs per cell.  The FedGS cells solve
+together (``sampler_device.fedgs_select_cells``: one launch a greedy step
+and one a sweep for all of them); the other samplers step per cell.
+Everything a family does not
 need stays unallocated: the (N, P) memory panel exists only for memory
 cells, the fault state and the straggler's stale panel only for fault
 cells (the reference's ``_flags`` widen the whole batch's carry instead).
@@ -120,7 +123,8 @@ from repro_torch.core.graph import probe_embeddings
 from repro_torch.core.graph_device import GraphConfig, build_h, \
     cap_and_normalize
 from repro_torch.core.sampler_device import FAMILIES as SAMPLERS
-from repro_torch.core.sampler_device import (SamplerProcess, gumbel_noise,
+from repro_torch.core.sampler_device import (SamplerProcess, alpha_scales,
+                                             fedgs_select_cells, gumbel_noise,
                                              make_sampler_process,
                                              make_sampler_step, select_k)
 from repro_torch.data.fed_dataset import FedDataset
@@ -301,7 +305,11 @@ class _Plan:
     cells: list
     groups: list = field(default_factory=list)     # (family, cells, params)
     masks: Optional[torch.Tensor] = None           # (B, T, N)
-    sampler_steps: list = field(default_factory=list)
+    sampler_steps: list = field(default_factory=list)  # None: a FedGS cell
+    fedgs: list = field(default_factory=list)      # FedGS cells, solved together
+    fedgs_alphas: list = field(default_factory=list)
+    fedgs_index: Optional[torch.Tensor] = None
+    fedgs_scales: Optional[torch.Tensor] = None    # (|fedgs|,) alpha/N
     fedavg: list = field(default_factory=list)
     fedavg_index: Optional[torch.Tensor] = None
     agg_steps: dict = field(default_factory=dict)  # cell -> step
@@ -593,9 +601,14 @@ class ScanEngine:
         probe = self._probe_losses
         for i, c in enumerate(cells):
             fam = c["sampler_process"].family
-            plan.sampler_steps.append(make_sampler_step(
-                n, m, family=fam, max_sweeps=cfg.max_sweeps,
-                d_cand=self._d_cand, probe_losses=probe))
+            if fam == "fedgs":
+                plan.fedgs.append(i)
+                plan.fedgs_alphas.append(c["sampler"]["alpha"])
+                plan.sampler_steps.append(None)
+            else:
+                plan.sampler_steps.append(make_sampler_step(
+                    n, m, family=fam, max_sweeps=cfg.max_sweeps,
+                    d_cand=self._d_cand, probe_losses=probe))
             afam = c["aggregator_process"].family
             if afam == "fedavg":
                 plan.fedavg.append(i)
@@ -613,6 +626,9 @@ class ScanEngine:
                                        _flat_template(c["params0"]))
         plan.fedavg_index = torch.as_tensor(plan.fedavg, dtype=torch.int64,
                                             device=dev)
+        plan.fedgs_index = torch.as_tensor(plan.fedgs, dtype=torch.int64,
+                                           device=dev)
+        plan.fedgs_scales = alpha_scales(plan.fedgs_alphas, n, dev)
         return plan
 
     # --------------------------------------------------------------- carry
@@ -736,20 +752,31 @@ class ScanEngine:
                     rows[i] = a[j]
             avail = torch.stack(rows)
 
-        # 2. sampler, per cell: S_t ⊆ A_t, |S_t| = min(M, |A_t|)
+        # 2. sampler: S_t ⊆ A_t, |S_t| = min(M, |A_t|); the FedGS cells in
+        # one batched solve, the others per cell
         with self.tracer.span("sampler"):
-            s_rows = []
+            s_rows = [None] * b
+            if plan.fedgs:
+                g = plan.fedgs
+                whole = len(g) == b
+                s_f = fedgs_select_cells(
+                    [carry["h"][i] for i in g],
+                    counts if whole else counts[plan.fedgs_index],
+                    avail if whole else avail[plan.fedgs_index],
+                    plan.fedgs_alphas, m=m, max_sweeps=cfg.max_sweeps,
+                    scales=plan.fedgs_scales)
+                for j, i in enumerate(g):
+                    s_rows[i] = s_f[j]
             for i, c in enumerate(cells):
-                gumbel, gen = (None, None) \
-                    if c["sampler_process"].family == "fedgs" \
-                    else self._sampler_draw(c, t)
+                if plan.sampler_steps[i] is None:       # solved above
+                    continue
+                gumbel, gen = self._sampler_draw(c, t)
                 inputs = {"h": carry["h"][i], "counts": counts[i],
                           "params": {k: v[i] for k, v in params.items()},
                           "cell": c, "t": t, "gen": gen}
-                s_i, _ = plan.sampler_steps[i](c["sampler"], {}, inputs,
-                                               avail[i], t, gumbel=gumbel)
-                s_rows.append(s_i)
-            s = torch.stack(s_rows)
+                s_rows[i], _ = plan.sampler_steps[i](
+                    c["sampler"], {}, inputs, avail[i], t, gumbel=gumbel)
+            s = s_f if len(plan.fedgs) == b else torch.stack(s_rows)
             sel, valid = select_k(s, m)
 
         # 3. local training: every cell's M gathered clients in one call

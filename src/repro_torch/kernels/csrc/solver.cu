@@ -52,6 +52,11 @@
 //     same kind of 16-byte (key, arrival count) state as the tiled Q-free
 //     swap, which the last block re-zeroes.
 //
+// The batched solve's two kernels (masked_argmax_cells_kernel,
+// swap_best_cells_kernel: "the cell axis" below) do a greedy step or a
+// sweep of every FedGS cell of a batch in one launch, a block a cell, with
+// the step's glue inside; their panels are the small path's.
+//
 // Numerics: Q = 0.5·((a·H_sj − δz) + (a·H_js − δz)) and delta =
 // (a_s + b_j) − 2Q are written with __fmul_rn / __fadd_rn / __fsub_rn so
 // nvcc's default --fmad=true cannot contract a·H − δz into an FMA: the
@@ -163,15 +168,23 @@ __global__ void masked_argmax_kernel(const float* __restrict__ diag,
 constexpr long long kSwapSmall = 2048;
 constexpr int kSmallMost = 4096;
 
+// One entry of Q = sym(a·H) − diag(z) from its two H terms:
+// 0.5·((a·H_kj − δz) + (a·H_jk − δz)), δz = z_k on the diagonal, else 0
+// (kernels/solver.py q_row's op order)
+__device__ __forceinline__ float q_entry(float scale, float hrow, float hcol,
+                                         float zc) {
+    const float t1 = __fsub_rn(__fmul_rn(scale, hrow), zc);
+    const float t2 = __fsub_rn(__fmul_rn(scale, hcol), zc);
+    return __fmul_rn(0.5f, __fadd_rn(t1, t2));
+}
+
 // delta of one Q-free panel entry from its H terms (the plain version's
 // op order), NaN -> NEG, packed with its flat index f = s·n + j
 __device__ __forceinline__ uint64_t swap_fused_key(float scale, float hrow,
                                                   float hcol, float zc,
                                                   float as, float bj,
                                                   uint32_t f) {
-    const float t1 = __fsub_rn(__fmul_rn(scale, hrow), zc);
-    const float t2 = __fsub_rn(__fmul_rn(scale, hcol), zc);
-    const float q = __fmul_rn(0.5f, __fadd_rn(t1, t2));
+    const float q = q_entry(scale, hrow, hcol, zc);
     float delta = __fsub_rn(__fadd_rn(as, bj), __fmul_rn(2.0f, q));
     if (isnan(delta)) delta = NEG;
     return fedgs::pack(delta, f);
@@ -321,6 +334,212 @@ swap_best_tiled_kernel(const float* __restrict__ h, const float* __restrict__ z,
         best = key > best ? key : best;
     }
     grid_finish(best, n, state, out_val, out_rank, out_j);
+}
+
+// ------------------------------------------------------------ the cell axis
+// The batched solve (core/sampler_device.fedgs_select_cells): every FedGS
+// cell of a batch in one launch a greedy step and one a sweep, block c
+// taking cell c.  A cell's state, s (B, n) bool and r (B, n) f32, stays in
+// device memory and each launch updates its row in place, so the solve's
+// per-step glue (q_row's gathers, the sort of S, the selects and adds) runs
+// inside the two kernels: m + max_sweeps launches a batch round, whatever
+// the number of cells.  H is the cell's (n, n) at h + c·h_stride (stride 0:
+// one H shared by every cell), z (B, n) the count penalty, scale (B,) each
+// cell's alpha/N in float32.  Every value is the per-step route's bit for
+// bit: the same keys, the same op order, no FMA contraction.  They take a
+// panel of m <= n rows with m·n <= kSwapSmall, one block's worth
+// (solve_cells_take); a larger panel takes the per-step kernels cell by
+// cell.
+
+// The greedy value a lane must beat to be added: the per-step route's
+// `val > NEG / 2`, the Python -5e17 compared in float32.
+constexpr float kAddFloor = -5e17f;
+constexpr float kSwapTol = 1e-9f;    // SWAP_TOL, compared in float32 too
+constexpr int kCellsMostN = 2048;    // n <= kSwapSmall / m
+constexpr int kCellsMostM = 64;      // m <= sqrt(kSwapSmall) = 45
+
+// diag(Q)_k = 0.5·((a·H_kk − z_k) + (a·H_kk − z_k)) (q_diag's op order)
+__device__ __forceinline__ float q_diag_entry(const float* h, const float* z,
+                                              float scale, int k, int n) {
+    const float t = __fsub_rn(__fmul_rn(scale, h[(int64_t)k * n + k]), z[k]);
+    return __fmul_rn(0.5f, __fadd_rn(t, t));
+}
+
+// One greedy step of every cell: the argmax of diag + 2r over the lanes
+// that are available and not yet selected (argmax_key), then, where its
+// value beats kAddFloor, s[k] set and Q's row k added to r; where it does
+// not, +0.0 added (the per-step route's r + where(ok, row, 0)).  FIRST:
+// the solve's first step, which reads s and r as zero and writes both rows
+// whole (no memset before the solve).  Each thread updates the entries it
+// read, so the step needs one barrier between its reads and its writes.
+template <bool FIRST>
+__global__ void __launch_bounds__(1024)
+masked_argmax_cells_kernel(const float* __restrict__ h, long long h_stride,
+                           const float* __restrict__ z,
+                           const float* __restrict__ scale,
+                           const uint8_t* __restrict__ avail,
+                           uint8_t* __restrict__ s, float* __restrict__ r,
+                           int n) {
+    __shared__ int k_sh;
+    __shared__ bool ok_sh;
+    const int64_t row = (int64_t)blockIdx.x * n;
+    const float* hc = h + blockIdx.x * h_stride;
+    const float* zc = z + row;
+    const uint8_t* ac = avail + row;
+    uint8_t* sc = s + row;
+    float* rc = r + row;
+    const float a = scale[blockIdx.x];
+    uint64_t best = 0ull;
+    for (int i = threadIdx.x; i < n; i += blockDim.x) {
+        const float rv = FIRST ? 0.0f : rc[i];
+        const bool taken = FIRST ? false : sc[i] != 0;
+        const uint64_t key = argmax_key(q_diag_entry(hc, zc, a, i, n), rv,
+                                        !ac[i] || taken, i);
+        best = key > best ? key : best;
+    }
+    best = fedgs::block_max_u64(best);
+    if (threadIdx.x == 0) {
+        k_sh = static_cast<int>(fedgs::unpack_idx(best));
+        ok_sh = fedgs::unpack_val(best) > kAddFloor;
+    }
+    __syncthreads();
+    const int k = k_sh;
+    const bool ok = ok_sh;
+    const float zk = zc[k];
+    for (int i = threadIdx.x; i < n; i += blockDim.x) {
+        const float add = ok ? q_entry(a, hc[(int64_t)k * n + i],
+                                       hc[(int64_t)i * n + k],
+                                       i == k ? zk : 0.0f)
+                             : 0.0f;
+        rc[i] = __fadd_rn(FIRST ? 0.0f : rc[i], add);
+        if (FIRST)
+            sc[i] = ok && i == k;
+        else if (ok && i == k)
+            sc[i] = 1;
+    }
+}
+
+// One best-swap sweep of every cell: (1) diag and the in-terms b = 2r +
+// diag where the lane is available and not selected, else NEG, into shared
+// memory, and the selected rows in ascending order by a block-wide
+// compaction of s (padded rows: n − 1, marked invalid); (2) the rows'
+// out-terms a = −2r + diag, NEG where padded; (3) the m x n panel folded
+// as swap_best_small_kernel folds it (slot t: row t mod m, column t / m,
+// the same keys, the lowest flat index s·n + j winning ties); (4) where the
+// best delta beats kSwapTol, s loses row i and gains column j and r
+// becomes (r − Q[i]) + Q[j].  Every read of s and r comes before the
+// barrier of (3)'s reduction, every write after it.
+template <int E>
+__global__ void __launch_bounds__(1024)
+swap_best_cells_kernel(const float* __restrict__ h, long long h_stride,
+                       const float* __restrict__ z,
+                       const float* __restrict__ scale,
+                       const uint8_t* __restrict__ avail,
+                       uint8_t* __restrict__ s, float* __restrict__ r,
+                       int m, int n) {
+    __shared__ float diag_sh[kCellsMostN], b_sh[kCellsMostN];
+    __shared__ int rows_sh[kCellsMostM];
+    __shared__ float a_sh[kCellsMostM], z_sh[kCellsMostM];
+    __shared__ bool v_sh[kCellsMostM];
+    __shared__ int warp_sh[32];
+    __shared__ int count_sh, i_sh, j_sh;
+    __shared__ bool swap_sh;
+    const int64_t row = (int64_t)blockIdx.x * n;
+    const float* hc = h + blockIdx.x * h_stride;
+    const float* zc = z + row;
+    const uint8_t* ac = avail + row;
+    uint8_t* sc = s + row;
+    float* rc = r + row;
+    const float a = scale[blockIdx.x];
+    const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+    const int nwarps = blockDim.x >> 5;
+
+    // (1): a chunk of blockDim.x entries a pass; count_sh carries how many
+    // rows the chunks before it selected
+    if (tid == 0) count_sh = 0;
+    for (int c0 = 0; c0 < n; c0 += blockDim.x) {
+        const int i = c0 + tid;
+        bool in_s = false;
+        if (i < n) {
+            in_s = sc[i] != 0;
+            const float d = q_diag_entry(hc, zc, a, i, n);
+            diag_sh[i] = d;
+            b_sh[i] = (!in_s && ac[i]) ? __fadd_rn(__fmul_rn(2.0f, rc[i]), d)
+                                       : NEG;
+        }
+        const unsigned bal = __ballot_sync(0xffffffffu, in_s);
+        if (lane == 0) warp_sh[warp] = __popc(bal);
+        __syncthreads();
+        int pos = count_sh + __popc(bal & ((1u << lane) - 1u));
+        for (int w = 0; w < warp; ++w) pos += warp_sh[w];
+        if (in_s && pos < m) rows_sh[pos] = i;
+        int chunk = 0;
+        if (tid == 0)
+            for (int w = 0; w < nwarps; ++w) chunk += warp_sh[w];
+        __syncthreads();
+        if (tid == 0) count_sh += chunk;
+    }
+    __syncthreads();
+    // (2)
+    if (tid < m) {
+        const bool v = tid < count_sh;
+        const int rw = v ? rows_sh[tid] : n - 1;
+        rows_sh[tid] = rw;
+        v_sh[tid] = v;
+        z_sh[tid] = v ? zc[rw] : 0.0f;
+        a_sh[tid] = v ? __fadd_rn(__fmul_rn(-2.0f, rc[rw]), diag_sh[rw]) : NEG;
+    }
+    __syncthreads();
+    // (3): every slot's loads in flight before one is used
+    const uint32_t total = static_cast<uint32_t>(m) * static_cast<uint32_t>(n);
+    uint32_t sr[E], jj[E];
+    float hr[E], hcol[E];
+#pragma unroll
+    for (int e = 0; e < E; ++e) {
+        const uint32_t t = tid + e * blockDim.x;
+        const uint32_t tc = t < total ? t : 0u;
+        sr[e] = tc % m;
+        jj[e] = tc / m;
+        const int64_t rw = rows_sh[sr[e]];
+        hr[e] = hc[rw * n + jj[e]];
+        hcol[e] = hc[(int64_t)jj[e] * n + rw];
+    }
+    uint64_t best = 0ull;
+#pragma unroll
+    for (int e = 0; e < E; ++e) {
+        if (tid + e * blockDim.x >= total) continue;
+        const int rw = rows_sh[sr[e]];
+        const float zv = (v_sh[sr[e]] && rw == static_cast<int>(jj[e]))
+                             ? z_sh[sr[e]] : 0.0f;
+        const uint64_t key = swap_fused_key(a, hr[e], hcol[e], zv,
+                                            a_sh[sr[e]], b_sh[jj[e]],
+                                            sr[e] * n + jj[e]);
+        best = key > best ? key : best;
+    }
+    best = fedgs::block_max_u64(best);
+    if (tid == 0) {
+        const uint32_t flat = fedgs::unpack_idx(best);
+        const uint32_t rank = flat / n;
+        i_sh = rows_sh[rank < static_cast<uint32_t>(m) ? rank : m - 1];
+        j_sh = static_cast<int>(flat % n);
+        swap_sh = fedgs::unpack_val(best) > kSwapTol;
+    }
+    __syncthreads();
+    if (!swap_sh) return;
+    // (4)
+    const int i = i_sh, j = j_sh;
+    const float zi = zc[i], zj = zc[j];
+    for (int x = tid; x < n; x += blockDim.x) {
+        const float qi = q_entry(a, hc[(int64_t)i * n + x],
+                                 hc[(int64_t)x * n + i], x == i ? zi : 0.0f);
+        const float qj = q_entry(a, hc[(int64_t)j * n + x],
+                                 hc[(int64_t)x * n + j], x == j ? zj : 0.0f);
+        rc[x] = __fadd_rn(__fsub_rn(rc[x], qi), qj);
+    }
+    if (tid == 0) {
+        sc[i] = 0;
+        sc[j] = 1;
+    }
 }
 
 // delta of one dense-Q panel entry (the plain version's op order), NaN ->
@@ -518,6 +737,63 @@ extern "C" int swap_best_launch(const float* h, const float* z, float scale,
             h, z, scale, sel, valid, a, b, m, n, state, out_val, out_rank,
             out_j);
     }
+    return static_cast<int>(cudaGetLastError());
+}
+
+// Whether the batched solve's kernels take an m-row panel over n clients:
+// 1 <= m <= n and the panel fits swap_best_plan_kind's small path.
+extern "C" int solve_cells_take(int m, int n) {
+    return m >= 1 && m <= n && swap_best_plan_kind(m, n) == 0;
+}
+
+namespace {
+
+int cells_threads(long long entries) {
+    return entries < 1024 ? static_cast<int>((entries + 31) / 32 * 32) : 1024;
+}
+
+}  // namespace
+
+// One greedy step of `cells` cells, in place: h at h + c·h_stride (n, n)
+// f32 (stride 0: one H for all), z (cells, n) f32, scale (cells,) f32,
+// avail and s (cells, n) bool, r (cells, n) f32; first != 0 for the solve's
+// first step (s and r read as zero and written whole).  1 <= n <= 2,048.
+extern "C" int masked_argmax_cells_launch(const float* h, long long h_stride,
+                                          const float* z, const float* scale,
+                                          const uint8_t* avail, uint8_t* s,
+                                          float* r, int cells, int n,
+                                          int first, void* stream) {
+    cudaStream_t st = static_cast<cudaStream_t>(stream);
+    if (cells < 1 || n < 1 || n > kCellsMostN)
+        return static_cast<int>(cudaErrorInvalidValue);
+    const int threads = cells_threads(n);
+    if (first)
+        masked_argmax_cells_kernel<true><<<cells, threads, 0, st>>>(
+            h, h_stride, z, scale, avail, s, r, n);
+    else
+        masked_argmax_cells_kernel<false><<<cells, threads, 0, st>>>(
+            h, h_stride, z, scale, avail, s, r, n);
+    return static_cast<int>(cudaGetLastError());
+}
+
+// One best-swap sweep of `cells` cells over m-row panels, in place, on the
+// arguments of masked_argmax_cells_launch; solve_cells_take(m, n) must hold.
+extern "C" int swap_best_cells_launch(const float* h, long long h_stride,
+                                      const float* z, const float* scale,
+                                      const uint8_t* avail, uint8_t* s,
+                                      float* r, int cells, int m, int n,
+                                      void* stream) {
+    cudaStream_t st = static_cast<cudaStream_t>(stream);
+    if (cells < 1 || !solve_cells_take(m, n))
+        return static_cast<int>(cudaErrorInvalidValue);
+    const long long total = static_cast<long long>(m) * n;
+    const int threads = cells_threads(total);
+    if (total <= threads)
+        swap_best_cells_kernel<1><<<cells, threads, 0, st>>>(
+            h, h_stride, z, scale, avail, s, r, m, n);
+    else
+        swap_best_cells_kernel<2><<<cells, threads, 0, st>>>(
+            h, h_stride, z, scale, avail, s, r, m, n);
     return static_cast<int>(cudaGetLastError());
 }
 

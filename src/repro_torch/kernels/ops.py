@@ -25,6 +25,8 @@ KERNELS = {
     "floyd_warshall": _fw.KERNEL,
     "greedy_argmax": _sv.ARGMAX_KERNEL,
     "swap_best_fused": _sv.SWAP_FUSED_KERNEL,
+    "greedy_cells": _sv.ARGMAX_CELLS_KERNEL,
+    "swap_cells": _sv.SWAP_CELLS_KERNEL,
     "swap_best": _sv.SWAP_GAIN_KERNEL,
     "memagg": _ag.KERNEL,
     "krum": _kr.KERNEL,
@@ -37,8 +39,16 @@ def reset_launches() -> None:
         k.launches = 0
 
 
+# the cell axis's kernels do a per-step kernel's work for every cell of a
+# batch: a launch counts under its own name and under that kernel's
+STANDS_FOR = {"greedy_cells": "greedy_argmax", "swap_cells": "swap_best_fused"}
+
+
 def launches() -> dict[str, int]:
-    return {name: k.launches for name, k in KERNELS.items()}
+    out = {name: k.launches for name, k in KERNELS.items()}
+    for name, per_step in STANDS_FOR.items():
+        out[per_step] += out[name]
+    return out
 
 
 # ------------------------------------------------------------------- APSP
@@ -109,6 +119,24 @@ def swap_best_fused(h: torch.Tensor, z: torch.Tensor, scale: float,
     b (N,) out/in-gain terms carrying the −1e18 sentinel.  Returns 0-dim
     (best delta, panel rank, column j)."""
     return _sv.swap_best_fused(h, z, scale, sel, valid, a, b)
+
+
+def greedy_cells(h: torch.Tensor, z: torch.Tensor, scale: torch.Tensor,
+                 avail: torch.Tensor, s: torch.Tensor, r: torch.Tensor, *,
+                 first: bool) -> None:
+    """One greedy step of B FedGS cells at once, in place on their state s
+    (B, N) bool and r (B, N) f32: h (N, N) shared or (B, N, N), z (B, N),
+    scale (B,) alpha/N, avail (B, N); ``first`` starts the solve (s and r
+    read as zero).  Each row is the per-step greedy step's bit for bit."""
+    _sv.greedy_cells(h, z, scale, avail, s, r, first=first)
+
+
+def swap_cells(h: torch.Tensor, z: torch.Tensor, scale: torch.Tensor,
+               avail: torch.Tensor, s: torch.Tensor, r: torch.Tensor,
+               m: int) -> None:
+    """One best-swap sweep of B FedGS cells at once over their m-row panels,
+    in place on s and r (arguments as :func:`greedy_cells`)."""
+    _sv.swap_cells(h, z, scale, avail, s, r, m)
 
 
 def swap_best(q: torch.Tensor, sel: torch.Tensor, a: torch.Tensor,

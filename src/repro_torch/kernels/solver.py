@@ -31,6 +31,13 @@ of ``repro/kernels/solver.py:60-80``).  The dense swap serves
 ``fedgs_solve``, whose caller hands over Q itself: it reads the selected
 rows of Q in place.
 
+The cell axis (:func:`greedy_cells`, :func:`swap_cells`): one launch does a
+greedy step, or a sweep, of every FedGS cell of a batch at once, a block a
+cell, in place on the cells' (B, N) state s and r, with the step's glue
+(diag(Q), Q's rows, the sorted set S, the swap itself) inside the kernel:
+m + ``max_sweeps`` launches a batch round.  They take panels that fit the
+swap's small path (:func:`solve_cells_takes`).
+
 The wrappers launch the kernel for CUDA tensors and take the plain version
 only for CPU tensors.  They return 0-dim tensors on the input's device and
 never sync with the host.
@@ -42,7 +49,7 @@ import ctypes
 import torch
 
 from repro_torch.kernels import autotune
-from repro_torch.kernels._build import F, I, P, Kernel, library, stream_of
+from repro_torch.kernels._build import F, I, L, P, Kernel, library, stream_of
 
 NEG = -1e18         # the solver's masked-entry sentinel
 
@@ -57,6 +64,14 @@ SWAP_GAIN_KERNEL = Kernel("solver", "swap_gain_launch",
                           [P, P, P, P, I, I, I, P, P, P, P, P])
 SWAP_GAIN_PLANS = ("small", "grid")
 SWAP_GAIN_SMALL_MOST = 8192    # entries the small path takes when forced
+# the batched solve's steps: one launch is one greedy step (one sweep) of
+# every cell (``ops.launches`` counts it under the per-step kernel's name too)
+ARGMAX_CELLS_KERNEL = Kernel("solver", "masked_argmax_cells_launch",
+                             [P, L, P, P, P, P, P, I, I, I, P])
+SWAP_CELLS_KERNEL = Kernel("solver", "swap_best_cells_launch",
+                           [P, L, P, P, P, P, P, I, I, I, P])
+SWAP_TOL = 1e-9     # == core/sampler_device.SWAP_TOL
+SWAP_SMALL = 2048   # == csrc/solver.cu kSwapSmall: the small swap's panel
 
 
 # ----------------------------------------------------- factored-Q providers
@@ -395,3 +410,149 @@ def swap_gain(q: torch.Tensor, sel: torch.Tensor, a: torch.Tensor,
     if q.device.type != "cpu":
         raise ValueError(f"swap_gain: no kernel for {q.device}")
     return swap_gain_plain(q, sel, a, b)
+
+
+# ------------------------------------------------------------ the cell axis
+# The batched FedGS solve's two steps over B cells at once, in place on the
+# state s (B, N) bool and r (B, N) f32: h is one (N, N) H shared by every
+# cell or a (B, N, N) stack, z (B, N) the count penalty, scale (B,) float32
+# alpha/N.  Each equals, row by row, the per-step route of
+# ``core/sampler_device._solve_kernel`` (q_diag, q_row, greedy_argmax,
+# the sort of S and swap_best_fused) bit for bit.
+def _q_rows(h, z, scale, k):
+    """Row k[c] of each cell's Q = sym(a·H) − diag(z), q_row's op order."""
+    b, n = z.shape
+    hb, cells = h.expand(b, n, n), torch.arange(b, device=z.device)
+    kc = k[:, None]
+    zc = torch.where(torch.arange(n, device=z.device) == kc,
+                     torch.gather(z, 1, kc), torch.zeros((), device=z.device))
+    a = scale[:, None]
+    return 0.5 * ((a * hb[cells, k] - zc) + (a * hb[cells, :, k] - zc))
+
+
+def _q_diags(h, z, scale):
+    """diag(Q) of each cell, q_diag's op order: (B, N)."""
+    t = scale[:, None] * torch.diagonal(h, dim1=-2, dim2=-1) - z
+    return 0.5 * (t + t)
+
+
+def greedy_cells_plain(h, z, scale, avail, s, r, *, first: bool):
+    if first:
+        s.zero_()
+        r.zero_()
+    neg = torch.full((), NEG, dtype=torch.float32, device=z.device)
+    gain = _q_diags(h, z, scale) + 2.0 * r
+    gain = torch.where(avail & ~s, gain, neg)
+    gain = torch.where(torch.isnan(gain), neg, gain)
+    k = torch.argmax(gain, dim=1)
+    ok = torch.gather(gain, 1, k[:, None]) > NEG / 2            # (B, 1)
+    s |= (torch.arange(z.shape[1], device=z.device) == k[:, None]) & ok
+    r += torch.where(ok, _q_rows(h, z, scale, k),
+                     torch.zeros((), device=z.device))
+
+
+def swap_cells_plain(h, z, scale, avail, s, r, m: int):
+    b, n = z.shape
+    dev = z.device
+    neg = torch.full((), NEG, dtype=torch.float32, device=dev)
+    zero = torch.zeros((), dtype=torch.float32, device=dev)
+    iota = torch.arange(n, device=dev)
+    diag = _q_diags(h, z, scale)
+    out_term = -2.0 * r + diag
+    in_term = 2.0 * r + diag
+    sel = torch.sort(torch.where(s, iota, n), dim=1).values[:, :m]
+    valid = sel < n
+    selc = torch.clamp_max(sel, n - 1)
+    a = torch.where(valid, torch.gather(out_term, 1, selc), neg)
+    bb = torch.where(~s & avail, in_term, neg)
+    hb = h.expand(b, n, n)
+    cells = torch.arange(b, device=dev)[:, None]
+    hs = hb[cells, selc]                                        # (B, m, N)
+    hts = hb[cells, :, selc]                                    # (B, m, N)
+    zsel = torch.where(valid, torch.gather(z, 1, selc), zero)
+    selcol = torch.where(valid, selc, torch.full_like(selc, -1))
+    zc = torch.where(selcol[:, :, None] == iota, zsel[:, :, None], zero)
+    sc = scale[:, None, None]
+    q = 0.5 * ((sc * hs - zc) + (sc * hts - zc))
+    delta = (a[:, :, None] + bb[:, None, :]) - 2.0 * q
+    delta = torch.where(torch.isnan(delta), neg, delta).reshape(b, m * n)
+    flat = torch.argmax(delta, dim=1)
+    best = torch.gather(delta, 1, flat[:, None])[:, 0]
+    rank, j = flat // n, flat % n
+    i = torch.gather(selc, 1, torch.clamp_max(rank, m - 1)[:, None])[:, 0]
+    swap = (best > SWAP_TOL)[:, None]
+    s2 = (s & (iota != i[:, None])) | (iota == j[:, None])
+    r2 = r - _q_rows(h, z, scale, i) + _q_rows(h, z, scale, j)
+    s.copy_(torch.where(swap, s2, s))
+    r.copy_(torch.where(swap, r2, r))
+
+
+def _cells_args(h, z, scale, avail, s, r):
+    b, n = z.shape
+    if not all(t.is_cuda for t in (h, z, scale, avail, s, r)):
+        raise ValueError("the cell-axis kernels take CUDA tensors")
+    if h.dtype != torch.float32 or z.dtype != torch.float32 or \
+            scale.dtype != torch.float32 or r.dtype != torch.float32 or \
+            avail.dtype != torch.bool or s.dtype != torch.bool:
+        raise TypeError("the cell-axis kernels take float32 h, z, scale and "
+                        "r, bool avail and s")
+    if h.shape not in ((n, n), (b, n, n)) or scale.shape != (b,) or \
+            avail.shape != (b, n) or s.shape != (b, n) or r.shape != (b, n):
+        raise ValueError("the cell-axis kernels take h (N, N) or (B, N, N), "
+                         "z, avail, s, r (B, N) and scale (B,)")
+    if not all(t.is_contiguous() for t in (h, z, scale, avail, s, r)):
+        raise ValueError("the cell-axis kernels take contiguous tensors")
+    return (h.data_ptr(), 0 if h.dim() == 2 else n * n, z.data_ptr(),
+            scale.data_ptr(), avail.data_ptr(), s.data_ptr(), r.data_ptr(),
+            b)
+
+
+def _launch(kernel, device, args):
+    dev = device.index
+    if dev == torch.cuda.current_device():
+        kernel(*args, torch.cuda.current_stream(dev).cuda_stream)
+    else:
+        with torch.cuda.device(dev):
+            kernel(*args, torch.cuda.current_stream(dev).cuda_stream)
+
+
+def greedy_cells_cuda(h, z, scale, avail, s, r, *, first: bool):
+    """One greedy step of every cell, one launch (``masked_argmax_cells_
+    kernel``, a block a cell); ``first`` starts the solve: s and r are
+    read as zero and written whole."""
+    _launch(ARGMAX_CELLS_KERNEL, z.device,
+            (*_cells_args(h, z, scale, avail, s, r), z.shape[1], int(first)))
+
+
+def swap_cells_cuda(h, z, scale, avail, s, r, m: int):
+    """One best-swap sweep of every cell over its m-row panel, one launch
+    (``swap_best_cells_kernel``); :func:`solve_cells_takes` must hold."""
+    _launch(SWAP_CELLS_KERNEL, z.device,
+            (*_cells_args(h, z, scale, avail, s, r), m, z.shape[1]))
+
+
+def solve_cells_takes(m: int, n: int) -> bool:
+    """Whether the cell-axis kernels take an m-row panel over N clients: 1
+    <= m <= N and m·N within the Q-free swap's ``small`` plan (one block;
+    the C launchers' ``solve_cells_take``).  Elsewhere (fedsim's (416,
+    4096)) the solve runs the per-step kernels cell by cell."""
+    return 1 <= m <= n and m * n <= SWAP_SMALL
+
+
+def greedy_cells(h, z, scale, avail, s, r, *, first: bool) -> None:
+    """One greedy step of every cell, in place on s and r (the CUDA kernel
+    for CUDA tensors, its plain version on the CPU)."""
+    if z.is_cuda:
+        return greedy_cells_cuda(h, z, scale, avail, s, r, first=first)
+    if z.device.type != "cpu":
+        raise ValueError(f"greedy_cells: no kernel for {z.device}")
+    return greedy_cells_plain(h, z, scale, avail, s, r, first=first)
+
+
+def swap_cells(h, z, scale, avail, s, r, m: int) -> None:
+    """One best-swap sweep of every cell, in place on s and r."""
+    if z.is_cuda:
+        return swap_cells_cuda(h, z, scale, avail, s, r, m)
+    if z.device.type != "cpu":
+        raise ValueError(f"swap_cells: no kernel for {z.device}")
+    return swap_cells_plain(h, z, scale, avail, s, r, m)

@@ -49,6 +49,8 @@ Contracts, kernel against plain version on the same device:
   requested bytes by the plan's exactly; fedsim on pod2 samples the
   reference's cohort (416 at N = 4096).
 """
+import ctypes
+
 import numpy as np
 import pytest
 import torch
@@ -530,6 +532,125 @@ def test_fedgs_select_on_card_equals_cpu(cuda, n):
     got = tsd.fedgs_select(h.to(cuda), counts.to(cuda), avail.to(cuda), 1.0,
                            m=m, max_sweeps=16, m_target=mt)
     assert torch.equal(got.cpu(), want)
+
+
+def _cells_inputs(rng, b, n, case):
+    """B cells' (H list, counts, avail, alphas): cell 0 has fewer than m
+    clients available, cell 1 none; "ties" is integer H at alpha = N (exact
+    ties), "nan" poisons a client of H."""
+    integer = case == "ties"
+    hs = []
+    for _ in range(1 if case == "shared" else b):
+        h = (rng.integers(0, 3, (n, n)) if integer else
+             rng.random((n, n))).astype(np.float32)
+        h = 0.5 * (h + h.T)
+        np.fill_diagonal(h, 0)
+        hs.append(torch.from_numpy(h))
+    if case == "nan":
+        hs[1 % b][3, :] = np.nan
+        hs[1 % b][:, 3] = np.nan
+    counts = torch.as_tensor(rng.integers(0, 6, (b, n)), dtype=torch.float32)
+    avail = torch.as_tensor(rng.random((b, n)) < 0.8)
+    avail[0] = False
+    avail[0, :3] = True
+    if b > 1:
+        avail[1] = False
+    alphas = [float(n)] * b if integer else \
+        [(0.5, 1.0, 1.3)[i % 3] for i in range(b)]
+    return hs * b if case == "shared" else hs, counts, avail, alphas
+
+
+@pytest.mark.parametrize("b,m,n,case", [(56, 10, 100, "shared"),
+                                        (3, 6, 30, "stacked"),
+                                        (5, 9, 52, "ties"),
+                                        (4, 6, 24, "nan")])
+def test_fedgs_cells_kernels_equal_per_cell_kernels(cuda, b, m, n, case):
+    """The batched solve's kernels (a greedy step and a sweep of every cell
+    a launch) against each cell's per-step kernels on the card, sets
+    bitwise, and against the CPU's plain batched route, sets and r
+    bitwise: mixed alpha, exact ties, NaN in H, |A_t| < m and an empty A_t;
+    the whole batch takes m greedy and ``max_sweeps`` swap launches."""
+    rng = np.random.default_rng(b * 1000 + n)
+    hs, counts, avail, alphas = _cells_inputs(rng, b, n, case)
+    sweeps = 16
+    assert tsolver.solve_cells_takes(m, n)
+    z = tsd.balance_z(counts.to(cuda), m)
+    h = hs[0].to(cuda) if case == "shared" else \
+        torch.stack(hs).to(cuda)
+    tops.reset_launches()
+    s, r = tsd._solve_cells(h, z, tsd.alpha_scales(alphas, n, cuda),
+                            avail.to(cuda), m=m, max_sweeps=sweeps)
+    launched = tops.launches()
+    assert launched["greedy_argmax"] == launched["greedy_cells"] == m
+    assert launched["swap_best_fused"] == launched["swap_cells"] == sweeps
+    for i in range(b):
+        si = tsd._select_steps(
+            h if h.dim() == 2 else h[i], z[i], tsd._f32_ratio(alphas[i], n),
+            avail[i].to(cuda), m=m, max_sweeps=sweeps)
+        assert torch.equal(s[i], si), i
+    s_p, r_p = tsd._solve_cells(h.cpu(), z.cpu(), tsd.alpha_scales(alphas, n),
+                                avail, m=m, max_sweeps=sweeps)
+    assert torch.equal(s.cpu(), s_p)
+    torch.testing.assert_close(r.cpu(), r_p, rtol=0, atol=0, equal_nan=True)
+    want = tsd.fedgs_select_cells(hs, counts, avail, alphas, m=m,
+                                  max_sweeps=sweeps)
+    tops.reset_launches()
+    got = tsd.fedgs_select_cells([x.to(cuda) for x in hs], counts.to(cuda),
+                                 avail.to(cuda), alphas, m=m,
+                                 max_sweeps=sweeps)
+    assert tops.launches()["greedy_argmax"] == m
+    assert torch.equal(got, s) and torch.equal(got.cpu(), want)
+    assert int(got[0].sum()) == 3 and not got[1].any()
+
+
+def test_fedgs_cells_shape_rule(cuda):
+    """The batched kernels take a panel of m <= N rows with m·N within the
+    Q-free swap's small plan (the Python rule is the C launchers'); fedsim's
+    (410, 4096) and (416, 4096) go to the per-step kernels, cell by cell,
+    with the same sets."""
+    take = tsolver.library("solver").solve_cells_take
+    take.argtypes, take.restype = [ctypes.c_int, ctypes.c_int], ctypes.c_int
+    for m, n in ((10, 100), (6, 30), (45, 45), (1, 2048), (2, 1024)):
+        assert tsolver.solve_cells_takes(m, n) and take(m, n), (m, n)
+        assert tsolver.swap_best_fused_plan(m, n) == "small"
+    for m, n in ((410, 4096), (416, 4096), (46, 45), (1, 2049), (2, 1025),
+                 (0, 30)):
+        assert not tsolver.solve_cells_takes(m, n), (m, n)
+        assert not take(m, n), (m, n)
+    rng = np.random.default_rng(5)
+    b, m, n, sweeps = 2, 410, 4096, 4
+    h = _h(rng, n).to(cuda)
+    counts = torch.as_tensor(rng.integers(0, 3, (b, n)),
+                             dtype=torch.float32, device=cuda)
+    avail = torch.as_tensor(rng.random((b, n)) < 0.5, device=cuda)
+    tops.reset_launches()
+    got = tsd.fedgs_select_cells(h, counts, avail, [1.0, 0.5], m=m,
+                                 max_sweeps=sweeps)
+    launched = tops.launches()
+    assert launched["greedy_argmax"] == b * m
+    assert launched["swap_best_fused"] == b * sweeps
+    assert launched["greedy_cells"] == launched["swap_cells"] == 0
+    for i, al in enumerate((1.0, 0.5)):
+        assert torch.equal(got[i], tsd.fedgs_select(
+            h, counts[i], avail[i], al, m=m, max_sweeps=sweeps))
+
+
+def test_fedgs_cells_kernels_reject_what_they_do_not_take(cuda):
+    b, n = 2, 30
+    h = torch.zeros(n, n, device=cuda)
+    z = torch.zeros(b, n, device=cuda)
+    sc = torch.ones(b, device=cuda)
+    av = torch.ones(b, n, dtype=torch.bool, device=cuda)
+    s = torch.zeros(b, n, dtype=torch.bool, device=cuda)
+    r = torch.zeros(b, n, device=cuda)
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        tsolver.swap_cells_cuda(h, z, sc, av, s, r, 70)   # 70 x 30 > 2,048
+    with pytest.raises(ValueError):
+        tsolver.greedy_cells_cuda(h.cpu(), z, sc, av, s, r, first=True)
+    with pytest.raises(TypeError):
+        tsolver.greedy_cells_cuda(h, z, sc, av, s.float(), r, first=True)
+    with pytest.raises(ValueError):
+        tsolver.greedy_cells_cuda(h[:, :-1], z, sc, av, s, r, first=True)
 
 
 def test_engine_on_card_equals_cpu(cuda):

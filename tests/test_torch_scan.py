@@ -396,6 +396,53 @@ def test_run_batch_bitwise_per_cell_runs(synthetic_ds, h_ref):
         _bitwise(got, batch[k])
 
 
+@pytest.mark.parametrize("layout", ["interleaved", "fedgs_last"])
+def test_fedgs_cells_solve_together_as_alone(synthetic_ds, h_ref,
+                                            monkeypatch, layout):
+    """FedGS cells at two alphas (one with an H of its own) beside uniform
+    cells: the batch's one FedGS solve a round gives each cell the sets
+    and counts of its own run, and of a run whose FedGS cells each take the
+    per-step route (``_select_steps``)."""
+    ds, n = synthetic_ds, synthetic_ds.n_clients
+    eng = tse.ScanEngine(ds, logistic_regression(), _cfg(tse), device="cpu")
+    ln = make_mode("LN", n_clients=n, beta=0.5, seed=99)
+    h2 = np.array(h_ref, copy=True)
+    h2[:5, :5] = 0.5 * h2[:5, :5]
+    specs = [("fedgs", 1.0, h_ref), ("uniform", 1.0, None),
+             ("fedgs", 0.5, h_ref), ("uniform", 1.0, None),
+             ("fedgs", 2.0, h2)]
+    if layout == "fedgs_last":
+        specs = specs[1::2] + specs[0::2]
+    cells = [eng.cell(seed=10 + i, mode=ln, alpha=alpha, h=h,
+                      sampler_process=tsd.make_sampler_process(
+                          name, alpha=alpha))
+             for i, (name, alpha, h) in enumerate(specs)]
+    batch = eng.run_batch(cells)
+    for cell, got in zip(cells, batch):
+        one = eng.run(cell)
+        assert np.array_equal(got.sel, one.sel)
+        assert np.array_equal(got.counts, one.counts)
+
+    def per_step(h, counts, avail, alphas, *, m, max_sweeps, scales=None):
+        z = tsd.balance_z(counts, m)
+        return torch.stack([tsd._select_steps(
+            h[i].float(), z[i], tsd._f32_ratio(alphas[i], n), avail[i], m=m,
+            max_sweeps=max_sweeps) for i in range(len(alphas))])
+
+    monkeypatch.setattr(tse, "fedgs_select_cells", per_step)
+    eng2 = tse.ScanEngine(ds, logistic_regression(), _cfg(tse),
+                          device="cpu")
+    cells2 = [eng2.cell(seed=10 + i, mode=ln, alpha=alpha, h=h,
+                        sampler_process=tsd.make_sampler_process(
+                            name, alpha=alpha))
+              for i, (name, alpha, h) in enumerate(specs)]
+    for got, want in zip(batch, eng2.run_batch(cells2)):
+        assert np.array_equal(got.sel, want.sel)
+        assert np.array_equal(got.counts, want.counts)
+    assert any(not np.array_equal(batch[i].sel, batch[j].sel)
+               for i in range(len(specs)) for j in range(i))
+
+
 def test_segments_bitwise_whole_run(synthetic_ds, h_ref):
     ds = synthetic_ds
     eng = tse.ScanEngine(ds, logistic_regression(), _cfg(tse), device="cpu")

@@ -19,6 +19,12 @@ Contracts:
   m_target), on the port's Q-free route and on its dense one; given the
   same dense Q, ``fedgs_solve``'s kernel route (its plain versions here)
   selects the reference's ``backend="pallas"`` sets;
+* the cell axis: ``fedgs_select_cells`` (one batched solve for B cells,
+  its plain route here; ``fedgs_select`` is its one-cell case) selects, cell
+  by cell, the sets of the per-step route, of the reference's
+  ``_fedgs_select`` and of ``jax.vmap`` over the reference's
+  ``fedgs_select``, over mixed alpha, exact ties, NaN, |A_t| < m, an empty
+  A_t and m = 0;
 * the MD and PoC samplers draw from torch generators: shape, support and
   rate checks, and PoC's deterministic step (top-m by loss among the
   candidates) equal to the reference's given the same candidates.
@@ -32,6 +38,7 @@ import jax.numpy as jnp
 
 from repro.core import sampler as jsampler
 from repro.core.sampler_device import _fedgs_select, _fedgs_solve
+from repro.core.sampler_device import fedgs_select as jax_fedgs_select
 from repro.core.sampler_device import md_select as jax_md_select
 from repro.core.sampler_device import select_k as jax_select_k
 from repro.kernels import ops as jops
@@ -149,7 +156,7 @@ def test_solve_kernel_hands_avail_and_s_to_the_greedy_step(rng, monkeypatch,
         return real(diag, r, mask, taken)
 
     monkeypatch.setattr(tops, "greedy_argmax", spy)
-    got = _port_select(h, counts, avail, alpha, m, mt, sweeps)
+    got = _port_steps(h, counts, avail, alpha, m, mt, sweeps)
     want = _jax_select(h, counts, avail, alpha, m, mt, "ref", sweeps)
     assert np.array_equal(got, want)
     assert len(calls) == m
@@ -241,6 +248,14 @@ def _port_select(h, counts, avail, alpha, m, m_target, sweeps):
                             max_sweeps=sweeps, m_target=m_target).numpy()
 
 
+def _port_steps(h, counts, avail, alpha, m, m_target, sweeps):
+    """The port's per-step Q-free route (``_solve_kernel``), which a panel
+    past one block takes."""
+    z = tsd.balance_z(_t(counts), m_target)
+    return tsd._select_steps(_t(h), z, tsd._f32_ratio(alpha, h.shape[0]),
+                             _t(avail), m=m, max_sweeps=sweeps).numpy()
+
+
 def _port_dense(h, counts, avail, alpha, m, m_target, sweeps):
     """The port's dense route: Q = sym(alpha/N · H − diag(z)), then the
     plain solver, as the reference's ``backend="ref"`` builds it."""
@@ -291,6 +306,8 @@ def test_fedgs_select_identical_sets(rng, case):
                                       "pallas", sweeps), want)
     assert np.array_equal(_port_dense(h, counts, avail, alpha, m, mt,
                                       sweeps), want)
+    assert np.array_equal(_port_steps(h, counts, avail, alpha, m, mt,
+                                      sweeps), want)
     got = _port_select(h, counts, avail, alpha, m, mt, sweeps)
     assert np.array_equal(got, want)
     assert got.sum() == m and not np.any(got & ~avail)
@@ -298,6 +315,126 @@ def test_fedgs_select_identical_sets(rng, case):
         assert not got[5]
     if case == "fewer_than_m":
         assert set(np.flatnonzero(got)) == {3, 17, 29}
+
+
+def _cells_case(rng, case):
+    """B cells' (H list, counts (B, N), avail (B, N), alphas, m, m_target):
+    mixed alpha, one H shared or one a cell; "ties" integer H at alpha = N,
+    "nan" a NaN-poisoned client in one cell's H, "fewer_than_m" a cell with
+    3 clients available, "empty" a cell with none, "m0" a zero budget."""
+    b, n, mt = 5, 40, 6
+    integer = case == "ties"
+    hs = [_h(rng, n, integer=integer)
+          for _ in range(1 if case == "shared" else b)]
+    if case == "nan":
+        hs[2][5, :] = np.nan
+        hs[2][:, 5] = np.nan
+    counts = rng.integers(0, 6, (b, n)).astype(np.float32)
+    avail = rng.random((b, n)) < 0.8
+    if case == "fewer_than_m":
+        avail[1] = False
+        avail[1, [3, 17, 29]] = True
+    if case == "empty":
+        avail[3] = False
+    alphas = [float(n)] * b if integer else [0.5, 1.0, 1.3, 1.0, 0.5]
+    m = 0 if case == "m0" else mt
+    return (hs * b if case == "shared" else hs), counts, avail, alphas, m, mt
+
+
+@pytest.mark.parametrize("case", ["shared", "stacked", "ties", "nan",
+                                  "fewer_than_m", "empty", "m0"])
+def test_fedgs_select_cells_equals_per_cell_and_reference(rng, case):
+    """One batched solve for B cells selects each cell's own fedgs_select
+    set, the per-step route's and the reference's; its r is the sum of Q's
+    rows over the set."""
+    hs, counts, avail, alphas, m, mt = _cells_case(rng, case)
+    sweeps, n = 12, counts.shape[1]
+    held = {}
+    ht = [held.setdefault(id(h), _t(h)) for h in hs]   # "shared": one tensor
+    got = tsd.fedgs_select_cells(ht, _t(counts), _t(avail), alphas, m=m,
+                                 max_sweeps=sweeps, m_target=mt)
+    for i in range(len(hs)):
+        want = _port_select(hs[i], counts[i], avail[i], alphas[i], m, mt,
+                            sweeps)
+        assert np.array_equal(got[i].numpy(), want), i
+        assert np.array_equal(want, _port_steps(
+            hs[i], counts[i], avail[i], alphas[i], m, mt, sweeps)), i
+        assert np.array_equal(want, _jax_select(
+            hs[i], counts[i], avail[i], alphas[i], m, mt, "ref", sweeps)), i
+    assert np.array_equal(got.sum(1).numpy(),
+                          np.minimum(m, avail.sum(1)))
+    if case == "fewer_than_m":
+        assert set(np.flatnonzero(got[1].numpy())) == {3, 17, 29}
+    if case == "nan":
+        assert not got[2, 5]
+    if m == 0 or case == "nan":
+        return
+    z = tsd.balance_z(_t(counts), mt)
+    h_all = ht[0] if case == "shared" else torch.stack(ht)
+    s, r = tsd._solve_cells(h_all, z, tsd.alpha_scales(alphas, n), _t(avail),
+                            m=m, max_sweeps=sweeps)
+    assert torch.equal(s, got)
+    for i in range(len(hs)):
+        q = tsd._f32_ratio(alphas[i], n) * _t(hs[i]) - torch.diag(z[i])
+        q = (0.5 * (q + q.T)).double()
+        torch.testing.assert_close(r[i], q[s[i]].sum(0).float(), rtol=1e-5,
+                                   atol=1e-5)
+
+
+@pytest.mark.parametrize("case", ["mixed_alpha", "ties", "fewer_than_m",
+                                  "empty", "m0"])
+def test_fedgs_select_cells_equals_vmapped_reference(rng, case):
+    """The batched solve over B cells (mixed alpha, one H a cell) against
+    the reference's ``jax.vmap(fedgs_select)`` over the same cells: the
+    same sets.  H has a zero diagonal (jit contracts a·H_kk − z_k into an
+    FMA: DESIGN assumption #23)."""
+    b, n, m = 4, 30, 0 if case == "m0" else 6
+    integer = case == "ties"
+    h = (rng.integers(0, 3, (b, n, n)) if integer
+         else rng.random((b, n, n))).astype(np.float32)
+    h = 0.5 * (h + h.transpose(0, 2, 1))
+    h[:, np.arange(n), np.arange(n)] = 0
+    counts = rng.integers(0, 5, (b, n)).astype(np.float32)
+    avail = rng.random((b, n)) < 0.7
+    if case == "fewer_than_m":
+        avail[2] = False
+        avail[2, [4, 9]] = True
+    if case == "empty":
+        avail[1] = False
+    alphas = np.float32([n] * b if integer else [0.5, 1.0, 2.0, 1.0])
+    want = jax.vmap(lambda hh, cc, aa, al: jax_fedgs_select(
+        hh, cc, aa, al, m=m, max_sweeps=12, m_target=6))(
+            jnp.asarray(h), jnp.asarray(counts), jnp.asarray(avail),
+            jnp.asarray(alphas))
+    got = tsd.fedgs_select_cells([_t(x) for x in h], _t(counts), _t(avail),
+                                 [float(a) for a in alphas], m=m,
+                                 max_sweeps=12, m_target=6)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    np.testing.assert_array_equal(got.numpy().sum(1),
+                                  np.minimum(m, avail.sum(1)))
+
+
+def test_fedgs_select_cells_makes_one_call_a_step(rng, monkeypatch):
+    """The batched route calls the greedy step m times and the sweep
+    ``max_sweeps`` times for the whole batch (the launches the CUDA kernels
+    make), the first greedy call starting the solve."""
+    hs, counts, avail, alphas, m, mt = _cells_case(rng, "stacked")
+    calls = []
+    real_g, real_s = tops.greedy_cells, tops.swap_cells
+
+    def greedy(*a, first):
+        calls.append(("g", first))
+        return real_g(*a, first=first)
+
+    def swap(*a):
+        calls.append(("s", a[-1]))
+        return real_s(*a)
+
+    monkeypatch.setattr(tops, "greedy_cells", greedy)
+    monkeypatch.setattr(tops, "swap_cells", swap)
+    tsd.fedgs_select_cells([_t(h) for h in hs], _t(counts), _t(avail),
+                           alphas, m=m, max_sweeps=7, m_target=mt)
+    assert calls == [("g", True)] + [("g", False)] * (m - 1) + [("s", m)] * 7
 
 
 @pytest.mark.parametrize("case", ["random", "ties", "nan", "all_unavailable"])
